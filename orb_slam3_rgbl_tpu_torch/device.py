@@ -1,0 +1,16 @@
+"""Device resolution for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device=None) -> torch.device:
+    """``None`` → ``cuda``. Raises when CUDA is asked for but absent: the
+    port never falls back to the CPU on its own; the CPU is used only when
+    the caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
