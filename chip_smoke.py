@@ -6,15 +6,23 @@ against their plain PyTorch versions.
 
 Phase 0 builds the CUDA kernels from ``orb_slam3_rgbl_tpu_torch/csrc``.
 Phase 1 runs each kernel at the main path's shapes on a rendered
-1241×376 frame (K1 ``fast_and_blur`` on all 8 pyramid levels, K2
-``brief_continuous`` on the frame's 2000 keypoints), compares it with its
-plain version and times both. Phase 2 drives the main path — the fused
-RGB-L tracking step through ``Tracker.track_image_rgbl`` →
-``FastPath.sync/run/advance`` — at the KITTI configuration (1241×376,
-2000 features, 8 levels, a 131,072-point cloud, an 8192-landmark window)
-over a synthetic street-canyon drive, and checks inliers, launch counts,
-the absence of host syncs inside the step and the trajectory against
-ground truth.
+1241×376 frame — K1 ``fast_and_blur`` on all 8 pyramid levels, K2
+``brief_continuous`` on the frame's 2000 keypoints, K3 ``brief_blocks``
+on their 3904 bin-pure slots — compares it with its plain version
+(bit for bit) and times both.
+Phase 2 drives the main path, ``System.track_rgbl`` in the tracking-only
+configuration (``enable_mapping=False``, ``loop_closing=False``), at the
+KITTI configuration (1241×376, 2000 features, 8 levels, 131,072-point
+clouds staged on the card, an 8192-landmark window) over 1 + 40 frames of
+a synthetic street canyon with a keyframe forced every 4 frames: frame 1
+on the classic ladder, every later frame on the fused step. It checks
+states, keyframes, launch counts, the window's growth, the absence of
+host syncs inside the step and the trajectory against ground truth, and
+prints host ms per kind of frame.
+Phase 3 feeds 12 textureless frames and 3 textured ones: OK →
+RECENTLY_LOST → LOST, a second atlas map, and tracking again.
+Phase 4 runs the binned-BRIEF extraction (K3) on 5 of the drive's frames
+beside the continuous one.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. Without a CUDA device the script exits 1 at once.
@@ -43,20 +51,26 @@ from orb_slam3_rgbl_tpu_torch.config import kitti_rgbl_config
 from orb_slam3_rgbl_tpu_torch.geometry import lie
 from orb_slam3_rgbl_tpu_torch.ops import brief_cuda, fast as fast_ops, frontend_cuda
 from orb_slam3_rgbl_tpu_torch.ops import orb as orb_ops, pyramid as pyr_ops
-from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
+from orb_slam3_rgbl_tpu_torch.slam import frame as frame_mod, tracking as trk
+from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
+from orb_slam3_rgbl_tpu_torch.slam.system import System
 from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker
 
 SEED = 0
-N_TRACKED = 20          # timed fused frames after the initialization frame
-N_PROFILED = 3          # further fused frames under torch.profiler
-CLOUD_AZ, CLOUD_EL = 2048, 64   # 131,072 points (the JAX engine's CLOUD_CAP)
-WINDOW_CAP = 8192
+N_DRIVE = 41            # the initialization frame + 40 tracked frames
+N_PROFILED = 3          # the drive's last frames run under torch.profiler
+KF_EVERY = 4            # forced keyframe cadence (the JAX engine bench's)
+MIN_KEYFRAMES = 10
+N_BLANK, N_AFTER = 12, 3    # phase 3: textureless frames, then textured ones
+N_BINNED = 5            # phase 4: binned extractions
+CLOUD_AZ, CLOUD_EL = 2048, 64   # 131,072 points (System.CLOUD_CAP)
 MIN_INLIERS = 30
-# translation error bound against ground truth over the drive (metres),
-# ~3x the error this drive shows on an H100 (PERF.md §2); the reduced-size
-# drive of tests/test_torch_step.py holds the port within 5 mm of the JAX
-# tracker on the same frames
-MAX_TRANS_ERR_M = 0.25
+# translation error bound against ground truth over the drive (metres):
+# ~3x the 0.118 m this 41-frame loop reaches when its helpers run on the
+# CPU at this size. At 320x192 the same loop ends at 0.181 m on both the
+# port and the JAX System (0.8 mm apart), and tests/test_torch_system.py
+# holds the two within 5 mm frame by frame
+MAX_TRANS_ERR_M = 0.35
 BLUR_TOL = 1e-3         # K1 blur vs pyramid.gaussian_blur (tests/test_brief_pallas.py bar)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): 3.35 TB/s of HBM and
@@ -138,25 +152,40 @@ def bound(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def brief_bytes(comp, corners, idx) -> float:
-    """Least bytes K2 must move on these inputs: each composite pixel that
-    some test samples, once (with the plain version's clamps), the index
-    tables, the corners and the output words."""
+def sampled_pixels(comp, corners, idx) -> int:
+    """Distinct composite pixels that some test samples (with the plain
+    version's clamps)."""
     Hc, Wc = comp.shape
-    N = corners.shape[0]
     u = corners[:, 0:1].long().clamp(0, Wc - brief_cuda.PATCH)
     v = corners[:, 1:2].long().clamp(0, Hc - brief_cuda.PATCH)
     i = idx.long().clamp(0, brief_cuda.PATCH ** 2 - 1)
-    pixels = torch.unique((v + i // brief_cuda.PATCH) * Wc + u + i % brief_cuda.PATCH).numel()
-    return 4.0 * pixels + idx.numel() * 4.0 + corners.numel() * 4.0 + 32.0 * N
+    return torch.unique((v + i // brief_cuda.PATCH) * Wc + u + i % brief_cuda.PATCH).numel()
+
+
+def brief_bytes(comp, corners, idx) -> float:
+    """Least bytes K2 must move on these inputs: each sampled composite
+    pixel once, the index tables, the corners and the output words."""
+    return (4.0 * sampled_pixels(comp, corners, idx) + idx.numel() * 4.0
+            + corners.numel() * 4.0 + 32.0 * corners.shape[0])
+
+
+def brief_blocks_bytes(comp, corners, block_bins) -> float:
+    """Least bytes K3 must move on these inputs: each sampled composite
+    pixel once (all slots, padding included), the 30 x 512 pattern tables,
+    the corners, the block bins and the output words."""
+    S = corners.shape[0]
+    idx = brief_cuda._tables(comp.device)[brief_cuda._slot_bins(block_bins, S)]
+    return (4.0 * sampled_pixels(comp, corners, idx) + brief_cuda.binned_pattern_tables().nbytes
+            + corners.numel() * 4.0 + block_bins.numel() * 4.0 + 32.0 * S)
 
 
 def kitti_synthetic_config():
     """``kitti_rgbl_config()`` with its LiDAR extrinsics replaced by the
-    synthetic world's axis swap."""
+    synthetic world's axis swap, in the tracking-only configuration
+    (loop closing off)."""
     cfg = kitti_rgbl_config()
     lidar = dataclasses.replace(cfg.lidar, T_velo_cam=tuple(syn.T_VELO_CAM.reshape(-1).tolist()))
-    return dataclasses.replace(cfg, lidar=lidar)
+    return dataclasses.replace(cfg, lidar=lidar, loop_closing=False)
 
 
 def render_drive(cfg, n_frames: int, device, n_az: int = CLOUD_AZ, n_el: int = CLOUD_EL,
@@ -175,33 +204,72 @@ def render_drive(cfg, n_frames: int, device, n_az: int = CLOUD_AZ, n_el: int = C
     return traj, frames
 
 
-def drive(cfg, frames, device, on_frame=None):
-    """Initialize on frame 0, then track every later frame through the
-    fused step. Returns the tracker and per-frame (TrackResult, host ms).
-    ``on_frame(i)`` may return a context manager wrapped around frame i."""
-    o = cfg.orb
-    n_feat = sum(fast_ops.features_per_level(o.n_features, o.n_levels, o.scale_factor))
-    tracker = Tracker(cfg, MapState.create(16, 1 << 15, n_feat), n_feat,
-                      window_cap=WINDOW_CAP, device=device)
+def drive(cfg, frames, device, sysm=None, t0: int = 0, on_frame=None):
+    """Feed ``frames`` to ``System.track_rgbl`` (a new tracking-only
+    System unless ``sysm`` is given; its first tracker forces a keyframe
+    every ``KF_EVERY`` frames). Returns the System and per-frame
+    (TrackResult, host ms). ``on_frame(i)`` may return a context manager
+    wrapped around frame i."""
+    if sysm is None:
+        sysm = System(cfg, enable_mapping=False, device=device)
+        sysm.CLOUD_CAP = frames[0][1].shape[0]
     results = []
     for i, (img, pts, mask) in enumerate(frames):
         with on_frame(i) if on_frame is not None else contextlib.nullcontext():
-            t0 = time.perf_counter()
-            res = tracker.track_image_rgbl(img, pts, mask, i * 0.1)
+            t0_host = time.perf_counter()
+            res = sysm.track_rgbl(img, pts, (t0 + i) * 0.1, cloud_mask=mask)
             if device.type == "cuda":
                 torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t0_host) * 1e3
+        if t0 + i == 0:
+            sysm.tracker.force_kf_every = KF_EVERY
         results.append((res, ms))
-    return tracker, results
+    return sysm, results
+
+
+@contextlib.contextmanager
+def spy(calls: list, sync_ms: list):
+    """Record which tracking stages each frame runs (``calls``) and the
+    host ms of every ``FastPath.sync`` that refreshed the device state
+    (``sync_ms``, synchronized), by wrapping the methods for the duration."""
+    names = ("_track_reference_keyframe", "_track_with_motion_model", "_track_local_map",
+             "_accept_fused")
+    originals = {n: getattr(Tracker, n) for n in names}
+    orig_sync = FastPath.sync
+
+    def wrap(name, fn):
+        def wrapper(self, *a, **k):
+            calls.append(name)
+            return fn(self, *a, **k)
+        return wrapper
+
+    def timed_sync(self, *a, **k):
+        key = self._sync_key
+        t = time.perf_counter()
+        orig_sync(self, *a, **k)
+        if self._sync_key is not key:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            sync_ms.append((time.perf_counter() - t) * 1e3)
+
+    for n, fn in originals.items():
+        setattr(Tracker, n, wrap(n, fn))
+    FastPath.sync = timed_sync
+    try:
+        yield
+    finally:
+        for n, fn in originals.items():
+            setattr(Tracker, n, fn)
+        FastPath.sync = orig_sync
 
 
 def trans_errors(traj, results) -> np.ndarray:
     est = np.stack([lie.np_se3_centers(r.pose) for r, _ in results])
-    return np.linalg.norm(est - (traj[:, 4:7] - traj[0, 4:7]), axis=1)
+    return np.linalg.norm(est - (traj[: len(est), 4:7] - traj[0, 4:7]), axis=1)
 
 
 def phase1_kernels(cfg, device) -> dict:
-    """K1 and K2 against their plain versions at the main path's shapes."""
+    """K1, K2 and K3 against their plain versions at the main path's shapes."""
     cam, o = cfg.camera, cfg.orb
     _, frames = render_drive(cfg, 1, device, n_az=64, n_el=8)
     levels = [lv.contiguous() for lv in pyr_ops.build_pyramid(
@@ -237,7 +305,8 @@ def phase1_kernels(cfg, device) -> dict:
     log(f"K1 all 8 levels: kernel {k1['ms']:.4f} ms (device time alone {k1['device_ms']:.4f} ms), "
         f"plain {k1['plain_ms']:.4f} ms a frame")
 
-    comp, uv_all, ang, corners, idx = brief_cuda.multilevel_inputs(blurs, uvs, angs)
+    comp, uv_all, ang, corners = brief_cuda.multilevel_inputs(blurs, uvs, angs)
+    idx = brief_cuda.continuous_index_tables(ang)
     Hc, Wc = comp.shape
     N = corners.shape[0]
     d_k = brief_cuda.brief_continuous(comp, corners, idx)
@@ -251,8 +320,7 @@ def phase1_kernels(cfg, device) -> dict:
     inside = (uv_all[:, 0] >= brief_cuda.HALF) & (uv_all[:, 1] >= brief_cuda.HALF)
     if not torch.equal(d_k[inside], d_g[inside]):
         fail("K2 differs from orb.brief_descriptors on the composite")
-    bits = orb_ops.unpack_descriptors_pm1(d_k) != orb_ops.unpack_descriptors_pm1(d_p)
-    k2_err = float(bits.to(torch.float32).max()) if bits.numel() else 0.0
+    k2_err = bit_mismatch(d_k, d_p)
     ms2 = time_cuda(lambda: brief_cuda.brief_continuous(comp, corners, idx))
     pms2 = time_cuda(lambda: brief_cuda.brief_continuous_plain(comp, corners, idx))
     gms2 = time_cuda(lambda: orb_ops.brief_descriptors(comp, uv_all, ang))
@@ -261,17 +329,53 @@ def phase1_kernels(cfg, device) -> dict:
         f"and to orb.brief_descriptors ({int(inside.sum())} in-patch keypoints); "
         f"kernel {ms2:.4f} ms (device time alone {dms2:.4f} ms), plain {pms2:.4f} ms, "
         f"gather form {gms2:.4f} ms")
+
+    # K3 on the same keypoints, laid out in bin-pure blocks
+    slot_corners, block_bins, slots = brief_cuda.binned_inputs(corners, ang)
+    S = slot_corners.shape[0]
+    d3_k = brief_cuda.brief_blocks(comp, slot_corners, block_bins)
+    d3_p = brief_cuda.brief_blocks_plain(comp, slot_corners, block_bins)
+    d3_g = brief_cuda.brief_binned_plain(comp, uv_all, ang)
+    torch.cuda.synchronize()
+    if S != brief_cuda.slot_capacity(N):
+        fail(f"K3: {S} slots for {N} keypoints, expected {brief_cuda.slot_capacity(N)}")
+    if not torch.equal(d3_k, d3_p):
+        fail(f"K3: {int((d3_k != d3_p).any(1).sum())} of {S} slots differ from brief_blocks_plain")
+    if not torch.equal(d3_k[slots.long()][inside], d3_g[inside]):
+        fail("K3 differs from brief_binned_plain on the real keypoints")
+    k3_err = bit_mismatch(d3_k, d3_p)
+    ms3 = time_cuda(lambda: brief_cuda.brief_blocks(comp, slot_corners, block_bins))
+    pms3 = time_cuda(lambda: brief_cuda.brief_blocks_plain(comp, slot_corners, block_bins))
+    gms3 = time_cuda(lambda: brief_cuda.brief_binned_plain(comp, uv_all, ang))
+    dms3 = kernel_device_ms(lambda: brief_cuda.brief_blocks(comp, slot_corners, block_bins),
+                            "brief_binned_kernel")
+    log(f"K3 {S} slots ({N} keypoints, {block_bins.shape[0]} blocks) on the same composite: "
+        f"bit-identical to brief_blocks_plain on all {S} slots and to brief_binned_plain on "
+        f"{int(inside.sum())} keypoints; kernel {ms3:.4f} ms (device time alone {dms3:.4f} ms), "
+        f"plain {pms3:.4f} ms, gather form {gms3:.4f} ms")
+
     k2_bytes = brief_bytes(comp, corners, idx)
     k2_ops = 512.0 * N      # 256 compares + 256 bit packs
-    k1_bound, k2_bound = bound(k1["bytes"], k1["ops"]), bound(k2_bytes, k2_ops)
-    log(f"bounds: K1 {k1['bytes']:.0f} B, {k1['ops']:.0f} ops -> {k1_bound[0] * 1e3:.3f} us "
-        f"({k1_bound[1]}); K2 {k2_bytes:.0f} B, {k2_ops:.0f} ops -> {k2_bound[0] * 1e3:.3f} us "
-        f"({k2_bound[1]})")
+    k3_bytes = brief_blocks_bytes(comp, slot_corners, block_bins)
+    k3_ops = 512.0 * S
+    bounds = {"K1": (k1["bytes"], k1["ops"]), "K2": (k2_bytes, k2_ops), "K3": (k3_bytes, k3_ops)}
+    for name, (nb, no) in bounds.items():
+        t, by = bound(nb, no)
+        log(f"bound {name}: {nb:.0f} B, {no:.0f} ops -> {t * 1e3:.3f} us ({by})")
     return {
-        "fast_and_blur": dict(ms=k1["ms"], plain_ms=k1["plain_ms"], err=float(k1["err"]),
-                              bound=k1_bound),
-        "brief_continuous": dict(ms=ms2, plain_ms=pms2, err=k2_err, bound=k2_bound),
+        "fast_and_blur": dict(ms=k1["ms"], device_ms=k1["device_ms"], plain_ms=k1["plain_ms"],
+                              err=float(k1["err"]), bound=bound(*bounds["K1"])),
+        "brief_continuous": dict(ms=ms2, device_ms=dms2, plain_ms=pms2, err=k2_err,
+                                 bound=bound(*bounds["K2"])),
+        "brief_blocks": dict(ms=ms3, device_ms=dms3, plain_ms=pms3, err=k3_err,
+                             bound=bound(*bounds["K3"])),
     }
+
+
+def bit_mismatch(a, b) -> float:
+    """Largest |difference| of the descriptors' bits (0 or 1)."""
+    bits = orb_ops.unpack_descriptors_pm1(a) != orb_ops.unpack_descriptors_pm1(b)
+    return float(bits.to(torch.float32).max()) if bits.numel() else 0.0
 
 
 def profile_frames():
@@ -306,19 +410,6 @@ def profile_frames():
                       dict(by_name), {k: (v, *by_span.get(k, (0.0, 0))) for k, v in host_ms.items()}))
 
     return ctx, stats
-
-
-@contextlib.contextmanager
-def event_span(out: list):
-    """CUDA events around one frame: device span from its first enqueued
-    work to its last (includes gaps where the card waits on the host)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    yield
-    end.record()
-    end.synchronize()
-    out.append(start.elapsed_time(end))
 
 
 def check_no_sync(tracker, frame, device):
@@ -366,71 +457,171 @@ def main():
     k = phase1_kernels(cfg, device)
 
     # ---- phase 2: the main path ---------------------------------------------
-    n_frames = 1 + N_TRACKED + N_PROFILED
+    n_total = N_DRIVE + N_BLANK + N_AFTER
     t0 = time.perf_counter()
-    traj, frames = render_drive(cfg, n_frames, device)
+    traj, frames = render_drive(cfg, n_total, device)
     torch.cuda.synchronize()
-    log(f"rendered {n_frames} frames at {cfg.camera.width}x{cfg.camera.height} with "
+    log(f"rendered {n_total} frames at {cfg.camera.width}x{cfg.camera.height} with "
         f"{frames[0][1].shape[0]}-point clouds in {time.perf_counter() - t0:.1f} s")
     prof_ctx, prof_stats = profile_frames()
-    span_ms = []
+    calls, sync_ms, frame_calls = [], [], []
 
+    @contextlib.contextmanager
     def on_frame(i):
-        if i > N_TRACKED:
-            return prof_ctx()
-        return event_span(span_ms) if i >= 1 else contextlib.nullcontext()
+        calls.clear()
+        with prof_ctx() if i >= N_DRIVE - N_PROFILED else contextlib.nullcontext():
+            yield
+        frame_calls.append(list(calls))
 
     torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launch_counts()
-    tracker, results = drive(cfg, frames, device, on_frame=on_frame)
+    with spy(calls, sync_ms):
+        sysm, results = drive(cfg, frames[:N_DRIVE], device, on_frame=on_frame)
     counts = dict(cuda_build.launch_counts)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    check_no_sync(tracker, frames[-1], device)
+    kf0_lms = int((sysm.map.kf_lm_idx[0] >= 0).sum())
+    window = len(sysm._fast.win_ids)
 
+    states = [r.state for r, _ in results]
+    fused = ["_accept_fused" in c for c in frame_calls]
+    kf = [r.created_kf for r, _ in results]
     inliers = [r.n_inliers for r, _ in results[1:]]
     errs = trans_errors(traj, results)
-    host_ms = [ms for _, ms in results[1:1 + N_TRACKED]]
     log("frame inliers: " + " ".join(str(n) for n in inliers))
+    log("keyframe frames: " + " ".join(str(i) for i, k in enumerate(kf) if k))
     log("trans err m: " + " ".join(f"{e:.3f}" for e in errs))
+    if any(st != trk.OK for st in states):
+        fail(f"states {[trk.STATE_NAMES[st] for st in states]}: every frame must be OK")
+    if frame_calls[1][:1] != ["_track_reference_keyframe"] or frame_calls[1][-1] != "_track_local_map":
+        fail(f"frame 1 ran {frame_calls[1]}; expected TrackReferenceKeyFrame then TrackLocalMap")
+    if fused[:2] != [False, False] or not all(fused[2:]):
+        fail(f"fused frames {[i for i, f in enumerate(fused) if f]}; expected frames 2..{N_DRIVE - 1}")
+    if sysm.map.n_kf < MIN_KEYFRAMES:
+        fail(f"{sysm.map.n_kf} keyframes (< {MIN_KEYFRAMES})")
     if min(inliers) < MIN_INLIERS:
         fail(f"a tracked frame kept {min(inliers)} inliers (< {MIN_INLIERS})")
-    if counts["fast_and_blur"] != 8 * n_frames or counts["brief_continuous"] != n_frames:
-        fail(f"launch counts {counts} over {n_frames} frames; expected 8 and 1 per frame")
+    if counts["fast_and_blur"] != 8 * N_DRIVE or counts["brief_continuous"] != N_DRIVE:
+        fail(f"launch counts {counts} over {N_DRIVE} frames; expected 8 and 1 per frame")
+    if not window > kf0_lms:
+        fail(f"window of {window} landmarks did not grow past keyframe 0's {kf0_lms}")
     if not float(errs.max()) < MAX_TRANS_ERR_M:
         fail(f"translation error {errs.max():.3f} m >= {MAX_TRANS_ERR_M} m")
-    q = statistics.quantiles(host_ms, n=10)
-    log(f"main path: {N_TRACKED} timed frames, host ms/frame median {statistics.median(host_ms):.2f} "
-        f"p90 {q[-1]:.2f}; device span ms/frame median {statistics.median(span_ms):.2f}; "
-        f"launches {counts} over {n_frames} frames (8 and 1 per frame); "
-        f"max trans err {errs.max():.3f} m (bound {MAX_TRANS_ERR_M}); peak memory {peak_mb:.0f} MiB")
+    timed = range(1, N_DRIVE - N_PROFILED)
+    kinds = {"classic": [i for i in timed if not fused[i]],
+             "fused, no keyframe": [i for i in timed if fused[i] and not kf[i]],
+             "fused + keyframe": [i for i in timed if fused[i] and kf[i]]}
+    for kind, idx in kinds.items():
+        ms = [results[i][1] for i in idx]
+        p90 = statistics.quantiles(ms, n=10)[-1] if len(ms) > 1 else ms[0]
+        log(f"host ms/frame, {kind}: {len(ms)} frames, median {statistics.median(ms):.2f} "
+            f"p90 {p90:.2f}, all {' '.join(f'{m:.1f}' for m in ms)}")
+    log(f"FastPath.sync refreshes: {len(sync_ms)}, host ms median "
+        f"{statistics.median(sync_ms):.2f} max {max(sync_ms):.2f}")
+    log(f"main path: {N_DRIVE} frames, {sysm.map.n_kf} keyframes, {int(sysm.map.lm_valid.sum())} "
+        f"landmarks; window {window} landmarks at the end (keyframe 0 made {kf0_lms}); "
+        f"launches {counts} (8 and 1 per frame); max trans err {errs.max():.3f} m "
+        f"(bound {MAX_TRANS_ERR_M}); peak memory {peak_mb:.0f} MiB")
     if prof_stats and prof_stats[0][1] > 0:
-        log(f"profiler: device busy ms/frame {', '.join(f'{s[0]:.2f}' for s in prof_stats)}; "
-            f"kernels/frame {', '.join(str(s[1]) for s in prof_stats)}")
+        log(f"profiler (frames {N_DRIVE - N_PROFILED}..{N_DRIVE - 1}, keyframe "
+            f"{kf[N_DRIVE - N_PROFILED:]}): device busy ms/frame "
+            f"{', '.join(f'{s[0]:.2f}' for s in prof_stats)}; kernels/frame "
+            f"{', '.join(str(s[1]) for s in prof_stats)}")
         for span, (host, busy, n) in sorted(prof_stats[0][3].items()):
             log(f"  span {span:20s} host {host:8.2f} ms  device busy {busy:7.3f} ms  kernels {n}")
-        for name, (ms, calls) in sorted(prof_stats[0][2].items(), key=lambda kv: -kv[1][0])[:10]:
-            log(f"  {ms:8.3f} ms {calls:6d} calls  {name[:110]}")
+        for name, (ms, n_calls) in sorted(prof_stats[0][2].items(), key=lambda kv: -kv[1][0])[:10]:
+            log(f"  {ms:8.3f} ms {n_calls:6d} calls  {name[:110]}")
     else:
         log("profiler: no device events recorded (device busy time not measured)")
+    no_kf = max(i for i in timed if fused[i] and not kf[i])
+    check_no_sync(sysm.tracker, frames[no_kf], device)
+
+    # ---- phase 3: the lost states and a second atlas map ------------------
+    cuda_build.reset_launch_counts()
+    blank = torch.full_like(frames[0][0], 12.0)       # textureless: no corners
+    lost_frames = [(blank if i < N_DRIVE + N_BLANK else img, pts, mask)
+                   for i, (img, pts, mask) in enumerate(frames) if i >= N_DRIVE]
+    sysm, lost = drive(cfg, lost_frames, device, sysm=sysm, t0=N_DRIVE)
+    counts3 = dict(cuda_build.launch_counts)
+    states3 = [trk.STATE_NAMES[r.state] for r, _ in lost]
+    log(f"lost phase states: {' '.join(states3)}; atlas maps {sysm.atlas.n_maps()}; "
+        f"launches {counts3}")
+    expect = (["RECENTLY_LOST"] + ["LOST"] * (N_BLANK - 1) + ["OK"] * N_AFTER)
+    if states3 != expect:
+        fail(f"lost phase states {states3}, expected {expect}")
+    if sysm.atlas.n_maps() != 2:
+        fail(f"{sysm.atlas.n_maps()} atlas maps after the lost streak, expected 2")
+    n3 = N_BLANK + N_AFTER
+    if counts3["fast_and_blur"] != 8 * n3 or counts3["brief_continuous"] != n3:
+        fail(f"lost phase launch counts {counts3} over {n3} frames; expected 8 and 1 per frame")
+    traj_out = sysm.trajectory()
+    if traj_out.shape != (n_total, 7) or not np.isfinite(traj_out).all():
+        fail(f"trajectory() gave {traj_out.shape}, expected ({n_total}, 7) finite poses")
+    log(f"trajectory(): {traj_out.shape[0]} poses for {n_total} frames over 2 atlas maps")
+
+    # ---- phase 4: binned BRIEF (K3) ----------------------------------------
+    cam, o = cfg.camera, cfg.orb
+
+    def extract(img, mode):
+        return frame_mod.extract_features(
+            img, cam.height, cam.width, n_features=o.n_features, n_levels=o.n_levels,
+            scale_factor=o.scale_factor, ini_th=float(o.ini_th_fast),
+            min_th=float(o.min_th_fast), brief_mode=mode, device=device)
+
+    imgs = [frames[i][0] for i in range(1, 1 + N_BINNED)]
+    for mode in ("binned", "continuous"):
+        extract(imgs[0], mode)                       # warm-up
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    binned, ms_b = [], []
+    for img in imgs:
+        t = time.perf_counter()
+        binned.append(extract(img, "binned"))
+        torch.cuda.synchronize()
+        ms_b.append((time.perf_counter() - t) * 1e3)
+    counts4 = dict(cuda_build.launch_counts)
+    ms_c, kp_diff, same_desc = [], 0.0, []
+    for img, fb in zip(imgs, binned):
+        t = time.perf_counter()
+        fc = extract(img, "continuous")
+        torch.cuda.synchronize()
+        ms_c.append((time.perf_counter() - t) * 1e3)
+        kp_diff = max(kp_diff, float((fb.uv != fc.uv).any(1).float().mean()))
+        v = fc.valid
+        same_desc.append(float((fb.desc[v] == fc.desc[v]).all(1).float().mean()))
+    log(f"binned extraction: {N_BINNED} frames, launches {counts4}; host ms/frame binned "
+        f"{' '.join(f'{m:.2f}' for m in ms_b)} (median {statistics.median(ms_b):.2f}), "
+        f"continuous {' '.join(f'{m:.2f}' for m in ms_c)} (median {statistics.median(ms_c):.2f}); "
+        f"valid descriptors equal to the continuous mode's: "
+        f"{' '.join(f'{x:.3f}' for x in same_desc)}")
+    if counts4 != {"fast_and_blur": 8 * N_BINNED, "brief_continuous": 0, "brief_blocks": N_BINNED}:
+        fail(f"binned extraction launch counts {counts4}; expected 8 K1 and 1 K3 per frame")
+    if kp_diff != 0.0:
+        fail("binned and continuous extraction chose different keypoints")
 
     kernels = [
         {"name": "fast_and_blur", "route": "cuda",
          "source": "orb_slam3_rgbl_tpu_torch/csrc/frontend.cu",
-         "replaces": "orb_slam3_rgbl_tpu/ops/frontend_pallas.py:124"},
+         "replaces": "orb_slam3_rgbl_tpu/ops/frontend_pallas.py:124",
+         "launches": counts["fast_and_blur"]},
         {"name": "brief_continuous", "route": "cuda",
          "source": "orb_slam3_rgbl_tpu_torch/csrc/brief.cu",
-         "replaces": "orb_slam3_rgbl_tpu/ops/brief_pallas.py:425"},
+         "replaces": "orb_slam3_rgbl_tpu/ops/brief_pallas.py:425",
+         "launches": counts["brief_continuous"]},
+        {"name": "brief_blocks", "route": "cuda",
+         "source": "orb_slam3_rgbl_tpu_torch/csrc/brief.cu",
+         "replaces": "orb_slam3_rgbl_tpu/ops/brief_pallas.py:214",
+         "launches": counts4["brief_blocks"]},
     ]
     for entry in kernels:
         m = k[entry["name"]]
-        entry.update(launches=counts[entry["name"]], max_abs_err=m["err"], ms=m["ms"],
-                     plain_ms=m["plain_ms"], bound_ms=m["bound"][0], bound_by=m["bound"][1],
-                     library_ms=None)
+        entry.update(max_abs_err=m["err"], ms=m["ms"], plain_ms=m["plain_ms"],
+                     bound_ms=m["bound"][0], bound_by=m["bound"][1], library_ms=None)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
+    # the script drives one card, whatever else is visible
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
+                                             "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

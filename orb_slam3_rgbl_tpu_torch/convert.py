@@ -1,9 +1,10 @@
-"""Carry configuration and device state across from the JAX package.
+"""Carry configuration and state across from the JAX package.
 
-The system has no weights: what must carry across is its configuration
-and the fused step's inter-frame device state. Inputs are plain Python
-(``dataclasses.asdict`` of a JAX ``SlamConfig``) and numpy arrays, so this
-module needs nothing of JAX.
+The system has no weights: what must carry across is its configuration,
+the fused step's inter-frame device state, the host map and the
+tracker's inter-frame scalars. Inputs are plain Python (``dataclasses.
+asdict`` of a JAX ``SlamConfig``, a JAX ``MapState`` read by attribute)
+and numpy arrays, so this module needs nothing of JAX.
 """
 
 from __future__ import annotations
@@ -14,8 +15,11 @@ import numpy as np
 import torch
 
 from orb_slam3_rgbl_tpu_torch import config as cfg_mod
+from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
+from orb_slam3_rgbl_tpu_torch.slam.frame import FrameFeatures
+from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 
 _NESTED = {"camera": PinholeCamera, "orb": cfg_mod.OrbConfig, "lidar": cfg_mod.LidarConfig,
            "imu": cfg_mod.ImuConfig, "stereo": cfg_mod.StereoConfig}
@@ -64,3 +68,57 @@ def fast_path_state_from_numpy(fp: FastPath, arrays: dict, device=None) -> FastP
             raise ValueError(f"{name}: shape {a.shape}, FastPath holds {tuple(ref.shape)}")
         setattr(fp, name, torch.as_tensor(np.array(a), dtype=dtype, device=dev))
     return fp
+
+
+# Tracker attributes that carry one frame's tracking state to the next
+TRACKER_STATE = ("cur_pose", "last_pose", "velocity", "ref_kf", "last_lm_idx", "last_lm_gen",
+                 "frame_id", "last_kf_frame", "last_reloc_frame")
+
+
+def map_state_from_numpy(jax_map) -> MapState:
+    """A copy of a JAX ``MapState`` (its numpy arrays and counters, read by
+    attribute) as the port's ``MapState``. Descriptors stay uint32, as the
+    port's map keeps them."""
+    kw = {}
+    for f in dataclasses.fields(MapState):
+        v = getattr(jax_map, f.name)
+        if isinstance(v, np.ndarray):
+            v = v.copy()
+        elif isinstance(v, (list, dict)):
+            v = type(v)(v)
+        kw[f.name] = v
+    return MapState(**kw)
+
+
+def tracker_state_from_numpy(tracker, state: dict):
+    """Set the ``TRACKER_STATE`` attributes of the port's ``Tracker`` from
+    a JAX tracker's values (numpy arrays, ints or None). Returns
+    ``tracker``."""
+    missing = set(TRACKER_STATE) - set(state)
+    if missing:
+        raise ValueError(f"missing tracker state: {sorted(missing)}")
+    for name in TRACKER_STATE:
+        v = state[name]
+        if isinstance(v, np.ndarray):
+            v = v.copy()
+        elif v is not None:
+            v = int(v)
+        setattr(tracker, name, v)
+    return tracker
+
+
+def frame_features_from_numpy(arrays: dict, device=None) -> FrameFeatures:
+    """A JAX ``FrameFeatures`` (as numpy arrays by field name) as the
+    port's, on ``device`` (default ``cuda``); uint32 descriptor words keep their bits as
+    int32."""
+    dtypes = {"uv": torch.float32, "response": torch.float32, "octave": torch.int32,
+              "angle": torch.float32, "desc": torch.int32, "valid": torch.bool,
+              "depth": torch.float32, "u_right": torch.float32}
+    dev = resolve(device)
+    out = {}
+    for name, dtype in dtypes.items():
+        a = np.asarray(arrays[name])
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[name] = torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+    return FrameFeatures(**out)

@@ -28,7 +28,7 @@ SOURCES = ("frontend", "brief")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launch_counts = {"fast_and_blur": 0, "brief_continuous": 0}
+launch_counts = {"fast_and_blur": 0, "brief_continuous": 0, "brief_blocks": 0}
 ptxas_log: dict = {}      # source name → nvcc's -Xptxas -v report
 
 _libs: dict = {}

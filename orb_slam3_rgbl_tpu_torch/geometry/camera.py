@@ -91,3 +91,15 @@ def np_geo_unproject(cam, uv: np.ndarray) -> np.ndarray:
     mx = (uv[..., 0] - cam.cx) / cam.fx
     my = (uv[..., 1] - cam.cy) / cam.fy
     return np.stack([mx, my, np.ones_like(mx)], axis=-1)
+
+
+def np_geo_project(cam, pts_cam: np.ndarray) -> np.ndarray:
+    """Host-side (numpy) projection for the classic tracking ladder:
+    (..., 3) camera-frame points → (..., 2) pixels, distortion-free (as in
+    the JAX package); points at z = 0 give finite garbage, not NaN."""
+    is_fisheye(cam)
+    x, y, z = pts_cam[..., 0], pts_cam[..., 1], pts_cam[..., 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        u = cam.fx * x / z + cam.cx
+        v = cam.fy * y / z + cam.cy
+    return np.stack([np.nan_to_num(u), np.nan_to_num(v)], axis=-1)

@@ -76,6 +76,26 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrix → (..., 4) unit quaternion (w ≥ 0),
+    branch-free Shepperd's method: the candidate with the largest pivot."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                          1.0 - m00 - m11 + m22], dim=-1)
+    best = torch.argmax(pivots, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)            # (..., 4 candidates, 4)
+    q = torch.take_along_dim(cands, best[..., None, None], dim=-2).squeeze(-2)
+    q = quat_normalize(q)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
 # ---------------------------------------------------------------------------
 # SO3
 # ---------------------------------------------------------------------------
@@ -147,6 +167,18 @@ def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     q = so3_exp(w)
     t = torch.einsum("...ij,...j->...i", so3_left_jacobian(w), rho)
     return torch.cat([q, t], dim=-1)
+
+
+def se3_to_matrix(T: torch.Tensor) -> torch.Tensor:
+    """(..., 7) → (..., 4, 4) homogeneous matrix."""
+    top = torch.cat([quat_to_matrix(T[..., :4]), T[..., 4:7, None]], dim=-1)
+    bottom = torch.zeros(T.shape[:-1] + (1, 4), dtype=T.dtype, device=T.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_from_matrix(M: torch.Tensor) -> torch.Tensor:
+    return torch.cat([matrix_to_quat(M[..., :3, :3]), M[..., :3, 3]], dim=-1)
 
 
 def se3_normalize(T: torch.Tensor) -> torch.Tensor:

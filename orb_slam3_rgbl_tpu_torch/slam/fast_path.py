@@ -65,9 +65,12 @@ class FastPath:
     # ------------------------------------------------------------------
     def sync(self, m: MapState, ref_kf: int, last_feats, last_lm_idx: np.ndarray,
              last_lm_gen: Optional[np.ndarray] = None):
-        """Refresh window + previous-frame device state iff the map version
-        moved (≈ once per keyframe / mapping event)."""
-        if (id(m), m.version) == self._sync_key:
+        """Refresh window + previous-frame device state iff the map or its
+        version moved (≈ once per keyframe / mapping event, and on every
+        new atlas map). The key holds the map itself, so a new map can
+        never pass for the old one."""
+        if self._sync_key is not None and self._sync_key[0] is m \
+                and self._sync_key[1] == m.version:
             return
         # --- window: landmarks of the ref-KF covisibility neighbourhood ---
         kfs = [ref_kf] + [int(k) for k in m.best_covisible(ref_kf, LOCAL_KF_CAP, min_weight=1)]
@@ -107,7 +110,7 @@ class FastPath:
         self.prev_bound = self._dev(bound, torch.bool)
         self.prev_lm_ids = np.where(bound, lm, -1).astype(np.int32)
         self.prev_lm_gen = m.lm_gen[safe].copy()
-        self._sync_key = (id(m), m.version)
+        self._sync_key = (m, m.version)
 
     # ------------------------------------------------------------------
     def run(self, img, points, cloud_valid, Tcw_pred: np.ndarray) -> compiled.TrackStepOut:

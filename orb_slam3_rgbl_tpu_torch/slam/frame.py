@@ -1,8 +1,9 @@
 """Per-frame feature extraction (counterpart of
 ``orb_slam3_rgbl_tpu.slam.frame``): pyramid → FAST + blur (kernel K1 on
 every level) → balanced selection → orientation → steered BRIEF over all
-levels (kernel K2), then the RGB-L depth association. The output is a
-fixed-capacity ``FrameFeatures`` (padded + masked).
+levels (kernel K2, or K3 in the binned mode), then the RGB-L depth
+association. The output is a fixed-capacity ``FrameFeatures`` (padded +
+masked).
 """
 
 from __future__ import annotations
@@ -40,22 +41,34 @@ class FrameFeatures(NamedTuple):
 def extract_features(img, height: int, width: int, n_features: int = 2000,
                      n_levels: int = 8, scale_factor: float = 1.2,
                      ini_th: float = 12.0, min_th: float = 7.0, cell: int = 32,
-                     device=None) -> FrameFeatures:
+                     brief_mode: str = "continuous", device=None) -> FrameFeatures:
     """Grayscale f32 (H, W) image → FrameFeatures (depth fields = −1), on
-    ``device`` (default ``cuda``). Continuous-rotation BRIEF on
-    integer-rounded blurred intensities, the reference/OpenCV semantics."""
+    ``device`` (default ``cuda``).
+
+    ``brief_mode``:
+      * 'continuous' (default) — per-keypoint pattern rotation on
+        integer-rounded blurred intensities, the reference/OpenCV
+        semantics (kernel K2);
+      * 'binned' — NB=30-bin quantized rotation, ORB-paper rBRIEF
+        (kernel K3);
+      * 'legacy' — per-level ``orb.brief_descriptors`` on the unrounded
+        blur (plain PyTorch; the JAX package has no kernel for it)."""
+    if brief_mode not in ("continuous", "binned", "legacy"):
+        raise ValueError(f"extract_features: unknown brief_mode {brief_mode!r}")
     dev = resolve(device)
     img = torch.as_tensor(img, dtype=torch.float32, device=dev)
     levels = pyr_ops.build_pyramid(img, height, width, n_levels, scale_factor)
     budgets = fast_ops.features_per_level(n_features, n_levels, scale_factor)
     scales = pyr_ops.level_scales(n_levels, scale_factor)
 
-    uvs, resps, octs, angs, valids, uv_ints, blurs = [], [], [], [], [], [], []
+    uvs, resps, octs, angs, valids, uv_ints, blurs, descs = [], [], [], [], [], [], [], []
     for l, lv in enumerate(levels):
         score, blurred = frontend_cuda.fast_and_blur(lv.contiguous())
         uv_l, resp_l, valid_l = fast_ops.select_keypoints(
             score, budgets[l], cell=cell, ini_th=ini_th, min_th=min_th, margin=19)
         ang_l = orb_ops.ic_angle(lv, uv_l)
+        if brief_mode == "legacy":
+            descs.append(orb_ops.brief_descriptors(blurred, uv_l, ang_l))
         uv_ints.append(uv_l)
         blurs.append(blurred)
         uvs.append(uv_l.to(torch.float32) * scales[l])
@@ -63,7 +76,8 @@ def extract_features(img, height: int, width: int, n_features: int = 2000,
         octs.append(torch.full((budgets[l],), l, dtype=torch.int32, device=dev))
         angs.append(ang_l)
         valids.append(valid_l)
-    descs = brief_cuda.descriptors_multilevel(blurs, uv_ints, angs)
+    if brief_mode != "legacy":
+        descs = brief_cuda.descriptors_multilevel(blurs, uv_ints, angs, mode=brief_mode)
 
     n_total = sum(budgets)
     return FrameFeatures(

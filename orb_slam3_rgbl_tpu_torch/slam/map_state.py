@@ -1,9 +1,10 @@
 """Map state on the host (counterpart of the part of
-``orb_slam3_rgbl_tpu.slam.map_state`` that map seeding and
-``FastPath.sync`` use): fixed-capacity numpy struct-of-arrays with
-validity masks, the (K, N) ``kf_lm_idx`` binding table (landmark id per
-keyframe feature slot, −1 unbound) and the ``version`` counter that tells
-the fast path when to refresh its device window.
+``orb_slam3_rgbl_tpu.slam.map_state`` that tracking, keyframe creation,
+``FastPath.sync`` and trajectory export use): fixed-capacity numpy
+struct-of-arrays with validity masks, the (K, N) ``kf_lm_idx`` binding
+table (landmark id per keyframe feature slot, −1 unbound) and the
+``version`` counter that tells the fast path when to refresh its device
+window.
 
 Descriptors are kept as the JAX package keeps them, (…, 8) uint32.
 """
@@ -11,8 +12,11 @@ Descriptors are kept as the JAX package keeps them, (…, 8) uint32.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
+
+from orb_slam3_rgbl_tpu_torch.geometry import lie
 
 INVALID = -1
 
@@ -48,10 +52,15 @@ class MapState:
     n_kf: int = 0
     n_lm: int = 0             # landmark high-water mark (slots ever used)
     version: int = 0
+    map_id: int = 0           # Atlas multi-map id this state belongs to
     lm_free: list = dataclasses.field(default_factory=list)  # recycled slots (LIFO)
+    # culled keyframe → (parent id, T_culled_parent at cull time), the
+    # spanning-tree-parent analog that trajectory export walks (keyframe
+    # culling belongs to the mapping plane; nothing fills it yet)
+    kf_redirect: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
-    def create(max_kf: int, max_lm: int, n_feat: int) -> "MapState":
+    def create(max_kf: int, max_lm: int, n_feat: int, map_id: int = 0) -> "MapState":
         K, M, N = max_kf, max_lm, n_feat
         return MapState(
             kf_pose=np.tile(np.array([1, 0, 0, 0, 0, 0, 0], np.float32), (K, 1)),
@@ -77,6 +86,7 @@ class MapState:
             lm_visible=np.ones(M, np.int32),
             lm_found=np.ones(M, np.int32),
             lm_gen=np.zeros(M, np.int32),
+            map_id=map_id,
         )
 
     @property
@@ -86,6 +96,10 @@ class MapState:
     @property
     def capacity_lm(self) -> int:
         return self.lm_pos.shape[0]
+
+    @property
+    def n_features(self) -> int:
+        return self.kf_uv.shape[1]
 
     def valid_kf_ids(self) -> np.ndarray:
         return np.nonzero(self.kf_valid)[0]
@@ -139,6 +153,10 @@ class MapState:
         self.lm_found = pad(self.lm_found, 1)
         self.lm_gen = pad(self.lm_gen)
 
+    def refresh_free_list(self):
+        """Rebuild the recycled-slot stack from validity (after load/merge)."""
+        self.lm_free = [int(i) for i in np.nonzero(~self.lm_valid[: self.n_lm])[0][::-1]]
+
     def add_landmarks(self, pos: np.ndarray, desc: np.ndarray, kf_id: int,
                       feat_idx: np.ndarray, normal: np.ndarray,
                       max_dist: np.ndarray, min_dist: np.ndarray) -> np.ndarray:
@@ -189,3 +207,39 @@ class MapState:
         w = self.covisibility_weights(kf_id)
         out = np.argsort(-w)[:n]
         return out[w[out] >= min_weight]
+
+    # --- landmark observations / trajectory anchors --------------------------
+    def observation_counts(self, lm_ids: Optional[np.ndarray] = None) -> np.ndarray:
+        """Number of keyframes observing each landmark (scan of the binding
+        table over valid keyframes)."""
+        idx = self.kf_lm_idx[self.kf_valid]
+        counts = np.bincount(idx[idx >= 0], minlength=self.capacity_lm)
+        return counts if lm_ids is None else counts[lm_ids]
+
+    def live_ref_kf(self, k: int) -> int:
+        """Walk cull redirects until a valid keyframe (the reference's
+        ``while(pKF->isBad()) pKF = pKF->GetParent()``)."""
+        seen = 0
+        while not self.kf_valid[k] and seen < 64:
+            entry = self.kf_redirect.get(int(k))
+            if entry is None:
+                break
+            k = entry[0]
+            seen += 1
+        return int(k)
+
+    def effective_kf_pose(self, k: int) -> np.ndarray:
+        """Tcw of keyframe ``k``, composing cull redirects so a culled
+        keyframe inherits every later correction of its parent."""
+        T_acc = None
+        seen = 0
+        while not self.kf_valid[k] and seen < 64:
+            entry = self.kf_redirect.get(int(k))
+            if entry is None:
+                break
+            p, T_kp = entry
+            T_acc = T_kp if T_acc is None else lie.np_se3_mul(T_acc, T_kp)
+            k = p
+            seen += 1
+        pose = self.kf_pose[k]
+        return pose if T_acc is None else lie.np_se3_mul(T_acc, pose)

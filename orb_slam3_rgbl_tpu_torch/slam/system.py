@@ -1,0 +1,275 @@
+"""System facade, the port's public entry point (counterpart of
+``orb_slam3_rgbl_tpu.slam.system``; reference ``System.cc``).
+
+Ported: ``track_rgbl`` in the tracking-only configuration —
+``System(config, enable_mapping=False)`` with ``config.loop_closing``
+off — with the fused steady-state loop and the classic ladder, the
+atlas's new-map recovery after a lost streak or a backward timestamp,
+and trajectory export. In this configuration keyframes still mint
+landmarks from LiDAR depth, so a drive tracks over any distance; no
+mapping or loop-closing work runs after a frame, and relocalization fails
+at once (there is no keyframe database).
+
+The other configurations raise ``NotImplementedError`` naming the ROADMAP
+Queue 1 item that ports them.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+import numpy as np
+import torch
+
+from orb_slam3_rgbl_tpu_torch.config import RGBL, SlamConfig
+from orb_slam3_rgbl_tpu_torch.device import resolve
+from orb_slam3_rgbl_tpu_torch.geometry import lie
+from orb_slam3_rgbl_tpu_torch.io import trajectory as traj_io
+from orb_slam3_rgbl_tpu_torch.ops import fast as fast_ops
+from orb_slam3_rgbl_tpu_torch.slam import compiled
+from orb_slam3_rgbl_tpu_torch.slam import tracking as trk
+from orb_slam3_rgbl_tpu_torch.slam.atlas import Atlas
+from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
+from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
+from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker, TrackResult
+
+log = logging.getLogger(__name__)
+
+
+def _on(t: torch.Tensor, dev: torch.device) -> bool:
+    """Whether tensor ``t`` lies on ``dev`` ('cuda' means the current card)."""
+    if t.device.type != dev.type:
+        return False
+    if dev.type != "cuda":
+        return True
+    return t.device.index == (torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+def _numpy(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+class System:
+    CLOUD_CAP = 131072  # fixed LiDAR capacity (KITTI sweeps hold ~120k points)
+
+    def __init__(self, config: SlamConfig, enable_mapping: bool = True, device=None):
+        if enable_mapping:
+            raise NotImplementedError(
+                "the local-mapping plane is not ported yet (ROADMAP Queue 1 item 12); "
+                "use System(config, enable_mapping=False)")
+        if config.loop_closing:
+            raise NotImplementedError(
+                "loop closing is not ported yet (ROADMAP Queue 1 item 13); "
+                "set SlamConfig.loop_closing=False")
+        if config.inertial:
+            raise NotImplementedError(
+                "inertial sensors are not ported yet (ROADMAP Queue 1 item 15)")
+        if config.sensor != RGBL:
+            raise NotImplementedError(
+                f"sensor {config.sensor} is not ported yet, only RGBL "
+                "(ROADMAP Queue 1 items 14 and 17)")
+        if config.camera_type == "PinHole" and config.camera.has_distortion:
+            raise NotImplementedError(
+                "keypoint undistortion for a distorted PinHole camera is not ported yet "
+                "(ROADMAP Queue 1 item 17)")
+        self.cfg = config
+        self.cam = config.camera
+        self.device = resolve(device)
+        # components materialize on the first frame
+        self.atlas: Optional[Atlas] = None
+        self.map: Optional[MapState] = None
+        self.tracker: Optional[Tracker] = None
+        self.mapper = None          # local-mapping plane (not ported)
+        self.loop_closer = None     # loop-closing plane (not ported)
+        self._lost_streak = 0
+        self._fast: Optional[FastPath] = None   # shared across atlas maps
+        self.use_fused = True       # the fused steady-state loop
+        self.P_lidar = compiled.lidar_projection(config, self.device)
+        self._cloud_mask_ones = None
+
+    # ------------------------------------------------------------------
+    def _extract(self, gray):
+        return compiled.extract(self.cfg, gray, self.device)
+
+    def _pad_cloud(self, pointcloud, cloud_mask=None):
+        """(Np, 3|4) → fixed (CLOUD_CAP, 4) cloud + validity mask on the
+        device; over-capacity clouds are truncated (the tail is far-range
+        returns). A device tensor already at (CLOUD_CAP, 4) passes through
+        untouched (a caller that stages frames on the card pays no
+        transfer); an explicit ``cloud_mask`` becomes the mask."""
+        dev = self.device
+        if (isinstance(pointcloud, torch.Tensor) and _on(pointcloud, dev)
+                and tuple(pointcloud.shape) == (self.CLOUD_CAP, 4)):
+            if cloud_mask is not None:
+                return pointcloud, torch.as_tensor(cloud_mask, dtype=torch.bool, device=dev)
+            if self._cloud_mask_ones is None or self._cloud_mask_ones.shape[0] != self.CLOUD_CAP:
+                self._cloud_mask_ones = torch.ones(self.CLOUD_CAP, dtype=torch.bool, device=dev)
+            return pointcloud, self._cloud_mask_ones
+        pc = _numpy(pointcloud).astype(np.float32)
+        if pc.shape[1] == 3:
+            pc = np.concatenate([pc, np.ones((len(pc), 1), np.float32)], axis=1)
+        n = min(len(pc), self.CLOUD_CAP)
+        out = np.zeros((self.CLOUD_CAP, 4), np.float32)
+        out[:n] = pc[:n]
+        mask = np.zeros(self.CLOUD_CAP, bool)
+        mask[:n] = True if cloud_mask is None else _numpy(cloud_mask).astype(bool)[:n]
+        return (torch.as_tensor(out, device=dev),
+                torch.as_tensor(mask, dtype=torch.bool, device=dev))
+
+    def _frame_capacity(self) -> int:
+        o = self.cfg.orb
+        return int(sum(fast_ops.features_per_level(o.n_features, o.n_levels, o.scale_factor)))
+
+    def _check_timestamp_jump(self, timestamp: float):
+        """Input-stream sanity (``Tracking::Track`` head): a BACKWARD
+        timestamp means the stream restarted — start a new map."""
+        if self.tracker is None or not self.tracker.traj_time:
+            return
+        if timestamp < self.tracker.traj_time[-1]:
+            log.error("frame timestamp older than previous frame — starting a new map")
+            self._create_map_in_atlas()
+
+    def _create_map_in_atlas(self):
+        """Archive the active map and start tracking in a fresh one
+        (``Tracking::CreateMapInAtlas``); a map of fewer than two
+        keyframes is discarded."""
+        n_feat = self.tracker.n_feat or self._frame_capacity()
+        if self.map.n_kf >= 2:
+            self.atlas.archive_trajectory(self.tracker)
+        else:
+            self.atlas.entries.pop(self.atlas.active_idx)
+        self._spawn_components(n_feat)
+
+    def track_rgbl(self, gray, pointcloud, timestamp: float, cloud_mask=None) -> TrackResult:
+        """Gray image (H, W) + raw LiDAR cloud (N, 3|4) → ``TrackResult``
+        (``System::TrackRGBL``). Numpy arrays or tensors; a cloud already
+        on the device at (CLOUD_CAP, 4) is used in place.
+
+        Steady-state frames run the fused step; with ``use_fused`` off
+        every frame takes the classic ladder on the raw cloud."""
+        self._check_timestamp_jump(timestamp)
+        if self.use_fused:
+            if self.map is None:
+                self._spawn_components(self._frame_capacity())
+            if self._fast is None:
+                self._fast = FastPath(self.cfg, self._frame_capacity(), device=self.device)
+                self.tracker.fast = self._fast
+            img = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
+            pts, mask = self._pad_cloud(pointcloud, cloud_mask)
+            return self._post_track(self.tracker.track_image_rgbl(img, pts, mask, timestamp))
+        feats = compiled.attach_lidar(
+            self.cfg, self._extract(gray),
+            torch.as_tensor(pointcloud, dtype=torch.float32, device=self.device), self.P_lidar,
+            None if cloud_mask is None
+            else torch.as_tensor(cloud_mask, dtype=torch.bool, device=self.device))
+        return self._track(feats, timestamp)
+
+    # ------------------------------------------------------------------
+    def _spawn_components(self, n_feat: int):
+        """A new active map and its tracker. Frame ids continue across
+        maps; the shared ``FastPath`` re-syncs on the new map."""
+        if self.atlas is None:
+            self.atlas = Atlas(self.cfg, n_feat)
+        next_frame = self.tracker.frame_id + 1 if self.tracker is not None else 0
+        self.map = self.atlas.create_new_map()
+        self.tracker = Tracker(self.cfg, self.map, start_frame_id=next_frame, device=self.device)
+        self.tracker.fast = self._fast
+        self._lost_streak = 0
+
+    def _track(self, feats, timestamp) -> TrackResult:
+        if self.map is None:
+            self._spawn_components(int(feats.uv.shape[0]))
+        return self._post_track(self.tracker.track(feats, timestamp))
+
+    def _post_track(self, res: TrackResult) -> TrackResult:
+        """After the tracking stage: with mapping and loop closing off, only
+        elastic recovery runs — a LOST streak longer than ``fps`` frames
+        archives the map (or discards it, under two keyframes) and starts a
+        new one (Tracking.cc:2032-2058)."""
+        if res.state == trk.LOST:
+            self._lost_streak += 1
+        elif res.state == trk.OK:
+            self._lost_streak = 0
+        if self._lost_streak > int(self.cfg.fps):
+            n_feat = self.tracker.n_feat or self._frame_capacity()
+            if self.map.n_kf >= 2:
+                self.atlas.archive_trajectory(self.tracker)
+            else:
+                self.atlas.entries.pop(self.atlas.active_idx)
+            self._spawn_components(n_feat)
+        return res
+
+    # ------------------------------------------------------------------
+    def shutdown(self):
+        """``System::Shutdown``: with no mapping or loop-closing worker
+        there is nothing to drain."""
+
+    def _resolve_segment(self, entry) -> np.ndarray:
+        """World-frame camera poses Twc of one atlas entry's trajectory
+        segment, against its map's current keyframe poses."""
+        if not entry.traj_rel:
+            return np.zeros((0, 7), np.float32)
+        m = entry.map
+        ref_poses = np.stack([m.effective_kf_pose(int(rk)) for rk in entry.traj_ref_kf])
+        return lie.np_se3_inv(lie.np_se3_mul(np.stack(entry.traj_rel), ref_poses))
+
+    def trajectory(self) -> np.ndarray:
+        """World-frame camera poses Twc (F, 7), one per frame, across all
+        atlas maps (``SaveTrajectoryKITTI`` semantics)."""
+        if self.atlas is None:
+            return np.zeros((0, 7), np.float32)
+        self.atlas.archive_trajectory(self.tracker)
+        segs = [s for s in (self._resolve_segment(e) for e in self.atlas.entries) if len(s)]
+        return np.concatenate(segs) if segs else np.zeros((0, 7), np.float32)
+
+    def timestamps(self):
+        if self.atlas is None:
+            return []
+        self.atlas.archive_trajectory(self.tracker)
+        return [t for e in self.atlas.entries for t in e.traj_time]
+
+    def save_trajectory_kitti(self, path: str):
+        traj_io.save_kitti(path, self.trajectory())
+
+    def save_trajectory_tum(self, path: str):
+        traj_io.save_tum(path, self.timestamps(), self.trajectory())
+
+    def save_trajectory_euroc(self, path: str):
+        traj_io.save_euroc(path, self.timestamps(), self.trajectory())
+
+    def _keyframe_poses(self):
+        """(timestamps, Twc (K, 7)) of the atlas map with the most
+        keyframes (the reference's ``pBiggerMap``)."""
+        big = self.map
+        for e in self.atlas.entries:
+            if e.map.n_kf > big.n_kf:
+                big = e.map
+        valid = big.valid_kf_ids()
+        return big.kf_timestamp[valid], lie.np_se3_inv(big.kf_pose[valid])
+
+    def save_keyframe_trajectory_kitti(self, path: str):
+        traj_io.save_kitti(path, self._keyframe_poses()[1])
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        traj_io.save_tum(path, *self._keyframe_poses())
+
+    def save_keyframe_trajectory_euroc(self, path: str):
+        traj_io.save_euroc(path, *self._keyframe_poses())
+
+    def reset(self):
+        """Full reset (``System::Reset``): drop the whole atlas; fresh
+        components materialize on the next frame."""
+        self.atlas = None
+        self.map = None
+        self.tracker = None
+        self._lost_streak = 0
+
+    def reset_active_map(self):
+        """``System::ResetActiveMap``: discard the active map and restart
+        tracking in a fresh one; other atlas maps stay."""
+        if self.tracker is None:
+            return
+        n_feat = self.map.n_features
+        self.atlas.entries.pop(self.atlas.active_idx)
+        self._spawn_components(n_feat)

@@ -1,4 +1,4 @@
-"""The CUDA kernels against their plain versions, on the card. Marked
+"""The CUDA kernels K1, K2 and K3 against their plain versions, on the card. Marked
 ``gpu``; without a card each test skips from its fixture.
 
 The machine with the card has no JAX, so run this file without the
@@ -58,6 +58,30 @@ def test_k2_matches_plain_versions(cuda):
     assert torch.equal(brief_cuda.brief_continuous(comp, corners[:5], idx[:5]), d[:5])
 
 
+@pytest.mark.parametrize("n", [5, 70, 2000])
+def test_k3_matches_plain_version(cuda, n):
+    """K3 on random composites: all slots of the JAX layout (every block's
+    last slots are padding at corner (1, 1)), and a slot count that leaves
+    the last block partly filled."""
+    rng = np.random.default_rng(n)
+    Hc, Wc = 1752, 1408
+    comp = torch.tensor(np.round(rng.uniform(0, 255, (Hc, Wc))), dtype=torch.float32, device=cuda)
+    uv = torch.tensor(np.stack([rng.integers(19, Wc - 160, n), rng.integers(19, Hc - 28, n)], 1),
+                      dtype=torch.int32, device=cuda)
+    ang = torch.tensor(rng.uniform(-np.pi, np.pi, n), dtype=torch.float32, device=cuda)
+    corners, block_bins, slots = brief_cuda.binned_inputs((uv - brief_cuda.HALF).contiguous(), ang)
+    before = cuda_build.launch_counts["brief_blocks"]
+    d = brief_cuda.brief_blocks(comp, corners, block_bins)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["brief_blocks"] == before + 1
+    assert torch.equal(d, brief_cuda.brief_blocks_plain(comp, corners, block_bins))
+    assert torch.equal(d[slots.long()], brief_cuda.brief_binned_plain(comp, uv, ang))
+    S = corners.shape[0] - 37          # last block partly filled
+    part = brief_cuda.brief_blocks(comp, corners[:S].contiguous(),
+                                   block_bins[:(S + brief_cuda.BLK - 1) // brief_cuda.BLK])
+    assert torch.equal(part, d[:S])
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         frontend_cuda.fast_and_blur(torch.zeros((3, 64), device=cuda))
@@ -67,3 +91,10 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         brief_cuda.brief_continuous(comp, torch.zeros((2, 2), dtype=torch.int64, device=cuda),
                                     torch.zeros((2, 512), dtype=torch.int32, device=cuda))
+    corners = torch.ones((128, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):     # one bin per block: (2, 1), not (1, 1)
+        brief_cuda.brief_blocks(comp, corners, torch.zeros((1, 1), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        brief_cuda.brief_blocks(comp, corners, torch.zeros((2, 1), dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        brief_cuda.brief_blocks(comp, corners.cpu(), torch.zeros((2, 1), dtype=torch.int32, device=cuda))

@@ -3,6 +3,7 @@ neither JAX nor the JAX package; its entry points never fall back to the
 CPU on their own; ``chip_smoke.py`` fails without a card or without the
 rest of the repository."""
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -23,7 +24,9 @@ PORT_MODULES = [
     "orb_slam3_rgbl_tpu_torch.ops.pyramid", "orb_slam3_rgbl_tpu_torch.optim.pose_opt",
     "orb_slam3_rgbl_tpu_torch.slam.compiled", "orb_slam3_rgbl_tpu_torch.slam.fast_path",
     "orb_slam3_rgbl_tpu_torch.slam.frame", "orb_slam3_rgbl_tpu_torch.slam.map_state",
-    "orb_slam3_rgbl_tpu_torch.slam.tracking", "chip_smoke",
+    "orb_slam3_rgbl_tpu_torch.slam.tracking", "orb_slam3_rgbl_tpu_torch.slam.system",
+    "orb_slam3_rgbl_tpu_torch.slam.atlas", "orb_slam3_rgbl_tpu_torch.io.trajectory",
+    "chip_smoke",
 ]
 
 
@@ -41,14 +44,20 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 def test_entry_points_never_fall_back_to_cpu():
+    import numpy as np
     from orb_slam3_rgbl_tpu_torch import device, synthetic
     from orb_slam3_rgbl_tpu_torch.slam import compiled, frame
+    from orb_slam3_rgbl_tpu_torch.slam.system import System
 
     assert device.resolve("cpu") == torch.device("cpu")
     cfg = synthetic.synthetic_rgbl_config()
+    tracking_only = dataclasses.replace(cfg, loop_closing=False)
+    img = np.zeros((cfg.camera.height, cfg.camera.width), np.float32)
+    cloud = np.zeros((16, 4), np.float32)
     calls = [lambda: device.resolve(None), lambda: synthetic.make_world(0, tex_size=8),
              lambda: compiled.make_track_step(cfg),
-             lambda: frame.extract_features(torch.zeros(64, 64), 64, 64, n_levels=1)]
+             lambda: frame.extract_features(torch.zeros(64, 64), 64, 64, n_levels=1),
+             lambda: System(tracking_only, enable_mapping=False).track_rgbl(img, cloud, 0.0)]
     for call in calls:
         if torch.cuda.is_available():
             call()

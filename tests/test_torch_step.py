@@ -1,13 +1,9 @@
 """Port vs JAX: the fused tracking step on identical inputs and identical
 ``FastPath`` state (loaded through ``convert``), then a synthetic drive
-through both packages' trackers.
-
-The JAX tracker hands the first frame after initialization to its classic
-path (TrackReferenceKeyFrame), which the port has not yet; both trackers
-here start that frame from a zero-velocity prediction, and the JAX one
-runs with ``only_tracking`` so that neither inserts keyframes (keyframe
-creation is not ported yet either). JAX runs with x64 off, as outside the
-test suite (see test_torch_frame)."""
+through both packages' trackers: the first frame after initialization on
+the classic ladder, keyframes by the natural policy, every later frame
+fused. JAX runs with x64 off, as outside the test suite (see
+test_torch_frame)."""
 
 import dataclasses
 
@@ -28,7 +24,9 @@ from orb_slam3_rgbl_tpu_torch.geometry import lie as t_lie
 from orb_slam3_rgbl_tpu_torch.slam import compiled as t_compiled
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath as TFastPath
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState as TMapState
-from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker as TTracker, TrackingLostError
+from orb_slam3_rgbl_tpu_torch.slam import tracking as t_trk
+from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker as TTracker
+from test_torch_system import one_torch_thread  # noqa: F401  (autouse)
 
 N_FRAMES = 10
 IDENTITY = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)
@@ -56,13 +54,14 @@ def drive_data():
 def _jax_tracker(cfg, n_feat):
     jt = JTracker(cfg, JMapState.create(64, 8192, n_feat))
     jt.fast = JFastPath(cfg, n_feat)
-    jt.only_tracking = True
     return jt
 
 
 def _port_tracker(cfg, n_feat):
     tcfg = convert.config_from_dict(dataclasses.asdict(cfg))
-    return TTracker(tcfg, TMapState.create(64, 8192, n_feat), n_feat, device="cpu")
+    tt = TTracker(tcfg, TMapState.create(64, 8192, n_feat), device="cpu")
+    tt.fast = TFastPath(tcfg, n_feat, device="cpu")
+    return tt
 
 
 def test_track_step_matches_jax_on_identical_state(drive_data):
@@ -99,20 +98,25 @@ def test_drive_matches_jax_tracker(drive_data):
     cfg, traj, frames, n_feat = drive_data
     tt = _port_tracker(cfg, n_feat)
     poses_j, poses_t, inl_j, inl_t = [], [], [], []
+    fused_j, fused_t = [], []
     with jax.enable_x64(False):
         jt = _jax_tracker(cfg, n_feat)
         for i, (img, pts, mask) in enumerate(frames):
+            # a frame that starts with a velocity and state OK takes the fused step
+            fused_j.append(jt.velocity is not None and jt.state == 2)
+            fused_t.append(tt.velocity is not None and tt.state == 2)
             rj = jt.track_image_rgbl(jnp.asarray(img), jnp.asarray(pts), jnp.asarray(mask), i * 0.1)
-            if i == 0:
-                jt.velocity = IDENTITY.copy()     # zero-velocity start, as the port
             rt = tt.track_image_rgbl(img, pts, mask, i * 0.1)
             assert rj.state == rt.state == 2
+            assert rj.created_kf == rt.created_kf, i
             poses_j.append(rj.pose)
             poses_t.append(rt.pose)
             inl_j.append(rj.n_inliers)
             inl_t.append(rt.n_inliers)
-    # every steady frame went through the fused path on both sides
-    assert jt.fast.prev_lm_ids is not None and tt.fast.prev_lm_ids is not None
+    # frames 0 and 1 on the classic ladder (initialization, then no
+    # velocity yet), every later frame fused, on both sides
+    assert fused_j == fused_t == [False, False] + [True] * (N_FRAMES - 2)
+    assert jt.map.n_kf == tt.map.n_kf
     c_j = t_lie.np_se3_centers(np.stack(poses_j))
     c_t = t_lie.np_se3_centers(np.stack(poses_t))
     # per-frame poses: 5 mm between the packages, inlier counts within 5%
@@ -120,7 +124,7 @@ def test_drive_matches_jax_tracker(drive_data):
     np.testing.assert_allclose(np.stack(poses_t)[:, :4], np.stack(poses_j)[:, :4], atol=1e-3)
     assert np.all(np.abs(np.array(inl_t) - inl_j) <= 0.05 * np.array(inl_j))
     assert min(inl_t[1:]) >= 30
-    # and both stay on the ground truth (keyframe 0's landmarks only)
+    # and both stay on the ground truth
     gt = traj[:, 4:7] - traj[0, 4:7]
     assert np.linalg.norm(c_t - gt, axis=1).max() < 0.15
 
@@ -155,12 +159,21 @@ def test_frame_step_and_example_inputs(drive_data):
     assert [d for _, d in shapes_t] == [np.dtype(np.int32) if d == np.uint32 else d for _, d in shapes_j]
 
 
-def test_port_tracker_raises_when_the_fused_step_loses_track(drive_data):
-    """Below 30 inliers the JAX tracker hands the frame to its classic
-    path; the port has none yet and says so instead of going on."""
+def test_textureless_frame_sends_both_trackers_to_recently_lost(drive_data):
+    """A fused frame that keeps fewer than 30 inliers goes to the classic
+    ladder on both sides, which fails on a blank image: OK → RECENTLY_LOST,
+    then LOST (relocalization has no keyframe database here)."""
     cfg, _, frames, n_feat = drive_data
     tt = _port_tracker(cfg, n_feat)
-    assert tt.track_image_rgbl(*frames[0], 0.0).state == 2
-    blank = np.full_like(frames[1][0], 12.0)          # textureless: no corners
-    with pytest.raises(TrackingLostError, match="next slice"):
-        tt.track_image_rgbl(blank, frames[1][1], frames[1][2], 0.1)
+    blank = np.full_like(frames[2][0], 12.0)          # textureless: no corners
+    states_j, states_t = [], []
+    with jax.enable_x64(False):
+        jt = _jax_tracker(cfg, n_feat)
+        for i, img in enumerate([frames[0][0], frames[1][0], blank, blank]):
+            pts, mask = frames[i][1], frames[i][2]
+            rj = jt.track_image_rgbl(jnp.asarray(img), jnp.asarray(pts), jnp.asarray(mask), i * 0.1)
+            rt = tt.track_image_rgbl(img, pts, mask, i * 0.1)
+            states_j.append(rj.state)
+            states_t.append(rt.state)
+    assert states_t == states_j == [t_trk.OK, t_trk.OK, t_trk.RECENTLY_LOST, t_trk.LOST]
+    assert tt.velocity is None and tt.traj_lost == [False, False, True, True]
