@@ -6,10 +6,12 @@ against their plain PyTorch versions.
 
 Phase 0 builds the CUDA kernels from ``orb_slam3_rgbl_tpu_torch/csrc``.
 Phase 1 runs each kernel at the main path's shapes on a rendered
-1241×376 frame — K1 ``fast_and_blur`` on all 8 pyramid levels, K2
-``brief_continuous`` on the frame's 2000 keypoints, K3 ``brief_blocks``
-on their 3904 bin-pure slots — compares it with its plain version
-(bit for bit) and times both.
+1241×376 frame — K1 ``fast_and_blur`` on all 8 pyramid levels in one
+launch (and on each level alone), K2 ``brief_continuous`` on the frame's
+2000 keypoints, K3 ``brief_blocks`` on their 3904 bin-pure slots —
+compares it with its plain version (bit for bit) and times both, beside
+an empty kernel at K1's and K2's grids (the floor of a launch on this
+card).
 Phase 2 drives the main path, ``System.track_rgbl`` in the tracking-only
 configuration (``enable_mapping=False``, ``loop_closing=False``), at the
 KITTI configuration (1241×376, 2000 features, 8 levels, 131,072-point
@@ -34,9 +36,12 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -71,6 +76,7 @@ MIN_INLIERS = 30
 # port and the JAX System (0.8 mm apart), and tests/test_torch_system.py
 # holds the two within 5 mm frame by frame
 MAX_TRANS_ERR_M = 0.35
+MAX_EXTRACT_KERNELS = 810   # track.extract in a profiled fused frame (837 with 8 K1 launches)
 BLUR_TOL = 1e-3         # K1 blur vs pyramid.gaussian_blur (tests/test_brief_pallas.py bar)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): 3.35 TB/s of HBM and
@@ -81,11 +87,19 @@ BLUR_TOL = 1e-3         # K1 blur vs pyramid.gaussian_blur (tests/test_brief_pal
 # does not assume so, and stays a floor.
 HBM_BYTES_PER_S = 3.35e12
 F32_INSTR_PER_S = 67e12 / 2
-# K1 operations per pixel, as the plain version counts them: 16 contrasts,
-# 2 × 64 min/max for the 9-long arc windows (prefix 2, 4, 8, +1), 2 × 15
-# to reduce over arcs, 3 for the score, 28 for the two 7-tap blur passes
-# (7 multiplies and 7 adds each, unfused)
-K1_OPS_PER_PIXEL = 16 + 128 + 30 + 3 + 28
+# K1 operations per pixel, in the leanest form known to give the same bits
+# (the one csrc/frontend.cu uses): the pixel turned into its integer order
+# key (2); 2 × 32 three-input min/max for the 16 circular 9-long arc windows
+# (windows of 3, then of 9) and 2 × 8 to reduce over the arcs; the two
+# winning keys turned back into floats (2 × 2); 2 subtractions of the
+# centre; 3 for the score (max, max with 0, + 0); 28 for the two 7-tap blur
+# passes (7 multiplies and 7 adds each, unfused); 1 rounding for the
+# composite. A three-input integer min/max is priced like any other single
+# instruction, one per lane per clock.
+K1_OPS_PER_PIXEL = 2 + 64 + 16 + 4 + 2 + 3 + 28 + 1
+# K2 operations per test: two rotated points (4 multiplies, 2 sums, 2
+# roundings and 4 for the patch index each), one compare, one bit pack
+K2_OPS_PER_TEST = 2 * 12 + 2
 
 
 def fail(msg: str):
@@ -134,14 +148,54 @@ def _profile():
 
 def kernel_device_ms(fn, name: str, iters: int = 20) -> float:
     """Mean device time of the kernels named ``name`` per call of ``fn``,
-    from torch.profiler (kernel time alone, without launch gaps)."""
+    from torch.profiler (kernel time alone, without launch gaps). An empty
+    name sums every kernel the call launches."""
     fn()
     torch.cuda.synchronize()
-    with _profile() as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_ms(e) for e in prof.events() if name in e.name and _on_device(e)) / iters
+    for _ in range(3):          # a trace now and then comes back without device events
+        with _profile() as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_ms(e) for e in prof.events() if name in e.name and _on_device(e))
+        if total > 0.0:
+            return total / iters
+    fail(f"torch.profiler recorded no device time for {name or 'any kernel'!r} in three traces")
+
+
+def empty_launch_ms(blocks: int, threads: int):
+    """(device ms, event ms) of an empty kernel at this grid: the floor of
+    one launch on this card, through the same ctypes path as K1 and K2."""
+    fn = cuda_build.library("launch_floor").empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        err = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"empty kernel launch failed (cudaError {err})")
+
+    return kernel_device_ms(launch, "empty_kernel"), time_cuda(launch)
+
+
+def sass_counts(lib_path: str, kernel: str):
+    """Opcode histogram of ``kernel``'s machine code in a built library,
+    from ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        return None
+    counts, inside = collections.Counter(), False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if inside and m:
+            counts[m.group(1)] += 1
+    return counts
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -162,11 +216,14 @@ def sampled_pixels(comp, corners, idx) -> int:
     return torch.unique((v + i // brief_cuda.PATCH) * Wc + u + i % brief_cuda.PATCH).numel()
 
 
-def brief_bytes(comp, corners, idx) -> float:
-    """Least bytes K2 must move on these inputs: each sampled composite
-    pixel once, the index tables, the corners and the output words."""
-    return (4.0 * sampled_pixels(comp, corners, idx) + idx.numel() * 4.0
-            + corners.numel() * 4.0 + 32.0 * corners.shape[0])
+def brief_bytes(comp, corners, idx) -> dict:
+    """Least bytes K2 (angles in, words out) must move on these inputs,
+    term by term: each composite pixel its tests sample, once (``idx``
+    only says which); the corners; cos and sin of every angle; the 256 x 4
+    f32 pattern; the output words."""
+    N = corners.shape[0]
+    return {"sampled pixels": 4.0 * sampled_pixels(comp, corners, idx),
+            "corners": 8.0 * N, "cos and sin": 8.0 * N, "pattern": 4096.0, "output": 32.0 * N}
 
 
 def brief_blocks_bytes(comp, corners, block_bins) -> float:
@@ -263,9 +320,31 @@ def spy(calls: list, sync_ms: list):
         FastPath.sync = orig_sync
 
 
+@contextlib.contextmanager
+def count_calls(module, name: str):
+    """Count the calls of ``module.name`` for the duration (yields a
+    one-element list holding the count)."""
+    original = getattr(module, name)
+    n = [0]
+
+    def counted(*a, **k):
+        n[0] += 1
+        return original(*a, **k)
+
+    setattr(module, name, counted)
+    try:
+        yield n
+    finally:
+        setattr(module, name, original)
+
+
 def trans_errors(traj, results) -> np.ndarray:
     est = np.stack([lie.np_se3_centers(r.pose) for r, _ in results])
     return np.linalg.norm(est - (traj[: len(est), 4:7] - traj[0, 4:7]), axis=1)
+
+
+def bits_equal(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def phase1_kernels(cfg, device) -> dict:
@@ -275,60 +354,119 @@ def phase1_kernels(cfg, device) -> dict:
     levels = [lv.contiguous() for lv in pyr_ops.build_pyramid(
         frames[0][0], cam.height, cam.width, o.n_levels, o.scale_factor)]
     budgets = fast_ops.features_per_level(o.n_features, o.n_levels, o.scale_factor)
+    n_px = sum(lv.numel() for lv in levels)
+    shapes = [tuple(lv.shape) for lv in levels]
+    k1_blocks = frontend_cuda.n_tiles(shapes) + frontend_cuda.n_fill_blocks(shapes)
 
-    k1 = collections.Counter()
-    blurs, uvs, angs = [], [], []
+    # K1, all levels in one launch, every output asked for
+    scores, blurs, comp, offs = frontend_cuda.fast_and_blur_levels(levels, want_blur=True)
+    scores_p, blurs_p, comp_p, offs_p = frontend_cuda.fast_and_blur_levels_plain(
+        levels, want_blur=True)
+    torch.cuda.synchronize()
+    k1_err, blur_same = 0.0, True
     for l, lv in enumerate(levels):
         H, W = lv.shape
-        score, blur = frontend_cuda.fast_and_blur(lv)
-        score_p, blur_p = frontend_cuda.fast_and_blur_plain(lv)
-        torch.cuda.synchronize()
-        if not torch.equal(score.view(torch.int32), score_p.view(torch.int32)):
+        if not bits_equal(scores[l], scores_p[l]):
             fail(f"K1 level {l} ({H}x{W}): score differs from fast_score at "
-                 f"{int((score != score_p).sum())} pixels")
-        err = float((blur - blur_p).abs().max())
+                 f"{int((scores[l] != scores_p[l]).sum())} pixels")
+        err = float((blurs[l] - blurs_p[l]).abs().max())
         if not err <= BLUR_TOL:
             fail(f"K1 level {l}: blur max |diff| {err} > {BLUR_TOL}")
-        ms = time_cuda(lambda: frontend_cuda.fast_and_blur(lv))
-        pms = time_cuda(lambda: frontend_cuda.fast_and_blur_plain(lv), iters=20)
-        dms = kernel_device_ms(lambda: frontend_cuda.fast_and_blur(lv), "fast_blur_kernel")
-        log(f"K1 level {l} {H}x{W}: score bit-identical, blur max|diff| {err:.3g}, "
-            f"kernel {ms:.4f} ms (device time alone {dms:.4f} ms), plain {pms:.4f} ms")
-        k1.update(ms=ms, plain_ms=pms, device_ms=dms, bytes=12.0 * H * W + 28,
-                  ops=K1_OPS_PER_PIXEL * H * W)
-        k1["err"] = max(k1["err"], err)
-        uv, _, _ = fast_ops.select_keypoints(score, budgets[l], ini_th=float(o.ini_th_fast),
+        k1_err = max(k1_err, err)
+        blur_same = blur_same and bits_equal(blurs[l], blurs_p[l])
+        # the same level alone, through the one-level entry
+        score1, blur1 = frontend_cuda.fast_and_blur(lv)
+        if not (bits_equal(score1, scores_p[l]) and bits_equal(blur1, blurs[l])):
+            fail(f"K1 level {l}: the one-level launch differs from the all-level launch")
+    if offs != offs_p or not bits_equal(comp, comp_p):
+        fail(f"K1: composite differs from composite(plain blurs) at "
+             f"{int((comp != comp_p).sum())} pixels")
+    # the main path's form: scores and composite, no unrounded blurs
+    scores_m, none_m, comp_m, _ = frontend_cuda.fast_and_blur_levels(levels)
+    if none_m is not None or not bits_equal(comp_m, comp_p) or not all(
+            bits_equal(a, b) for a, b in zip(scores_m, scores_p)):
+        fail("K1: the composite-only launch differs from the plain version")
+    log(f"K1 {len(levels)} levels ({n_px} pixels, {k1_blocks} blocks, "
+        f"{frontend_cuda.n_fill_blocks(shapes)} of them for the composite's padding) in one "
+        f"launch: scores bit-identical, composite {tuple(comp.shape)} bit-identical "
+        f"to composite(plain blurs), unrounded blur max|diff| {k1_err:.3g} "
+        f"({'bit-identical' if blur_same else 'not bit-identical'}); each level alone: the same")
+
+    def k1_all():
+        return frontend_cuda.fast_and_blur_levels(levels)
+
+    def k1_each():
+        return [frontend_cuda.fast_and_blur(lv) for lv in levels]
+
+    ms1 = time_cuda(k1_all)
+    ms1_each = time_cuda(k1_each)
+    dms1 = kernel_device_ms(k1_all, "fast_blur_kernel")
+    dms1_each = kernel_device_ms(k1_each, "fast_blur_kernel")
+    dms1_call = kernel_device_ms(k1_all, "")
+    pms1 = time_cuda(lambda: frontend_cuda.fast_and_blur_levels_plain(levels), iters=20)
+    log(f"K1 one launch over {len(levels)} levels (scores + composite, padding included): "
+        f"{ms1:.4f} ms by events, kernel alone {dms1:.4f} ms on the device ({dms1_call:.4f} ms "
+        f"for every kernel of the call); "
+        f"{len(levels)} one-level launches (scores + blurs): {ms1_each:.4f} ms by events, "
+        f"{dms1_each:.4f} ms on the device; plain {pms1:.4f} ms a frame")
+
+    uvs, angs = [], []
+    for l, lv in enumerate(levels):
+        uv, _, _ = fast_ops.select_keypoints(scores[l], budgets[l], ini_th=float(o.ini_th_fast),
                                              min_th=float(o.min_th_fast), margin=19)
         uvs.append(uv)
         angs.append(orb_ops.ic_angle(lv, uv))
-        blurs.append(blur)
-    log(f"K1 all 8 levels: kernel {k1['ms']:.4f} ms (device time alone {k1['device_ms']:.4f} ms), "
-        f"plain {k1['plain_ms']:.4f} ms a frame")
 
-    comp, uv_all, ang, corners = brief_cuda.multilevel_inputs(blurs, uvs, angs)
+    uv_all, ang, corners = brief_cuda.multilevel_inputs(comp, offs, uvs, angs)
     idx = brief_cuda.continuous_index_tables(ang)
     Hc, Wc = comp.shape
     N = corners.shape[0]
-    d_k = brief_cuda.brief_continuous(comp, corners, idx)
-    d_p = brief_cuda.brief_continuous_plain(comp, corners, idx)
+
+    def k2_plain():
+        return brief_cuda.brief_continuous_plain(comp, corners,
+                                                 brief_cuda.continuous_index_tables(ang))
+
+    d_k = brief_cuda.brief_continuous(comp, corners, ang)
+    d_p = k2_plain()
     d_g = orb_ops.brief_descriptors(comp, uv_all, ang)
     torch.cuda.synchronize()
     if not torch.equal(d_k, d_p):
-        fail(f"K2: {int((d_k != d_p).any(1).sum())} of {N} descriptors differ from the plain version")
+        fail(f"K2: {int((d_k != d_p).any(1).sum())} of {N} descriptors differ from the "
+             f"plain version")
     # keypoints whose patch lies inside the composite (all real ones) must
     # also equal the gather form, which clamps each sample instead
     inside = (uv_all[:, 0] >= brief_cuda.HALF) & (uv_all[:, 1] >= brief_cuda.HALF)
     if not torch.equal(d_k[inside], d_g[inside]):
         fail("K2 differs from orb.brief_descriptors on the composite")
     k2_err = bit_mismatch(d_k, d_p)
-    ms2 = time_cuda(lambda: brief_cuda.brief_continuous(comp, corners, idx))
-    pms2 = time_cuda(lambda: brief_cuda.brief_continuous_plain(comp, corners, idx))
+    # the rotation itself, all N x 512 positions, against the tables of the
+    # plain version
+    rot = brief_cuda.rotation_tables(ang)
+    if not torch.equal(rot, idx):
+        fail(f"K2's rotation differs from continuous_index_tables at "
+             f"{int((rot != idx).sum())} of {idx.numel()} positions")
+
+    def k2():
+        return brief_cuda.brief_continuous(comp, corners, ang)
+
+    ms2 = time_cuda(k2)
+    pms2 = time_cuda(k2_plain)
     gms2 = time_cuda(lambda: orb_ops.brief_descriptors(comp, uv_all, ang))
-    dms2 = kernel_device_ms(lambda: brief_cuda.brief_continuous(comp, corners, idx), "brief_kernel")
+    dms2 = kernel_device_ms(k2, "brief_kernel")
+    dms2_call = kernel_device_ms(k2, "")
     log(f"K2 {N} keypoints on a {Hc}x{Wc} composite: bit-identical to the plain version "
-        f"and to orb.brief_descriptors ({int(inside.sum())} in-patch keypoints); "
-        f"kernel {ms2:.4f} ms (device time alone {dms2:.4f} ms), plain {pms2:.4f} ms, "
-        f"gather form {gms2:.4f} ms")
+        f"(tables, then gather) and to orb.brief_descriptors ({int(inside.sum())} in-patch "
+        f"keypoints), all {idx.numel()} rotated positions equal to continuous_index_tables; "
+        f"{ms2:.4f} ms by events, kernel alone {dms2:.4f} ms on the device ({dms2_call:.4f} ms "
+        f"with cos and sin); plain {pms2:.4f} ms, gather form {gms2:.4f} ms")
+
+    # the floor of a launch: an empty kernel at K1's and at K2's grid
+    grids = {"K1": (k1_blocks, frontend_cuda.THREADS),
+             "K2": (-(-N // brief_cuda.K2_KPB), 256)}
+    for name, (blocks, threads) in grids.items():
+        floor_dev, floor_evt = empty_launch_ms(blocks, threads)
+        log(f"empty kernel at {name}'s grid ({blocks} x {threads}): {floor_dev:.4f} ms on "
+            f"the device, {floor_evt:.4f} ms by events")
 
     # K3 on the same keypoints, laid out in bin-pure blocks
     slot_corners, block_bins, slots = brief_cuda.binned_inputs(corners, ang)
@@ -354,17 +492,26 @@ def phase1_kernels(cfg, device) -> dict:
         f"{int(inside.sum())} keypoints; kernel {ms3:.4f} ms (device time alone {dms3:.4f} ms), "
         f"plain {pms3:.4f} ms, gather form {gms3:.4f} ms")
 
-    k2_bytes = brief_bytes(comp, corners, idx)
-    k2_ops = 512.0 * N      # 256 compares + 256 bit packs
+    k2_terms = brief_bytes(comp, corners, idx)
+    log("K2 least bytes: " + ", ".join(f"{k} {v:.0f}" for k, v in k2_terms.items()))
+    k2_bytes = sum(k2_terms.values())
+    k2_ops = 256.0 * K2_OPS_PER_TEST * N
     k3_bytes = brief_blocks_bytes(comp, slot_corners, block_bins)
     k3_ops = 512.0 * S
-    bounds = {"K1": (k1["bytes"], k1["ops"]), "K2": (k2_bytes, k2_ops), "K3": (k3_bytes, k3_ops)}
+    # K1: every level read and its score written (4 B a pixel each), the
+    # whole composite written, padding included; the 7 taps travel in the
+    # launch's parameters
+    k1_terms = {"levels read": 4.0 * n_px, "scores": 4.0 * n_px, "composite": 4.0 * comp.numel()}
+    log("K1 least bytes: " + ", ".join(f"{k} {v:.0f}" for k, v in k1_terms.items()))
+    bounds = {"K1": (sum(k1_terms.values()), float(K1_OPS_PER_PIXEL * n_px)),
+              "K2": (k2_bytes, k2_ops),
+              "K3": (k3_bytes, k3_ops)}
     for name, (nb, no) in bounds.items():
         t, by = bound(nb, no)
         log(f"bound {name}: {nb:.0f} B, {no:.0f} ops -> {t * 1e3:.3f} us ({by})")
     return {
-        "fast_and_blur": dict(ms=k1["ms"], device_ms=k1["device_ms"], plain_ms=k1["plain_ms"],
-                              err=float(k1["err"]), bound=bound(*bounds["K1"])),
+        "fast_and_blur": dict(ms=ms1, device_ms=dms1, plain_ms=pms1, err=k1_err,
+                              bound=bound(*bounds["K1"])),
         "brief_continuous": dict(ms=ms2, device_ms=dms2, plain_ms=pms2, err=k2_err,
                                  bound=bound(*bounds["K2"])),
         "brief_blocks": dict(ms=ms3, device_ms=dms3, plain_ms=pms3, err=k3_err,
@@ -450,6 +597,12 @@ def main():
         for line in text.splitlines():
             if "ptxas" in line or "Used" in line:
                 log(f"  [{name}] {line.strip()}")
+    sass = sass_counts(paths["frontend"], "fast_blur_kernel")
+    if sass is None:
+        log("cuobjdump not found: K1's machine code not counted")
+    else:
+        log(f"K1 machine code (staging, padding fill and 8 unrolled rows of 32 pixels a "
+            f"warp): {sum(sass.values())} SASS lines; " + ", ".join(f"{op} {n}" for op, n in sass.most_common(14)))
 
     cfg = kitti_synthetic_config()
 
@@ -475,7 +628,7 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launch_counts()
-    with spy(calls, sync_ms):
+    with spy(calls, sync_ms), count_calls(brief_cuda, "continuous_index_tables") as table_calls:
         sysm, results = drive(cfg, frames[:N_DRIVE], device, on_frame=on_frame)
     counts = dict(cuda_build.launch_counts)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -500,8 +653,11 @@ def main():
         fail(f"{sysm.map.n_kf} keyframes (< {MIN_KEYFRAMES})")
     if min(inliers) < MIN_INLIERS:
         fail(f"a tracked frame kept {min(inliers)} inliers (< {MIN_INLIERS})")
-    if counts["fast_and_blur"] != 8 * N_DRIVE or counts["brief_continuous"] != N_DRIVE:
-        fail(f"launch counts {counts} over {N_DRIVE} frames; expected 8 and 1 per frame")
+    if counts["fast_and_blur"] != N_DRIVE or counts["brief_continuous"] != N_DRIVE:
+        fail(f"launch counts {counts} over {N_DRIVE} frames; expected 1 K1 and 1 K2 per frame")
+    if table_calls[0] != 0:
+        fail(f"continuous_index_tables ran {table_calls[0]} times on the main path; K2 rotates "
+             f"its own pattern")
     if not window > kf0_lms:
         fail(f"window of {window} landmarks did not grow past keyframe 0's {kf0_lms}")
     if not float(errs.max()) < MAX_TRANS_ERR_M:
@@ -519,7 +675,7 @@ def main():
         f"{statistics.median(sync_ms):.2f} max {max(sync_ms):.2f}")
     log(f"main path: {N_DRIVE} frames, {sysm.map.n_kf} keyframes, {int(sysm.map.lm_valid.sum())} "
         f"landmarks; window {window} landmarks at the end (keyframe 0 made {kf0_lms}); "
-        f"launches {counts} (8 and 1 per frame); max trans err {errs.max():.3f} m "
+        f"launches {counts} (1 K1 and 1 K2 per frame); max trans err {errs.max():.3f} m "
         f"(bound {MAX_TRANS_ERR_M}); peak memory {peak_mb:.0f} MiB")
     if prof_stats and prof_stats[0][1] > 0:
         log(f"profiler (frames {N_DRIVE - N_PROFILED}..{N_DRIVE - 1}, keyframe "
@@ -528,6 +684,9 @@ def main():
             f"{', '.join(str(s[1]) for s in prof_stats)}")
         for span, (host, busy, n) in sorted(prof_stats[0][3].items()):
             log(f"  span {span:20s} host {host:8.2f} ms  device busy {busy:7.3f} ms  kernels {n}")
+        n_extract = prof_stats[0][3]["track.extract"][2]
+        if n_extract > MAX_EXTRACT_KERNELS:
+            fail(f"track.extract ran {n_extract} kernels (> {MAX_EXTRACT_KERNELS})")
         for name, (ms, n_calls) in sorted(prof_stats[0][2].items(), key=lambda kv: -kv[1][0])[:10]:
             log(f"  {ms:8.3f} ms {n_calls:6d} calls  {name[:110]}")
     else:
@@ -551,8 +710,8 @@ def main():
     if sysm.atlas.n_maps() != 2:
         fail(f"{sysm.atlas.n_maps()} atlas maps after the lost streak, expected 2")
     n3 = N_BLANK + N_AFTER
-    if counts3["fast_and_blur"] != 8 * n3 or counts3["brief_continuous"] != n3:
-        fail(f"lost phase launch counts {counts3} over {n3} frames; expected 8 and 1 per frame")
+    if counts3["fast_and_blur"] != n3 or counts3["brief_continuous"] != n3:
+        fail(f"lost phase launch counts {counts3} over {n3} frames; expected 1 K1 and 1 K2 per frame")
     traj_out = sysm.trajectory()
     if traj_out.shape != (n_total, 7) or not np.isfinite(traj_out).all():
         fail(f"trajectory() gave {traj_out.shape}, expected ({n_total}, 7) finite poses")
@@ -593,8 +752,8 @@ def main():
         f"continuous {' '.join(f'{m:.2f}' for m in ms_c)} (median {statistics.median(ms_c):.2f}); "
         f"valid descriptors equal to the continuous mode's: "
         f"{' '.join(f'{x:.3f}' for x in same_desc)}")
-    if counts4 != {"fast_and_blur": 8 * N_BINNED, "brief_continuous": 0, "brief_blocks": N_BINNED}:
-        fail(f"binned extraction launch counts {counts4}; expected 8 K1 and 1 K3 per frame")
+    if counts4 != {"fast_and_blur": N_BINNED, "brief_continuous": 0, "brief_blocks": N_BINNED}:
+        fail(f"binned extraction launch counts {counts4}; expected 1 K1 and 1 K3 per frame")
     if kp_diff != 0.0:
         fail("binned and continuous extraction chose different keypoints")
 

@@ -1,28 +1,53 @@
 // K2: steered BRIEF-256 with per-keypoint continuous rotation, all pyramid
-// levels in one launch. K3 (below K2): the binned variant.
+// levels in one launch: angles (as cos and sin) in, descriptor words out.
+// K3 (below K2): the binned variant.
 //
 // Replaces the Pallas TPU kernel orb_slam3_rgbl_tpu/ops/brief_pallas.py
-// (_brief_kernel_cont via brief_continuous_pallas). Plain PyTorch
-// versions: ops/brief_cuda.py brief_continuous_plain (same inputs) and
-// ops/orb.py brief_descriptors (gather form, same result on the
-// composite).
+// (_brief_kernel_cont via brief_continuous_pallas) together with the index
+// tables it consumed (brief_pallas.continuous_index_tables). Plain PyTorch
+// versions: ops/brief_cuda.py brief_continuous_plain o
+// continuous_index_tables (tables, then gather) and ops/orb.py
+// brief_descriptors (gather form, same result on the composite).
 //
 // What bounds it on an H100: bytes, and at 2000 keypoints mostly latency.
-// The work is 256 compares per keypoint; the least traffic is the
-// composite pixels the tests sample (each once) and each keypoint's
-// 512-entry index table (2 KB), which is the larger part. The kernel reads
-// each keypoint's whole 40x40 patch (6.4 KB, mostly L2 hits since
-// neighbouring keypoints overlap), more than that least. The TPU kernel selected
-// samples with one-hot MXU products because TPU gathers are slow; a GPU
-// reads shared memory by index at full speed, so that detour is gone.
+// The work is 512 rotated positions and 256 compares per keypoint. The
+// least traffic is the composite pixels the tests sample (each once, ~160
+// distinct ones a keypoint), the corners, cos, sin, the 4 KB pattern and
+// the output: ~1.4 MB, 0.4 us at 3.35 TB/s, the same order as the
+// rotation's ~13 M operations. The TPU kernel selected samples with one-hot
+// MXU products and therefore needed every keypoint's 512 integer positions
+// ahead of the grid: a (2000, 512) int32 table, 4.1 MB written by a dozen
+// elementwise launches and read back once. A GPU thread gathers by index
+// at full speed, so the table never exists here.
 //
-// Design: one block of 256 threads per 4 keypoints. The block stages the
-// 4 patches in shared memory (25.6 KB, one coalesced 40-float row at a
-// time), then warp w produces word w of each keypoint: lane l compares
-// test 32w + l and one __ballot_sync packs the 32 results, so bit l of
-// word w is test 32w + l, the JAX package's packing. The index tables
-// come from ops/brief_cuda.py continuous_index_tables, computed outside
-// the kernel so that kernel and plain version consume the same integers.
+// Design (the direct form): thread t of a 256-thread block owns
+// test t: it loads its two pattern points once (one float4, (ax, ay, bx,
+// by), the layout of orb_pattern.npy) and, for each of the block's K2_KPB
+// keypoints, rotates them with the keypoint's cos and sin and reads the two
+// samples straight from the composite through the read-only path. The
+// loads of all K2_KPB keypoints are started before the first compare. Warp w
+// produces word w: one __ballot_sync packs 32 tests, so bit l of word w is
+// test 32w + l, the JAX package's packing.
+// The rotation repeats continuous_index_tables op for op: each product and
+// each sum rounds once (__fmul_rn, __fadd_rn, __fsub_rn: no fused
+// multiply-add), rintf rounds half to even as torch.round, the patch index
+// (y + 18) * 40 + (x + 18) is formed in f32 and truncated, then clamped as
+// the plain version clamps it. cos and sin come from torch.cos/torch.sin
+// in the wrapper, as in the plain version: cosf/sinf in the kernel are a
+// different library build, and one ulp flips a rounded position. (With
+// CUDA 12.8 on both sides they differed at none of 1,024,000 positions of
+// a frame's 2000 angles; the wrapper's two calls agree on any toolkit.)
+//
+// Measured and dropped: the staged form, the first version's layout. A
+// block staged the 40x40 patches of 4 keypoints in shared memory (25,600 B,
+// 40 registers) and read the samples from there, with the positions
+// computed before the patch loads and row-wise staging without a division.
+// It moved 6.4 KB a keypoint for ~160 sampled pixels and took 0.0060 ms on
+// the device where the direct form took 0.0039 ms (2000 keypoints, H100
+// 80GB HBM3 at 700 W; PERF.md).
+//
+// Resources (nvcc 12.8 -Xptxas -v, sm_90a): brief_kernel 30 registers, no
+// shared memory; K3 brief_binned_kernel 30 registers, 27,648 B.
 
 #include <cuda_runtime.h>
 
@@ -30,11 +55,25 @@ namespace {
 
 constexpr int PATCH = 40;          // patch side (brief_pallas.PATCH)
 constexpr int PP = PATCH * PATCH;
-constexpr int KPB = 4;             // keypoints per block
+constexpr int HALF = 18;           // pattern centre inside the patch
+constexpr int K2_KPB = 2;          // keypoints per block (K2)
+constexpr int KPB = 4;             // slots per block (K3)
 constexpr int NTHREADS = 256;      // 8 warps = 8 descriptor words
 constexpr int NB = 30;             // angle bins (brief_pallas.NB)
 constexpr int BLK = 64;            // slots per bin-pure block (brief_pallas.BLK)
 static_assert(BLK % KPB == 0, "a K3 block of KPB slots must not straddle two bins");
+
+// Patch position of pattern point (px, py) rotated by (c, s): the f32
+// arithmetic of ops/brief_cuda.py continuous_index_tables, op for op.
+__device__ __forceinline__ int rotated_index(float px, float py, float c, float s) {
+  const float x = rintf(__fsub_rn(__fmul_rn(px, c), __fmul_rn(py, s)));
+  const float y = rintf(__fadd_rn(__fmul_rn(px, s), __fmul_rn(py, c)));
+  const float i = __fadd_rn(__fmul_rn(__fadd_rn(y, (float)HALF), (float)PATCH),
+                            __fadd_rn(x, (float)HALF));
+  return static_cast<int>(i);
+}
+
+__device__ __forceinline__ int clamp_index(int i) { return min(max(i, 0), PP - 1); }
 
 // Stage the 40x40 patches of slots k0 .. k0+KPB-1 in shared memory.
 __device__ __forceinline__ void load_patches(float (*patch)[PP], const float* __restrict__ img,
@@ -54,26 +93,43 @@ __device__ __forceinline__ void load_patches(float (*patch)[PP], const float* __
 }
 
 __global__ void __launch_bounds__(NTHREADS)
-brief_kernel(const float* __restrict__ img, int Hc, int Wc,
-             const int* __restrict__ corners, const int* __restrict__ idx,
-             int* __restrict__ out, int N) {
-  __shared__ float patch[KPB][PP];
-  const int k0 = blockIdx.x * KPB;
+brief_kernel(const float* __restrict__ img, int Hc, int Wc, const int* __restrict__ corners,
+             const float* __restrict__ cosv, const float* __restrict__ sinv,
+             const float4* __restrict__ pattern, int* __restrict__ out, int N) {
   const int tid = threadIdx.x;
-  load_patches(patch, img, Hc, Wc, corners, k0, N);
-  __syncthreads();
-
   const int warp = tid >> 5, lane = tid & 31;
-  const int bit = warp * 32 + lane;
-  for (int k = 0; k < KPB; ++k) {
-    const int kp = k0 + k;
-    if (kp >= N) break;            // uniform across the block
-    const int* row = idx + (size_t)kp * 512;
-    const int ia = min(max(row[bit], 0), PP - 1);
-    const int ib = min(max(row[256 + bit], 0), PP - 1);
-    const unsigned word = __ballot_sync(0xffffffffu, patch[k][ia] < patch[k][ib]);
-    if (lane == 0) out[(size_t)kp * 8 + warp] = static_cast<int>(word);
+  const float4 p = __ldg(pattern + tid);
+  const int k0 = blockIdx.x * K2_KPB;
+  float a[K2_KPB], b[K2_KPB];
+#pragma unroll
+  for (int k = 0; k < K2_KPB; ++k) {
+    const int kp = min(k0 + k, N - 1);       // a padding slot repeats the last keypoint
+    const float c = __ldg(cosv + kp), s = __ldg(sinv + kp);
+    const int u = min(max(__ldg(corners + 2 * kp), 0), Wc - PATCH);
+    const int v = min(max(__ldg(corners + 2 * kp + 1), 0), Hc - PATCH);
+    const int ia = clamp_index(rotated_index(p.x, p.y, c, s));
+    const int ib = clamp_index(rotated_index(p.z, p.w, c, s));
+    const float* base = img + (size_t)v * Wc + u;
+    a[k] = __ldg(base + (ia / PATCH) * Wc + ia % PATCH);
+    b[k] = __ldg(base + (ib / PATCH) * Wc + ib % PATCH);
   }
+#pragma unroll
+  for (int k = 0; k < K2_KPB; ++k) {
+    const unsigned word = __ballot_sync(0xffffffffu, a[k] < b[k]);
+    if (lane == 0 && k0 + k < N) out[(size_t)(k0 + k) * 8 + warp] = static_cast<int>(word);
+  }
+}
+
+// The (N, 512) patch positions as K2 computes them (A points then B
+// points, unclamped), for checks against continuous_index_tables.
+__global__ void __launch_bounds__(NTHREADS)
+brief_rotation_tables_kernel(const float* __restrict__ cosv, const float* __restrict__ sinv,
+                             const float4* __restrict__ pattern, int* __restrict__ out) {
+  const int kp = blockIdx.x, tid = threadIdx.x;
+  const float4 p = __ldg(pattern + tid);
+  const float c = cosv[kp], s = sinv[kp];
+  out[(size_t)kp * 512 + tid] = rotated_index(p.x, p.y, c, s);
+  out[(size_t)kp * 512 + 256 + tid] = rotated_index(p.z, p.w, c, s);
 }
 
 // K3: binned rBRIEF. Replaces the Pallas TPU kernel
@@ -121,11 +177,20 @@ brief_binned_kernel(const float* __restrict__ img, int Hc, int Wc,
 
 }  // namespace
 
-extern "C" int brief_continuous_i32(const float* img, int Hc, int Wc,
-                                    const int* corners, const int* idx,
-                                    int* out, int N, cudaStream_t stream) {
-  const int blocks = (N + KPB - 1) / KPB;
-  brief_kernel<<<blocks, NTHREADS, 0, stream>>>(img, Hc, Wc, corners, idx, out, N);
+extern "C" int brief_continuous_i32(const float* img, int Hc, int Wc, const int* corners,
+                                    const float* cosv, const float* sinv,
+                                    const float* pattern, int* out, int N,
+                                    cudaStream_t stream) {
+  brief_kernel<<<(N + K2_KPB - 1) / K2_KPB, NTHREADS, 0, stream>>>(
+      img, Hc, Wc, corners, cosv, sinv, reinterpret_cast<const float4*>(pattern), out, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int brief_rotation_tables_i32(const float* cosv, const float* sinv,
+                                         const float* pattern, int* out, int N,
+                                         cudaStream_t stream) {
+  brief_rotation_tables_kernel<<<N, NTHREADS, 0, stream>>>(
+      cosv, sinv, reinterpret_cast<const float4*>(pattern), out);
   return static_cast<int>(cudaGetLastError());
 }
 

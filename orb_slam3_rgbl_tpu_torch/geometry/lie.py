@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from orb_slam3_rgbl_tpu_torch.device import resolve
+
 _EPS = 1e-8
 
 
@@ -138,7 +140,8 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def se3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.tensor([1.0, 0, 0, 0, 0, 0, 0], dtype=dtype, device=device)
+    """Identity pose on ``device`` (default ``cuda``)."""
+    return torch.tensor([1.0, 0, 0, 0, 0, 0, 0], dtype=dtype, device=resolve(device))
 
 
 def se3_trans(T: torch.Tensor) -> torch.Tensor:

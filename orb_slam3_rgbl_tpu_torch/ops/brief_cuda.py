@@ -4,10 +4,13 @@ hand-written CUDA kernels K2 and K3 (``csrc/brief.cu``).
 Counterpart of ``orb_slam3_rgbl_tpu.ops.brief_pallas``: the composite
 layout of ``descriptors_multilevel`` and its two modes.
 
-* continuous (the default): per-keypoint rotation through index tables
-  (``continuous_index_tables``), kernel K2 ``brief_continuous``. Equal to
-  ``orb.brief_descriptors`` on the composite bit for bit, because the
-  tables are computed outside the kernel with the same arithmetic.
+* continuous (the default): per-keypoint rotation, kernel K2
+  ``brief_continuous``: angles in, descriptor words out. The kernel
+  rotates the pattern itself with the arithmetic of
+  ``continuous_index_tables`` op for op, on ``torch.cos``/``torch.sin`` of
+  the angles, so it equals its plain version (tables, then gather) and
+  ``orb.brief_descriptors`` on the composite bit for bit; the (N, 512)
+  tables exist only in the plain version.
 * binned: rotation quantized to ``NB`` angle bins, keypoints laid out by
   ``bin_pure_layout`` into blocks of ``BLK`` slots that share one
   pattern table (``binned_pattern_tables``), kernel K3 ``brief_blocks``.
@@ -37,6 +40,7 @@ BLK = 64         # slots per bin-pure block
 # rotated pattern offsets round to at most ±18 (pattern radius ≤ 18.4)
 HALF = 18        # pattern center offset inside the patch
 PATCH = 40       # patch side (≥ 2·HALF+1)
+K2_KPB = 2       # keypoints per 256-thread block of K2 (csrc/brief.cu)
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,24 +74,46 @@ def brief_continuous_plain(img_comp: torch.Tensor, corners: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
+def _pattern4(device: torch.device) -> torch.Tensor:
+    """(256, 4) f32 (ax, ay, bx, by): one float4 per test, K2's layout."""
+    pa, pb, _, _, _ = orb_ops._consts(device)
+    return torch.cat([pa, pb], dim=1).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel():
     fn = cuda_build.library("brief").brief_continuous_i32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _rotation_kernel():
+    fn = cuda_build.library("brief").brief_rotation_tables_i32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(fn_name: str, name: str, t: torch.Tensor, dtype, shape, device):
+    if (t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous()
+            or t.device != device):
+        raise ValueError(f"{fn_name}: {name} must be a contiguous {dtype} {shape} tensor on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
 def brief_continuous(img_comp: torch.Tensor, corners: torch.Tensor,
-                     idx_tables: torch.Tensor) -> torch.Tensor:
+                     angle: torch.Tensor) -> torch.Tensor:
     """Continuous-rotation BRIEF for N keypoints → (N, 8) int32 words.
 
     img_comp: (Hc, Wc) f32 composite of integer-rounded blurred levels.
     corners:  (N, 2) int32 patch corners (u − 18, v − 18), inside
               [0, Wc − 40] × [0, Hc − 40].
-    idx_tables: (N, 512) int32 from ``continuous_index_tables``."""
+    angle:    (N,) f32 keypoint angles in radians."""
     if img_comp.device.type == "cpu":
-        return brief_continuous_plain(img_comp, corners, idx_tables)
+        return brief_continuous_plain(img_comp, corners, continuous_index_tables(angle))
     if img_comp.device.type != "cuda":
         raise ValueError(f"brief_continuous: unsupported device {img_comp.device}")
     N = corners.shape[0]
@@ -97,23 +123,44 @@ def brief_continuous(img_comp: torch.Tensor, corners: torch.Tensor,
     Hc, Wc = img_comp.shape
     if Hc < PATCH or Wc < PATCH:
         raise ValueError(f"brief_continuous: composite {Hc}x{Wc} smaller than a patch")
-    for name, t, shape in (("corners", corners, (N, 2)), ("idx_tables", idx_tables, (N, 512))):
-        if (t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != img_comp.device):
-            raise ValueError(f"brief_continuous: {name} must be a contiguous int32 "
-                             f"{shape} tensor on {img_comp.device}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _check("brief_continuous", "corners", corners, torch.int32, (N, 2), img_comp.device)
+    _check("brief_continuous", "angle", angle, torch.float32, (N,), img_comp.device)
     out = torch.empty((N, 8), dtype=torch.int32, device=img_comp.device)
     if N == 0:
         return out
+    # cos and sin by the plain version's own calls: the kernel's rounded
+    # positions then rest on the same f32 values (see csrc/brief.cu)
+    ca, sa = torch.cos(angle), torch.sin(angle)
     fn = _kernel()
     with torch.cuda.device(img_comp.device):
         stream = torch.cuda.current_stream(img_comp.device).cuda_stream
-        err = fn(img_comp.data_ptr(), Hc, Wc, corners.data_ptr(), idx_tables.data_ptr(),
-                 out.data_ptr(), N, stream)
+        err = fn(img_comp.data_ptr(), Hc, Wc, corners.data_ptr(), ca.data_ptr(), sa.data_ptr(),
+                 _pattern4(img_comp.device).data_ptr(), out.data_ptr(), N, stream)
     if err != 0:
         raise RuntimeError(f"brief_continuous: kernel launch failed (cudaError {err})")
     cuda_build.launch_counts["brief_continuous"] += 1
+    return out
+
+
+def rotation_tables(angle: torch.Tensor) -> torch.Tensor:
+    """(N,) angles on the card → the (N, 512) int32 patch positions as K2's
+    rotation computes them, for checks against ``continuous_index_tables``
+    (which this equals entry for entry)."""
+    if angle.device.type != "cuda":
+        raise ValueError(f"rotation_tables: runs only on a CUDA tensor, got {angle.device}")
+    N = angle.shape[0]
+    _check("rotation_tables", "angle", angle, torch.float32, (N,), angle.device)
+    out = torch.empty((N, 512), dtype=torch.int32, device=angle.device)
+    if N == 0:
+        return out
+    ca, sa = torch.cos(angle), torch.sin(angle)
+    fn = _rotation_kernel()
+    with torch.cuda.device(angle.device):
+        stream = torch.cuda.current_stream(angle.device).cuda_stream
+        err = fn(ca.data_ptr(), sa.data_ptr(), _pattern4(angle.device).data_ptr(),
+                 out.data_ptr(), N, stream)
+    if err != 0:
+        raise RuntimeError(f"rotation_tables: kernel launch failed (cudaError {err})")
     return out
 
 
@@ -241,13 +288,8 @@ def brief_blocks(img_comp: torch.Tensor, corners: torch.Tensor,
     if Hc < PATCH or Wc < PATCH:
         raise ValueError(f"brief_blocks: composite {Hc}x{Wc} smaller than a patch")
     n_blocks = (S + BLK - 1) // BLK
-    for name, t, shape in (("corners", corners, (S, 2)),
-                           ("block_bins", block_bins, (n_blocks, 1))):
-        if (t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != img_comp.device):
-            raise ValueError(f"brief_blocks: {name} must be a contiguous int32 "
-                             f"{shape} tensor on {img_comp.device}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _check("brief_blocks", "corners", corners, torch.int32, (S, 2), img_comp.device)
+    _check("brief_blocks", "block_bins", block_bins, torch.int32, (n_blocks, 1), img_comp.device)
     out = torch.empty((S, 8), dtype=torch.int32, device=img_comp.device)
     if S == 0:
         return out
@@ -267,39 +309,48 @@ def brief_blocks(img_comp: torch.Tensor, corners: torch.Tensor,
 # Composite layout over all pyramid levels
 # ---------------------------------------------------------------------------
 
-def composite(levels_blurred):
-    """Blurred levels stacked vertically, intensities rounded to integers
-    (the reference compares blurred *uchar* values), padded to the widest
-    level — the JAX package's layout, alignment slack included. Returns
-    (composite (Hc, W0), row offset per level)."""
-    W_img = max(im.shape[1] for im in levels_blurred)
+def composite_layout(shapes):
+    """(Hc, W0, row offset per level) of the composite of levels with these
+    (H, W) shapes: levels stacked vertically, padded to the widest level —
+    the JAX package's layout, alignment slack included."""
+    W_img = max(w for _, w in shapes)
     W0 = ((W_img + 127) // 128) * 128 + 128
     offs = []
     row = 0
-    for im in levels_blurred:
+    for h, _ in shapes:
         offs.append(row)
-        row += im.shape[0]
+        row += h
     Hc = ((row + 7) // 8) * 8 + 16
+    return Hc, W0, offs
+
+
+def composite(levels_blurred):
+    """Blurred levels in ``composite_layout``, intensities rounded to
+    integers (the reference compares blurred *uchar* values), zero
+    elsewhere. Returns (composite (Hc, W0), row offset per level). The
+    plain version of what kernel K1 writes itself."""
+    Hc, W0, offs = composite_layout([tuple(im.shape) for im in levels_blurred])
     comp = levels_blurred[0].new_zeros((Hc, W0))
     for im, off in zip(levels_blurred, offs):
         comp[off:off + im.shape[0], :im.shape[1]] = torch.round(im)
     return comp, offs
 
 
-def multilevel_inputs(levels_blurred, uv_list, ang_list):
-    """The kernels' common inputs for all pyramid levels: the composite,
-    the keypoints in composite coordinates (int32) with their angles, and
-    the patch corners. uv_list holds (N_l, 2) level-local coords with a
-    margin ≥ 19 from the level border, as ``select_keypoints`` gives them;
-    real corners therefore never reach the clamps."""
-    comp, offs = composite(levels_blurred)
+def multilevel_inputs(comp, offs, uv_list, ang_list):
+    """The kernels' common inputs for all pyramid levels, given the
+    composite and its row offsets (``composite`` or
+    ``frontend_cuda.fast_and_blur_levels``): the keypoints in composite
+    coordinates (int32) with their angles, and the patch corners. uv_list
+    holds (N_l, 2) level-local coords with a margin ≥ 19 from the level
+    border, as ``select_keypoints`` gives them; real corners therefore
+    never reach the clamps."""
     Hc, W0 = comp.shape
     uv_all = torch.cat([torch.stack([uv[:, 0], uv[:, 1] + off], dim=1)
                         for uv, off in zip(uv_list, offs)]).to(torch.int32)
     ang_all = torch.cat(list(ang_list))
     corners = torch.stack([(uv_all[:, 0] - HALF).clamp(0, W0 - PATCH),
                            (uv_all[:, 1] - HALF).clamp(0, Hc - PATCH)], dim=1)
-    return comp, uv_all, ang_all, corners
+    return uv_all, ang_all, corners
 
 
 def binned_inputs(corners: torch.Tensor, ang_all: torch.Tensor):
@@ -313,18 +364,19 @@ def binned_inputs(corners: torch.Tensor, ang_all: torch.Tensor):
     return slot_corners, block_bins, slots
 
 
-def descriptors_multilevel(levels_blurred, uv_list, ang_list, mode: str = "continuous"):
+def descriptors_multilevel(comp, offs, uv_list, ang_list, mode: str = "continuous"):
     """BRIEF descriptors across all pyramid levels in ONE kernel launch.
 
-    levels_blurred: list of (H_l, W_l) f32 blurred level images.
+    comp, offs: the composite of the rounded blurred levels and each
+      level's first row in it (``composite``, or K1's own output).
     uv_list: list of (N_l, 2) int32 level-local keypoint coords.
     ang_list: list of (N_l,) f32 angles.
     mode: 'continuous' (K2, per-keypoint rotation) or 'binned' (K3,
       NB-bin quantized rotation).
     Returns a list of (N_l, 8) int32 descriptor tensors."""
-    comp, _, ang_all, corners = multilevel_inputs(levels_blurred, uv_list, ang_list)
+    _, ang_all, corners = multilevel_inputs(comp, offs, uv_list, ang_list)
     if mode == "continuous":
-        desc_all = brief_continuous(comp, corners, continuous_index_tables(ang_all))
+        desc_all = brief_continuous(comp, corners, ang_all)
     elif mode == "binned":
         slot_corners, block_bins, slots = binned_inputs(corners, ang_all)
         desc_all = brief_blocks(comp, slot_corners, block_bins)[slots.long()]

@@ -1,9 +1,9 @@
 """Per-frame feature extraction (counterpart of
-``orb_slam3_rgbl_tpu.slam.frame``): pyramid → FAST + blur (kernel K1 on
-every level) → balanced selection → orientation → steered BRIEF over all
-levels (kernel K2, or K3 in the binned mode), then the RGB-L depth
-association. The output is a fixed-capacity ``FrameFeatures`` (padded +
-masked).
+``orb_slam3_rgbl_tpu.slam.frame``): pyramid → FAST + blur + BRIEF
+composite (kernel K1, one launch over all levels) → balanced selection →
+orientation → steered BRIEF over all levels (kernel K2, or K3 in the
+binned mode; one launch), then the RGB-L depth association. The output
+is a fixed-capacity ``FrameFeatures`` (padded + masked).
 """
 
 from __future__ import annotations
@@ -57,27 +57,31 @@ def extract_features(img, height: int, width: int, n_features: int = 2000,
         raise ValueError(f"extract_features: unknown brief_mode {brief_mode!r}")
     dev = resolve(device)
     img = torch.as_tensor(img, dtype=torch.float32, device=dev)
-    levels = pyr_ops.build_pyramid(img, height, width, n_levels, scale_factor)
+    levels = [lv.contiguous() for lv in
+              pyr_ops.build_pyramid(img, height, width, n_levels, scale_factor)]
     budgets = fast_ops.features_per_level(n_features, n_levels, scale_factor)
     scales = pyr_ops.level_scales(n_levels, scale_factor)
 
-    uvs, resps, octs, angs, valids, uv_ints, blurs, descs = [], [], [], [], [], [], [], []
+    # legacy reads the unrounded blurs; the other modes the composite of
+    # the rounded ones, which K1 writes itself
+    legacy = brief_mode == "legacy"
+    scores, blurs, comp, offs = frontend_cuda.fast_and_blur_levels(
+        levels, want_blur=legacy, want_comp=not legacy)
+    uvs, resps, octs, angs, valids, uv_ints, descs = [], [], [], [], [], [], []
     for l, lv in enumerate(levels):
-        score, blurred = frontend_cuda.fast_and_blur(lv.contiguous())
         uv_l, resp_l, valid_l = fast_ops.select_keypoints(
-            score, budgets[l], cell=cell, ini_th=ini_th, min_th=min_th, margin=19)
+            scores[l], budgets[l], cell=cell, ini_th=ini_th, min_th=min_th, margin=19)
         ang_l = orb_ops.ic_angle(lv, uv_l)
-        if brief_mode == "legacy":
-            descs.append(orb_ops.brief_descriptors(blurred, uv_l, ang_l))
+        if legacy:
+            descs.append(orb_ops.brief_descriptors(blurs[l], uv_l, ang_l))
         uv_ints.append(uv_l)
-        blurs.append(blurred)
         uvs.append(uv_l.to(torch.float32) * scales[l])
         resps.append(resp_l)
         octs.append(torch.full((budgets[l],), l, dtype=torch.int32, device=dev))
         angs.append(ang_l)
         valids.append(valid_l)
-    if brief_mode != "legacy":
-        descs = brief_cuda.descriptors_multilevel(blurs, uv_ints, angs, mode=brief_mode)
+    if not legacy:
+        descs = brief_cuda.descriptors_multilevel(comp, offs, uv_ints, angs, mode=brief_mode)
 
     n_total = sum(budgets)
     return FrameFeatures(
@@ -89,9 +93,10 @@ def extract_features(img, height: int, width: int, n_features: int = 2000,
 
 
 def scale_sigma2(n_levels: int = 8, scale_factor: float = 1.2, device=None) -> torch.Tensor:
-    """Per-octave measurement variance (reference ``mvLevelSigma2``)."""
+    """Per-octave measurement variance (reference ``mvLevelSigma2``), on
+    ``device`` (default ``cuda``)."""
     return torch.tensor([scale_factor ** (2 * l) for l in range(n_levels)],
-                        dtype=torch.float32, device=device)
+                        dtype=torch.float32, device=resolve(device))
 
 
 def inv_scale_sigma2(n_levels: int = 8, scale_factor: float = 1.2, device=None) -> torch.Tensor:

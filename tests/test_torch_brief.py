@@ -76,7 +76,7 @@ def test_index_tables_and_k2_plain_version(rng):
                                   np.asarray(j_bp.continuous_index_tables(jnp.asarray(ang))))
     corners = _t(uv - t_bp.HALF)
     d_plain = t_bp.brief_continuous_plain(_t(img), corners, idx_t)
-    d_wrap = t_bp.brief_continuous(_t(img), corners, idx_t)        # CPU → plain
+    d_wrap = t_bp.brief_continuous(_t(img), corners, _t(ang))      # CPU → tables, then plain
     d_gather = t_orb.brief_descriptors(_t(img), _t(uv), _t(ang))
     assert torch.equal(d_plain, d_wrap)
     assert torch.equal(d_plain, d_gather)
@@ -87,6 +87,7 @@ def test_index_tables_and_k2_plain_version(rng):
     idx = jnp.zeros((S, 512), jnp.int32).at[:N].set(jnp.asarray(idx_t.numpy()))
     d_pal = np.asarray(j_bp.brief_continuous_pallas(jnp.asarray(img), uvb, idx, interpret=True))[:N]
     np.testing.assert_array_equal(d_plain.numpy().view(np.uint32), d_pal)
+    np.testing.assert_array_equal(d_wrap.numpy().view(np.uint32), d_pal)
 
 
 def test_descriptors_multilevel_matches_jax(rng):
@@ -94,7 +95,10 @@ def test_descriptors_multilevel_matches_jax(rng):
     lvl1 = np.round(rng.uniform(0, 255, (128, 256))).astype(np.float32)
     uv2 = np.stack([rng.integers(20, 236, 30), rng.integers(20, 100, 30)], 1).astype(np.int32)
     ang2 = rng.uniform(-np.pi, np.pi, 30).astype(np.float32)
-    d_t = t_bp.descriptors_multilevel([_t(img), _t(lvl1)], [_t(uv), _t(uv2)], [_t(ang), _t(ang2)])
+    comp, offs = t_bp.composite([_t(img), _t(lvl1)])
+    assert (comp.shape, offs) == ((256 + 128 + 16, 512 + 128), [0, 256])
+    assert t_bp.composite_layout([img.shape, lvl1.shape]) == (400, 640, [0, 256])
+    d_t = t_bp.descriptors_multilevel(comp, offs, [_t(uv), _t(uv2)], [_t(ang), _t(ang2)])
     j_args = ([jnp.asarray(img), jnp.asarray(lvl1)], [jnp.asarray(uv), jnp.asarray(uv2)],
               [jnp.asarray(ang), jnp.asarray(ang2)])
     d_cpu = j_bp.descriptors_multilevel(*j_args, use_pallas=False, mode="continuous")
@@ -118,4 +122,23 @@ def test_k2_wrapper_checks_inputs():
     comp = torch.zeros((64, 64), device="meta")
     with pytest.raises(ValueError):
         t_bp.brief_continuous(comp, torch.zeros((1, 2), dtype=torch.int32),
-                              torch.zeros((1, 512), dtype=torch.int32))
+                              torch.zeros((1,), dtype=torch.float32))
+    with pytest.raises(ValueError, match="only on a CUDA tensor"):
+        t_bp.rotation_tables(torch.zeros((3,), dtype=torch.float32))
+
+
+@pytest.mark.parametrize("n", [1, 5, 70])
+def test_k2_angles_in_words_out_matches_pallas(rng, n):
+    """``brief_continuous(comp, corners, angle)`` against the Pallas kernel
+    in interpret mode, which is fed JAX's own index tables of the same
+    angles: bit for bit, on keypoint counts that leave the kernels' last
+    block partly filled."""
+    img, uv, ang = _setup(rng, N=n)
+    d_t = t_bp.brief_continuous(_t(img), _t(uv - t_bp.HALF), _t(ang))
+    S = ((n + j_bp.BLK - 1) // j_bp.BLK) * j_bp.BLK
+    uvb = jnp.ones((S, 2), jnp.int32).at[:n].set(jnp.asarray(uv - j_bp.HALF))
+    idx = jnp.zeros((S, 512), jnp.int32).at[:n].set(
+        j_bp.continuous_index_tables(jnp.asarray(ang)))
+    d_pal = np.asarray(j_bp.brief_continuous_pallas(jnp.asarray(img), uvb, idx, interpret=True))[:n]
+    np.testing.assert_array_equal(d_t.numpy().view(np.uint32), d_pal)
+    assert t_bp.brief_continuous(_t(img), _t(uv[:0] - t_bp.HALF), _t(ang[:0])).shape == (0, 8)

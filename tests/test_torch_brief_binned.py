@@ -104,14 +104,15 @@ def test_descriptors_multilevel_binned_matches_jax(rng):
     with jax.enable_x64(False):
         d_ref = bp.descriptors_multilevel(*j_args, use_pallas=False, mode="binned")
         d_pal = bp.descriptors_multilevel(*j_args, use_pallas=True, interpret=True, mode="binned")
-    d_t = bc.descriptors_multilevel([torch.from_numpy(img), torch.from_numpy(lvl1)],
+    comp, offs = bc.composite([torch.from_numpy(img), torch.from_numpy(lvl1)])
+    d_t = bc.descriptors_multilevel(comp, offs,
                                     [torch.from_numpy(uv), torch.from_numpy(uv2)],
                                     [torch.from_numpy(ang), torch.from_numpy(ang2)], mode="binned")
     for t, r, p in zip(d_t, d_ref, d_pal):
         np.testing.assert_array_equal(t.numpy().view(np.uint32), np.asarray(r))
         np.testing.assert_array_equal(t.numpy().view(np.uint32), np.asarray(p))
     with pytest.raises(ValueError, match="unknown mode"):
-        bc.descriptors_multilevel([torch.from_numpy(img)], [torch.from_numpy(uv)],
+        bc.descriptors_multilevel(*bc.composite([torch.from_numpy(img)]), [torch.from_numpy(uv)],
                                   [torch.from_numpy(ang)], mode="bogus")
 
 

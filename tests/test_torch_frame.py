@@ -77,3 +77,33 @@ def test_whole_frame_features_agree(frames):
     assert bits.max() <= 16, bits.max()
     # the depth path is exercised (the scan covers the lower image half)
     assert (jf["depth"][v] > 0).mean() > 0.3
+
+
+@pytest.mark.parametrize("mode", ["continuous", "binned", "legacy"])
+def test_extraction_equals_per_level_assembly(mode):
+    """``extract_features`` (one multi-level K1 call, composite from K1)
+    against the same frame assembled level by level: the one-level
+    ``fast_and_blur`` on each level, ``brief_cuda.composite`` of its blurs,
+    then the descriptors. Bit for bit in every BRIEF mode."""
+    from orb_slam3_rgbl_tpu_torch.ops import brief_cuda, fast as t_fast, frontend_cuda
+    from orb_slam3_rgbl_tpu_torch.ops import orb as t_orb, pyramid as t_pyr
+
+    H, W, n_feat, n_lv = 96, 160, 200, 3
+    img = torch.from_numpy(np.random.default_rng(3).uniform(0, 255, (H, W)).astype(np.float32))
+    feats = t_frame.extract_features(img, H, W, n_features=n_feat, n_levels=n_lv,
+                                     brief_mode=mode, device="cpu")
+    levels = [lv.contiguous() for lv in t_pyr.build_pyramid(img, H, W, n_lv, 1.2)]
+    budgets = t_fast.features_per_level(n_feat, n_lv, 1.2)
+    uvs, angs, blurs, descs = [], [], [], []
+    for lv, budget in zip(levels, budgets):
+        score, blur = frontend_cuda.fast_and_blur(lv)
+        uv, _, _ = t_fast.select_keypoints(score, budget, margin=19)
+        uvs.append(uv)
+        angs.append(t_orb.ic_angle(lv, uv))
+        blurs.append(blur)
+        descs.append(t_orb.brief_descriptors(blur, uv, angs[-1]))
+    if mode != "legacy":
+        descs = brief_cuda.descriptors_multilevel(*brief_cuda.composite(blurs), uvs, angs, mode=mode)
+    assert feats.valid.sum() > 50
+    assert torch.equal(feats.desc, torch.cat(descs))
+    assert torch.equal(feats.angle, torch.cat(angs))

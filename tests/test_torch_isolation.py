@@ -68,6 +68,83 @@ def test_entry_points_never_fall_back_to_cpu():
         compiled.make_track_step(cfg, mode="rgbd", device="cpu")
 
 
+def _functions_with_device_default_none():
+    """Every public function or method of the port whose signature has a
+    ``device=None`` parameter, as (qualified name, callable)."""
+    import importlib
+    import inspect
+
+    found = {}
+    for name in PORT_MODULES:
+        if not name.startswith("orb_slam3_rgbl_tpu_torch."):
+            continue
+        mod = importlib.import_module(name)
+        members = list(vars(mod).items())
+        for cls_name, cls in members:
+            if inspect.isclass(cls) and cls.__module__ == name:
+                members += [(f"{cls_name}.{k}", v) for k, v in vars(cls).items()]
+        for attr, fn in members:
+            if attr.split(".")[-1].startswith("_") and not attr.endswith("__init__"):
+                continue
+            if not inspect.isfunction(fn) or fn.__module__ != name:
+                continue
+            par = inspect.signature(fn).parameters.get("device")
+            if par is not None and par.default is None:
+                found[f"{name}.{attr}"] = fn
+    return found
+
+
+def test_device_none_never_answers_on_the_cpu():
+    """The rule for ``device=None``: it means the card (``device.resolve``).
+    Each such function either resolves it (so on a host without a card the
+    call raises, and with one the result lies on it) or, where it takes an
+    object that already lives on a device, follows that object."""
+    import numpy as np
+    from orb_slam3_rgbl_tpu_torch import convert, device, synthetic
+    from orb_slam3_rgbl_tpu_torch.geometry import lie
+    from orb_slam3_rgbl_tpu_torch.slam import compiled, frame
+    from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
+    from orb_slam3_rgbl_tpu_torch.slam.system import System
+    from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker
+
+    cfg = dataclasses.replace(synthetic.synthetic_rgbl_config(), loop_closing=False)
+    feats = {k: np.zeros((4,) + s, d) for k, s, d in (
+        ("uv", (2,), np.float32), ("response", (), np.float32), ("octave", (), np.int32),
+        ("angle", (), np.float32), ("desc", (8,), np.uint32), ("valid", (), bool),
+        ("depth", (), np.float32), ("u_right", (), np.float32))}
+    pre = "orb_slam3_rgbl_tpu_torch."
+    calls = {
+        pre + "device.resolve": lambda: device.resolve(),
+        pre + "geometry.lie.se3_identity": lambda: lie.se3_identity(),
+        pre + "slam.frame.scale_sigma2": lambda: frame.scale_sigma2(),
+        pre + "slam.frame.inv_scale_sigma2": lambda: frame.inv_scale_sigma2(),
+        pre + "slam.frame.extract_features":
+            lambda: frame.extract_features(torch.zeros(64, 64), 64, 64, n_levels=1).uv,
+        pre + "slam.compiled.make_frame_step": lambda: compiled.make_frame_step(cfg),
+        pre + "slam.compiled.make_track_step": lambda: compiled.make_track_step(cfg),
+        pre + "slam.compiled.example_inputs": lambda: compiled.example_inputs(cfg, n_points=64)[0],
+        pre + "slam.system.System.__init__": lambda: System(cfg, enable_mapping=False),
+        pre + "slam.tracking.Tracker.__init__": lambda: Tracker(cfg, None),
+        pre + "slam.fast_path.FastPath.__init__": lambda: FastPath(cfg, 64),
+        pre + "synthetic.make_world": lambda: synthetic.make_world(0, tex_size=8).tex,
+        pre + "convert.frame_features_from_numpy":
+            lambda: convert.frame_features_from_numpy(feats).uv,
+    }
+    # follows the FastPath it is given: covered by tests/test_torch_step.py
+    follows_an_object = {pre + "convert.fast_path_state_from_numpy"}
+    assert set(_functions_with_device_default_none()) == set(calls) | follows_an_object
+    assert lie.se3_identity(device="cpu").device.type == "cpu"
+    assert frame.inv_scale_sigma2(device="cpu").device.type == "cpu"
+    for name, call in calls.items():
+        if torch.cuda.is_available():
+            out = call()
+            if isinstance(out, torch.Tensor):
+                assert out.device.type == "cuda", name
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+
+
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: chip_smoke.py would run for real")
