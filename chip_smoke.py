@@ -10,7 +10,7 @@ Phase 1 runs each kernel at the main path's shapes on a rendered
 launch (and on each level alone), K2 ``brief_continuous`` on the frame's
 2000 keypoints, K3 ``brief_blocks`` on their 3904 bin-pure slots —
 compares it with its plain version (bit for bit) and times both, beside
-an empty kernel at K1's and K2's grids (the floor of a launch on this
+an empty kernel at each kernel's grid (the floor of a launch on this
 card).
 Phase 2 drives the main path, ``System.track_rgbl`` in the tracking-only
 configuration (``enable_mapping=False``, ``loop_closing=False``), at the
@@ -25,9 +25,26 @@ Phase 3 feeds 12 textureless frames and 3 textured ones: OK →
 RECENTLY_LOST → LOST, a second atlas map, and tracking again.
 Phase 4 runs the binned-BRIEF extraction (K3) on 5 of the drive's frames
 beside the continuous one.
+Phase 5 drives the same 41 frames through ``System(cfg,
+enable_mapping=True)`` with the natural keyframe policy (and, if that
+makes fewer than 6 keyframes, again with one forced every 4 frames): after
+every keyframe the synchronous mapping job — landmark culling,
+triangulation, fusion, Schur local BA, keyframe culling — runs on the
+card. It checks every frame's state, the map's binding invariants after
+every job, that landmarks were triangulated, that no local BA raised its
+cost, that the solve does not wait for the card, and the trajectory; it
+prints the jobs' host ms, one job split by ``map.*`` span, the plane's
+counts, the window's size beside the tracking-only drive's and the
+tracking host ms with mapping on. For the natural policy it prints, frame
+by frame, what the keyframe decision saw and which clause fired, here and
+on a 320×192 drive of 600 features (the size of the CPU tests).
 
-The last line is ``{"ok": true, "device": {...}}``; any failure exits
-non-zero before it. Without a CUDA device the script exits 1 at once.
+``--mapping-drive N`` runs, instead of the phases, N frames tracking only
+and then with the mapping plane on (a keyframe every 4 in both): the
+window's and the map's growth over a longer drive.
+
+The last line is ``{"ok": true, "device": {...}}`` (no arguments); any
+failure exits non-zero before it. Without a CUDA device the script exits 1 at once.
 It uses one card: unless ``CUDA_VISIBLE_DEVICES`` is set, it sees only
 the first. Imports nothing of JAX.
 """
@@ -56,7 +73,10 @@ from orb_slam3_rgbl_tpu_torch.config import kitti_rgbl_config
 from orb_slam3_rgbl_tpu_torch.geometry import lie
 from orb_slam3_rgbl_tpu_torch.ops import brief_cuda, fast as fast_ops, frontend_cuda
 from orb_slam3_rgbl_tpu_torch.ops import orb as orb_ops, pyramid as pyr_ops
+from orb_slam3_rgbl_tpu_torch.optim import local_ba
 from orb_slam3_rgbl_tpu_torch.slam import frame as frame_mod, tracking as trk
+from orb_slam3_rgbl_tpu_torch.slam import map_state as map_mod
+from orb_slam3_rgbl_tpu_torch.slam.local_mapping import MAP_SPANS, LocalMapper
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
 from orb_slam3_rgbl_tpu_torch.slam.system import System
 from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker
@@ -68,6 +88,9 @@ KF_EVERY = 4            # forced keyframe cadence (the JAX engine bench's)
 MIN_KEYFRAMES = 10
 N_BLANK, N_AFTER = 12, 3    # phase 3: textureless frames, then textured ones
 N_BINNED = 5            # phase 4: binned extractions
+MIN_MAPPING_KEYFRAMES = 6   # phase 5: fewer under the natural policy → a forced pass too
+N_LATE = 14             # phase 5: frames of the closing tracking-only drive
+PROFILED_JOB = 4        # phase 5: the mapping job (0-based) run under torch.profiler
 CLOUD_AZ, CLOUD_EL = 2048, 64   # 131,072 points (System.CLOUD_CAP)
 MIN_INLIERS = 30
 # translation error bound against ground truth over the drive (metres):
@@ -261,12 +284,13 @@ def render_drive(cfg, n_frames: int, device, n_az: int = CLOUD_AZ, n_el: int = C
     return traj, frames
 
 
-def drive(cfg, frames, device, sysm=None, t0: int = 0, on_frame=None):
+def drive(cfg, frames, device, sysm=None, t0: int = 0, on_frame=None,
+          kf_every: int = KF_EVERY):
     """Feed ``frames`` to ``System.track_rgbl`` (a new tracking-only
     System unless ``sysm`` is given; its first tracker forces a keyframe
-    every ``KF_EVERY`` frames). Returns the System and per-frame
-    (TrackResult, host ms). ``on_frame(i)`` may return a context manager
-    wrapped around frame i."""
+    every ``kf_every`` frames, 0 for the natural policy). Returns the
+    System and per-frame (TrackResult, host ms). ``on_frame(i)`` may
+    return a context manager wrapped around frame i."""
     if sysm is None:
         sysm = System(cfg, enable_mapping=False, device=device)
         sysm.CLOUD_CAP = frames[0][1].shape[0]
@@ -279,7 +303,7 @@ def drive(cfg, frames, device, sysm=None, t0: int = 0, on_frame=None):
                 torch.cuda.synchronize()
             ms = (time.perf_counter() - t0_host) * 1e3
         if t0 + i == 0:
-            sysm.tracker.force_kf_every = KF_EVERY
+            sysm.tracker.force_kf_every = kf_every
         results.append((res, ms))
     return sysm, results
 
@@ -482,15 +506,21 @@ def phase1_kernels(cfg, device) -> dict:
     if not torch.equal(d3_k[slots.long()][inside], d3_g[inside]):
         fail("K3 differs from brief_binned_plain on the real keypoints")
     k3_err = bit_mismatch(d3_k, d3_p)
-    ms3 = time_cuda(lambda: brief_cuda.brief_blocks(comp, slot_corners, block_bins))
+
+    def k3():
+        return brief_cuda.brief_blocks(comp, slot_corners, block_bins)
+
+    ms3 = time_cuda(k3)
     pms3 = time_cuda(lambda: brief_cuda.brief_blocks_plain(comp, slot_corners, block_bins))
     gms3 = time_cuda(lambda: brief_cuda.brief_binned_plain(comp, uv_all, ang))
-    dms3 = kernel_device_ms(lambda: brief_cuda.brief_blocks(comp, slot_corners, block_bins),
-                            "brief_binned_kernel")
+    dms3 = kernel_device_ms(k3, "brief_binned_kernel")
     log(f"K3 {S} slots ({N} keypoints, {block_bins.shape[0]} blocks) on the same composite: "
         f"bit-identical to brief_blocks_plain on all {S} slots and to brief_binned_plain on "
         f"{int(inside.sum())} keypoints; kernel {ms3:.4f} ms (device time alone {dms3:.4f} ms), "
         f"plain {pms3:.4f} ms, gather form {gms3:.4f} ms")
+    floor_dev, floor_evt = empty_launch_ms(-(-S // brief_cuda.K3_KPB), 256)
+    log(f"empty kernel at K3's grid ({-(-S // brief_cuda.K3_KPB)} x 256): {floor_dev:.4f} ms on "
+        f"the device, {floor_evt:.4f} ms by events")
 
     k2_terms = brief_bytes(comp, corners, idx)
     log("K2 least bytes: " + ", ".join(f"{k} {v:.0f}" for k, v in k2_terms.items()))
@@ -525,26 +555,28 @@ def bit_mismatch(a, b) -> float:
     return float(bits.to(torch.float32).max()) if bits.numel() else 0.0
 
 
-def profile_frames():
-    """(context manager factory, stats): torch.profiler over one frame.
-    Appends per frame (device busy ms, kernel count, {kernel name: [ms,
-    calls]}, {step span: (host ms, device busy ms, kernels)}). Busy time
-    sums kernel durations; a kernel belongs to the step span
-    (``compiled.STEP_SPANS``) whose device-side range holds its start."""
+def profile_frames(prefix: str = "track."):
+    """(context manager factory, stats): torch.profiler over one frame (or
+    one mapping job, with ``prefix`` "map."). Appends per use (device busy
+    ms, kernel count, {kernel name: [ms, calls]}, {span: (host ms, device
+    busy ms, kernels)}). Busy time sums kernel durations; a kernel belongs
+    to the span (``compiled.STEP_SPANS``, ``local_mapping.MAP_SPANS``)
+    whose device-side range holds its start."""
     stats = []
 
     @contextlib.contextmanager
     def ctx():
         with _profile() as prof:
             yield
+            torch.cuda.synchronize()
         events = list(prof.events())
-        spans = [e for e in events if e.name.startswith("track.")]
+        spans = [e for e in events if e.name.startswith(prefix)]
         host_ms = {e.name: _ms(e) for e in spans if not _on_device(e)}
         dev_spans = [e for e in spans if _on_device(e)]
         by_name = collections.defaultdict(lambda: [0.0, 0])
         by_span = collections.defaultdict(lambda: [0.0, 0])
         for e in events:
-            if not _on_device(e) or e.name.startswith("track."):
+            if not _on_device(e) or e.name.startswith(prefix):
                 continue
             by_name[e.name][0] += _ms(e)
             by_name[e.name][1] += 1
@@ -573,6 +605,258 @@ def check_no_sync(tracker, frame, device):
     torch.cuda.synchronize()
     log("sync check: a fused step ran under torch.cuda.set_sync_debug_mode('error') "
         "without a synchronizing call")
+
+
+def ba_robust_cost(problem, poses, landmarks, cam):
+    """Huber cost of a BA state over every masked observation (a device
+    scalar): the same function before and after a solve."""
+    P = problem._replace(poses=poses, landmarks=landmarks)
+    return local_ba._linearize(P, cam, True, problem.obs_mask)[6]
+
+
+@contextlib.contextmanager
+def spy_mapping(jobs: list, ba_runs: list, prof_ctx):
+    """For the duration, time every ``LocalMapper.process_keyframe``
+    (``jobs``: kf id, host ms synchronized, binding faults after it), run
+    job number ``PROFILED_JOB`` under the profiler, and record every local
+    BA's problem and Huber cost before and after (``ba_runs``)."""
+    orig_job = LocalMapper.process_keyframe
+    orig_ba = local_ba.bundle_adjust
+
+    def timed_job(self, kf_id, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with prof_ctx() if len(jobs) == PROFILED_JOB else contextlib.nullcontext():
+            orig_job(self, kf_id, *a, **k)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        jobs.append((kf_id, ms, map_mod.check_binding_consistency(self.map)))
+
+    def recorded_ba(problem, cam, **k):
+        before = ba_robust_cost(problem, problem.poses, problem.landmarks, cam)
+        res = orig_ba(problem, cam, **k)
+        ba_runs.append((problem, cam, k, before,
+                        ba_robust_cost(problem, res.poses, res.landmarks, cam), res.cost))
+        return res
+
+    LocalMapper.process_keyframe = timed_job
+    local_ba.bundle_adjust = recorded_ba
+    try:
+        yield
+    finally:
+        LocalMapper.process_keyframe = orig_job
+        local_ba.bundle_adjust = orig_ba
+
+
+@contextlib.contextmanager
+def spy_kf_policy(rows: list):
+    """Record, for every keyframe decision of a fused frame, what
+    ``Tracker._fast_kf_policy`` saw and which clause of NeedNewKeyFrame
+    asked for a keyframe (``rows``: frame id, inliers, the reference
+    keyframe's tracked landmarks, the ratio threshold, close points
+    tracked and not tracked, the clause)."""
+    original = Tracker._fast_kf_policy
+
+    def traced(self, n_inl, tracked_close, nontracked_close):
+        made = original(self, n_inl, tracked_close, nontracked_close)
+        ref = self._ref_kf_tracked() if self.ref_kf >= 0 else 0
+        th_ref = 0.4 if self.map.n_kf < 2 else 0.75
+        if not made:
+            clause = "-"
+        elif (self.force_kf_every > 0
+              and self.frame_id >= self.last_kf_frame + self.force_kf_every):
+            clause = "forced"
+        elif self._need_close(tracked_close, nontracked_close):
+            clause = "close"
+        else:
+            clause = "ratio"
+        rows.append((self.frame_id, n_inl, ref, th_ref, tracked_close, nontracked_close, clause))
+        return made
+
+    Tracker._fast_kf_policy = traced
+    try:
+        yield
+    finally:
+        Tracker._fast_kf_policy = original
+
+
+def log_kf_policy(what: str, rows: list):
+    """One line per drive: frame:inliers/threshold×tracked(close tracked,
+    not tracked)clause — the clause is ``ratio`` (inliers under the
+    threshold's share of the reference keyframe's tracked landmarks),
+    ``close`` (under 100 close points tracked and over 70 not), ``forced``
+    or ``-`` (no keyframe)."""
+    log(f"keyframe policy, {what} (frame:inliers/share*tracked(close tracked,untracked)clause): "
+        + " ".join(f"{f}:{n}/{th}*{ref}({tc},{ntc}){cl}" for f, n, ref, th, tc, ntc, cl in rows))
+    fired = collections.Counter(cl for *_, cl in rows if cl != "-")
+    log(f"keyframe policy, {what}: clauses that made a keyframe: {dict(fired)}")
+
+
+def small_policy_drive(device, n_frames: int):
+    """The natural keyframe policy at the size the CPU tests hold against
+    the JAX package (320x192, 600 features, 4 levels, 12,288-point clouds),
+    mapping on, over the same trajectory: which clause makes its keyframes,
+    beside the KITTI-size drive's."""
+    cfg = dataclasses.replace(syn.synthetic_rgbl_config(), loop_closing=False)
+    _, frames = render_drive(cfg, n_frames, device, n_az=256, n_el=48)
+    sysm = System(cfg, enable_mapping=True, device=device)
+    sysm.CLOUD_CAP = frames[0][1].shape[0]
+    rows = []
+    with spy_kf_policy(rows):
+        sysm, results = drive(cfg, frames, device, sysm=sysm, kf_every=0)
+    sysm.shutdown()
+    if any(r.state != trk.OK for r, _ in results):
+        fail("a frame of the 320x192 policy drive is not OK")
+    log(f"320x192 policy drive: {n_frames} frames, {sysm.map.n_kf} keyframes created at frames "
+        + " ".join(str(i) for i, (r, _) in enumerate(results) if r.created_kf))
+    log_kf_policy("320x192, 600 features", rows)
+
+
+def phase5_mapping(cfg, frames, traj, device, kf_every: int, tracking_only: dict,
+                   max_err: float = MAX_TRANS_ERR_M) -> int:
+    """The drive with the local-mapping plane on. Returns the number of
+    keyframes it created."""
+    policy = "the natural keyframe policy" if kf_every == 0 else f"a keyframe forced every {kf_every}"
+    prof_ctx, prof_stats = profile_frames("map.")
+    jobs, ba_runs, windows, policy_rows = [], [], [], []
+
+    @contextlib.contextmanager
+    def on_frame(i):
+        yield
+        windows.append(len(sysm._fast.win_ids) if sysm._fast else 0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    sysm = System(cfg, enable_mapping=True, device=device)
+    sysm.CLOUD_CAP = frames[0][1].shape[0]
+    with spy_mapping(jobs, ba_runs, prof_ctx), spy_kf_policy(policy_rows):
+        sysm, results = drive(cfg, frames, device, sysm=sysm, on_frame=on_frame,
+                              kf_every=kf_every)
+    sysm.shutdown()
+    counts = dict(cuda_build.launch_counts)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    m, n = sysm.map, len(frames)
+
+    states = [r.state for r, _ in results]
+    kf = [r.created_kf for r, _ in results]
+    errs = trans_errors(traj, results)
+    log(f"mapping drive ({policy}): keyframe frames " + " ".join(str(i) for i, k in enumerate(kf) if k))
+    log("mapping drive inliers: " + " ".join(str(r.n_inliers) for r, _ in results[1:]))
+    if kf_every == 0:
+        log_kf_policy(f"{cfg.camera.width}x{cfg.camera.height}, {cfg.orb.n_features} features",
+                      policy_rows)
+    log("mapping drive trans err m: " + " ".join(f"{e:.3f}" for e in errs))
+    if any(st != trk.OK for st in states):
+        fail(f"mapping drive states {[trk.STATE_NAMES[st] for st in states]}: every frame must be OK")
+    if sysm.async_mapping:
+        fail("the mapping plane must run synchronously")
+    if counts["fast_and_blur"] != n or counts["brief_continuous"] != n:
+        fail(f"mapping drive launch counts {counts} over {n} frames; expected 1 K1 and 1 K2 per frame")
+    for kf_id, _, faults in jobs:
+        if faults:
+            fail(f"check_binding_consistency after keyframe {kf_id}: {faults}")
+    live = m.valid_kf_ids()
+    if not (np.isfinite(m.kf_pose[live]).all() and np.isfinite(m.lm_pos[m.lm_valid]).all()
+            and all(np.isfinite(r.pose).all() for r, _ in results)):
+        fail("a pose or a landmark of the mapping drive is not finite")
+    c = sysm.mapper.counts
+    if len(jobs) != sum(kf) - 1:
+        fail(f"{len(jobs)} mapping jobs for {sum(kf)} keyframes; expected one after each but the first")
+    log(f"mapping jobs host ms (keyframe: ms): " + " ".join(f"{k}: {ms:.1f}" for k, ms, _ in jobs))
+    timed_jobs = [ms for i, (_, ms, _) in enumerate(jobs) if i != PROFILED_JOB]
+    if timed_jobs:
+        log(f"mapping job host ms: median {statistics.median(timed_jobs):.1f} max "
+            f"{max(timed_jobs):.1f} over {len(timed_jobs)} jobs (job {PROFILED_JOB} ran under "
+            f"the profiler and is left out)")
+    if prof_stats and prof_stats[0][1] > 0:
+        busy, n_kernels, by_name, by_span = prof_stats[0]
+        log(f"profiled mapping job (keyframe {jobs[PROFILED_JOB][0]}): device busy {busy:.2f} ms "
+            f"in {n_kernels} kernels")
+        for span in MAP_SPANS:
+            if span in by_span:
+                host, sbusy, sn = by_span[span]
+                log(f"  span {span:18s} host {host:8.2f} ms  device busy {sbusy:7.3f} ms  kernels {sn}")
+        for name, (ms, n_calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            log(f"  {ms:8.3f} ms {n_calls:6d} calls  {name[:110]}")
+    elif len(jobs) > PROFILED_JOB:
+        log("profiler: no device events recorded for the mapping job (not measured)")
+    if ba_runs:
+        costs = torch.stack([torch.stack([b, a, r]) for _, _, _, b, a, r in ba_runs]).cpu().numpy()
+        log("local BA Huber cost over all observations, before -> after (solver's final cost): "
+            + "; ".join(f"{b:.1f} -> {a:.1f} ({r:.1f})" for b, a, r in costs))
+        if not np.isfinite(costs).all() or (costs[:, 1] > costs[:, 0]).any():
+            fail("a local BA raised its cost or returned a non-finite one")
+        problem, cam, kwargs = ba_runs[-1][:3]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            local_ba.bundle_adjust(problem, cam, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        M, D = problem.obs_kf.shape
+        log(f"sync check: bundle_adjust ({problem.poses.shape[0]} poses, {M} landmark slots, "
+            f"{D} observations each, {kwargs}) ran under set_sync_debug_mode('error') without a "
+            f"synchronizing call")
+    log(f"mapping plane over the drive: {c['triangulated']} landmarks triangulated, "
+        f"{c['fuse_bound']} observations bound and {c['fuse_replaced']} landmarks replaced by "
+        f"fusion, {c['mp_culled']} landmarks culled, {c['kf_culled']} keyframes culled, "
+        f"{c['lba_runs']} local BAs, {c['lba_outlier_obs']} outlier observations unbound, "
+        f"{c['lba_dropped_obs']} observations dropped by the {sysm.mapper.obs_cap}-per-landmark cap")
+    if c["triangulated"] == 0:
+        fail("no landmark was triangulated over the mapping drive")
+    if sum(kf) >= 3 and c["lba_runs"] == 0:
+        fail("no local BA ran over the mapping drive")
+    log("window size per frame, mapping on:  " + " ".join(str(w) for w in windows))
+    log("window size per frame, tracking only: " + " ".join(str(w) for w in tracking_only["windows"]))
+    if not float(errs.max()) < max_err:
+        fail(f"mapping drive translation error {errs.max():.3f} m >= {max_err} m")
+    job_ms = dict(zip([i for i, k in enumerate(kf) if k][1:], [ms for _, ms, _ in jobs]))
+    kinds = {"no keyframe": [ms for i, (_, ms) in enumerate(results) if i > 1 and not kf[i]],
+             "keyframe, tracking part": [ms - job_ms.get(i, 0.0) for i, (_, ms) in enumerate(results)
+                                         if i > 1 and kf[i]]}
+    for kind, ms in kinds.items():
+        if ms:
+            log(f"mapping drive host ms/frame, {kind}: {len(ms)} frames, median "
+                f"{statistics.median(ms):.2f}, all {' '.join(f'{x:.1f}' for x in ms)}")
+    log(f"mapping drive ({policy}): {n} frames, {sum(kf)} keyframes created, {live.size} alive, "
+        f"{int(m.lm_valid.sum())} landmarks alive (tracking only: "
+        f"{tracking_only['landmarks']}); max trans err {errs.max():.3f} m (tracking only "
+        f"{tracking_only['max_err']:.3f} m, bound {max_err:.2f}); launches {counts}; peak "
+        f"memory {peak_mb:.0f} MiB")
+    return sum(kf)
+
+
+def long_mapping_drive(cfg, device, n_frames: int):
+    """``--mapping-drive N``: N frames of the canyon (the far wall stands
+    120 m ahead: N ≤ 161), tracking only and then with the mapping plane
+    on, a keyframe forced every ``KF_EVERY`` frames in both: how the
+    window and the map grow with and without culling over a longer drive
+    than phase 5's. The error bound is ``MAX_TRANS_ERR_M``, which was set
+    for ``N_DRIVE`` frames, scaled with the number of frames: drift grows
+    with the distance driven."""
+    traj, frames = render_drive(cfg, n_frames, device)
+    windows = []
+    sysm = System(cfg, enable_mapping=False, device=device)
+    sysm.CLOUD_CAP = frames[0][1].shape[0]
+
+    @contextlib.contextmanager
+    def on_frame(i):
+        yield
+        windows.append(len(sysm._fast.win_ids) if sysm._fast else 0)
+
+    sysm, results = drive(cfg, frames, device, sysm=sysm, on_frame=on_frame)
+    if any(r.state != trk.OK for r, _ in results):
+        fail("a frame of the long tracking-only drive is not OK")
+    ms = [t for i, (r, t) in enumerate(results) if i > 1 and not r.created_kf]
+    log(f"long tracking-only drive: {n_frames} frames, {sysm.map.n_kf} keyframes, host ms/frame "
+        f"without a keyframe median {statistics.median(ms):.2f}")
+    tracking_only = {"windows": windows, "landmarks": int(sysm.map.lm_valid.sum()),
+                     "max_err": float(trans_errors(traj, results).max())}
+    del sysm
+    phase5_mapping(cfg, frames, traj, device, KF_EVERY, tracking_only,
+                   max_err=MAX_TRANS_ERR_M * n_frames / N_DRIVE)
 
 
 def main():
@@ -604,7 +888,17 @@ def main():
         log(f"K1 machine code (staging, padding fill and 8 unrolled rows of 32 pixels a "
             f"warp): {sum(sass.values())} SASS lines; " + ", ".join(f"{op} {n}" for op, n in sass.most_common(14)))
 
+    for kernel, what in (("brief_kernel", "K2"), ("brief_binned_kernel", "K3")):
+        sass = sass_counts(paths["brief"], kernel)
+        if sass is not None:
+            log(f"{what} machine code ({kernel}): {sum(sass.values())} SASS lines; "
+                + ", ".join(f"{op} {n}" for op, n in sass.most_common(12)))
+
     cfg = kitti_synthetic_config()
+    if "--mapping-drive" in sys.argv[1:]:
+        long_mapping_drive(cfg, device, int(sys.argv[sys.argv.index("--mapping-drive") + 1]))
+        log(card)
+        return
 
     # ---- phase 1: kernels against plain versions ----------------------------
     k = phase1_kernels(cfg, device)
@@ -619,17 +913,22 @@ def main():
     prof_ctx, prof_stats = profile_frames()
     calls, sync_ms, frame_calls = [], [], []
 
+    windows2 = []
+    sysm = System(cfg, enable_mapping=False, device=device)
+    sysm.CLOUD_CAP = frames[0][1].shape[0]
+
     @contextlib.contextmanager
     def on_frame(i):
         calls.clear()
         with prof_ctx() if i >= N_DRIVE - N_PROFILED else contextlib.nullcontext():
             yield
         frame_calls.append(list(calls))
+        windows2.append(len(sysm._fast.win_ids) if sysm._fast else 0)
 
     torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launch_counts()
     with spy(calls, sync_ms), count_calls(brief_cuda, "continuous_index_tables") as table_calls:
-        sysm, results = drive(cfg, frames[:N_DRIVE], device, on_frame=on_frame)
+        sysm, results = drive(cfg, frames[:N_DRIVE], device, sysm=sysm, on_frame=on_frame)
     counts = dict(cuda_build.launch_counts)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     kf0_lms = int((sysm.map.kf_lm_idx[0] >= 0).sum())
@@ -693,6 +992,8 @@ def main():
         log("profiler: no device events recorded (device busy time not measured)")
     no_kf = max(i for i in timed if fused[i] and not kf[i])
     check_no_sync(sysm.tracker, frames[no_kf], device)
+    tracking_only = {"windows": windows2, "landmarks": int(sysm.map.lm_valid.sum()),
+                     "max_err": float(errs.max())}
 
     # ---- phase 3: the lost states and a second atlas map ------------------
     cuda_build.reset_launch_counts()
@@ -756,6 +1057,19 @@ def main():
         fail(f"binned extraction launch counts {counts4}; expected 1 K1 and 1 K3 per frame")
     if kp_diff != 0.0:
         fail("binned and continuous extraction chose different keypoints")
+
+    # ---- phase 5: the local-mapping plane -----------------------------------
+    del sysm, binned
+    if phase5_mapping(cfg, frames[:N_DRIVE], traj, device, 0, tracking_only) < MIN_MAPPING_KEYFRAMES:
+        phase5_mapping(cfg, frames[:N_DRIVE], traj, device, KF_EVERY, tracking_only)
+    small_policy_drive(device, N_DRIVE)
+    # tracking only once more, this late in the process: tells a slower
+    # host (whatever the cause) from a cost of the mapping plane
+    _, late = drive(cfg, frames[:N_LATE], device)
+    late_ms = [ms for i, (r, ms) in enumerate(late) if i > 1 and not r.created_kf]
+    log(f"tracking only again after the mapping drives, host ms/frame, fused, no keyframe: "
+        f"{len(late_ms)} frames, median {statistics.median(late_ms):.2f}, all "
+        f"{' '.join(f'{x:.1f}' for x in late_ms)}")
 
     kernels = [
         {"name": "fast_and_blur", "route": "cuda",

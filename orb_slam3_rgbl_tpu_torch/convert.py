@@ -17,6 +17,7 @@ import torch
 from orb_slam3_rgbl_tpu_torch import config as cfg_mod
 from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
+from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
 from orb_slam3_rgbl_tpu_torch.slam.frame import FrameFeatures
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
@@ -76,11 +77,14 @@ TRACKER_STATE = ("cur_pose", "last_pose", "velocity", "ref_kf", "last_lm_idx", "
 
 
 def map_state_from_numpy(jax_map) -> MapState:
-    """A copy of a JAX ``MapState`` (its numpy arrays and counters, read by
-    attribute) as the port's ``MapState``. Descriptors stay uint32, as the
-    port's map keeps them."""
+    """A copy of a JAX ``MapState`` (its numpy arrays, counters, free list
+    and cull redirects, read by attribute) as the port's ``MapState``, with
+    an allocator lock of its own. Descriptors stay uint32, as the port's
+    map keeps them; the inertial fields have no counterpart yet."""
     kw = {}
     for f in dataclasses.fields(MapState):
+        if f.name == "alloc_lock":
+            continue
         v = getattr(jax_map, f.name)
         if isinstance(v, np.ndarray):
             v = v.copy()
@@ -88,6 +92,22 @@ def map_state_from_numpy(jax_map) -> MapState:
             v = type(v)(v)
         kw[f.name] = v
     return MapState(**kw)
+
+
+def ba_problem_from_numpy(arrays: dict, device=None) -> BAProblem:
+    """A JAX ``BAProblem`` (as numpy arrays by field name) as the port's,
+    on ``device`` (default ``cuda``): floats as float32, ``obs_kf`` as
+    int64 indices, masks as bool."""
+    dev = resolve(device)
+    missing = set(BAProblem._fields) - set(arrays)
+    if missing:
+        raise ValueError(f"missing BAProblem arrays: {sorted(missing)}")
+    dtypes = {"pose_fixed": torch.bool, "pose_valid": torch.bool, "lm_valid": torch.bool,
+              "obs_mask": torch.bool, "obs_kf": torch.int64}
+    return BAProblem(**{
+        name: torch.as_tensor(np.array(arrays[name]), device=dev).to(
+            dtypes.get(name, torch.float32))
+        for name in BAProblem._fields})
 
 
 def tracker_state_from_numpy(tracker, state: dict):

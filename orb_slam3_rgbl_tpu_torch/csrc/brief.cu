@@ -47,7 +47,8 @@
 // 80GB HBM3 at 700 W; PERF.md).
 //
 // Resources (nvcc 12.8 -Xptxas -v, sm_90a): brief_kernel 30 registers, no
-// shared memory; K3 brief_binned_kernel 30 registers, 27,648 B.
+// shared memory; K3 brief_binned_kernel 32 registers at its 8 slots a block
+// (20, 29 and 36 at 2, 4 and 16 in the sweep), no shared memory, no barrier.
 
 #include <cuda_runtime.h>
 
@@ -57,11 +58,10 @@ constexpr int PATCH = 40;          // patch side (brief_pallas.PATCH)
 constexpr int PP = PATCH * PATCH;
 constexpr int HALF = 18;           // pattern centre inside the patch
 constexpr int K2_KPB = 2;          // keypoints per block (K2)
-constexpr int KPB = 4;             // slots per block (K3)
+constexpr int K3_KPB = 8;          // slots per block (K3), the sweep's best
 constexpr int NTHREADS = 256;      // 8 warps = 8 descriptor words
 constexpr int NB = 30;             // angle bins (brief_pallas.NB)
 constexpr int BLK = 64;            // slots per bin-pure block (brief_pallas.BLK)
-static_assert(BLK % KPB == 0, "a K3 block of KPB slots must not straddle two bins");
 
 // Patch position of pattern point (px, py) rotated by (c, s): the f32
 // arithmetic of ops/brief_cuda.py continuous_index_tables, op for op.
@@ -74,23 +74,6 @@ __device__ __forceinline__ int rotated_index(float px, float py, float c, float 
 }
 
 __device__ __forceinline__ int clamp_index(int i) { return min(max(i, 0), PP - 1); }
-
-// Stage the 40x40 patches of slots k0 .. k0+KPB-1 in shared memory.
-__device__ __forceinline__ void load_patches(float (*patch)[PP], const float* __restrict__ img,
-                                             int Hc, int Wc, const int* __restrict__ corners,
-                                             int k0, int N) {
-  for (int i = threadIdx.x; i < KPB * PP; i += NTHREADS) {
-    const int k = i / PP, p = i % PP;
-    const int kp = k0 + k;
-    if (kp < N) {
-      // callers clamp corners so the patch lies inside the composite;
-      // the clamp here keeps a bad corner from reading out of bounds
-      const int u = min(max(corners[2 * kp], 0), Wc - PATCH);
-      const int v = min(max(corners[2 * kp + 1], 0), Hc - PATCH);
-      patch[k][p] = img[(size_t)(v + p / PATCH) * Wc + (u + p % PATCH)];
-    }
-  }
-}
 
 __global__ void __launch_bounds__(NTHREADS)
 brief_kernel(const float* __restrict__ img, int Hc, int Wc, const int* __restrict__ corners,
@@ -145,33 +128,59 @@ brief_rotation_tables_kernel(const float* __restrict__ cosv, const float* __rest
 // least traffic is the composite pixels the tests sample (each once), the
 // 30 x 512 tables (61 KB in all, not a 2 KB table per keypoint as in K2),
 // the corners, the bins and the output. The TPU kernel selected samples
-// with one-hot MXU products because TPU gathers are slow; here the block
-// stages its bin's table (2 KB) and its 4 patches (25.6 KB) in shared
-// memory and reads them by index, as K2 does. Warp w makes word w of each
-// slot with one __ballot_sync, bit l = test 32w + l (the JAX packing).
+// with one-hot MXU products because TPU gathers are slow; a GPU thread
+// gathers by index at full speed.
+//
+// Design (K2's direct form without the rotation): thread t of a
+// 256-thread block owns test t. It reads its two table entries of the
+// block's bin once, clamps them and turns each into an offset inside the
+// composite; then, for each of the block's KPB slots, it reads the corner
+// and its two samples straight from the composite through the read-only
+// path, all KPB slots' loads started before the first compare. Warp w packs
+// word w of each slot with one __ballot_sync, bit l = test 32w + l (the JAX
+// packing). No shared memory, no barrier. Padding slots (corner (1, 1),
+// nearly half of them at 2000 keypoints) are computed like any other: the
+// ones of a block read one patch, which stays in L1.
+//
+// Measured and dropped: the staged form, the first version. A block staged
+// its bin's 2 KB table and the whole 40x40 patches of 4 slots (25,600 B) in
+// shared memory behind one barrier: 25 MB of patch pixels read for ~1.3 MB
+// sampled. On 3904 slots (2000 keypoints, H100 80GB HBM3 at 700 W) it took
+// 0.0157 ms on the device where the direct form took 0.0043-0.0050 ms at
+// 2, 4, 8 and 16 slots a block (two turns each: 0.0049 0.0048; 0.0045
+// 0.0050; 0.0043 0.0046; 0.0049 0.0049; the same order in the next run); 8
+// stays: the sweep is flat within its run-to-run spread, so the other
+// widths are not kept. An empty launch at its grid of 488 blocks takes
+// 0.0011 ms (PERF.md).
 __global__ void __launch_bounds__(NTHREADS)
 brief_binned_kernel(const float* __restrict__ img, int Hc, int Wc,
                     const int* __restrict__ corners, const int* __restrict__ block_bins,
                     const int* __restrict__ tables, int* __restrict__ out, int S) {
-  __shared__ float patch[KPB][PP];
-  __shared__ int tab[512];
-  const int k0 = blockIdx.x * KPB;
+  static_assert(BLK % K3_KPB == 0, "a K3 block of K3_KPB slots must not straddle two bins");
   const int tid = threadIdx.x;
-  const int b = min(max(block_bins[k0 / BLK], 0), NB - 1);
-  for (int i = tid; i < 512; i += NTHREADS)
-    tab[i] = min(max(tables[b * 512 + i], 0), PP - 1);
-  load_patches(patch, img, Hc, Wc, corners, k0, S);
-  __syncthreads();
-
   const int warp = tid >> 5, lane = tid & 31;
-  const int bit = warp * 32 + lane;
-  const int ia = tab[bit];
-  const int ib = tab[256 + bit];
-  for (int k = 0; k < KPB; ++k) {
-    const int s = k0 + k;
-    if (s >= S) break;             // uniform across the block
-    const unsigned word = __ballot_sync(0xffffffffu, patch[k][ia] < patch[k][ib]);
-    if (lane == 0) out[(size_t)s * 8 + warp] = static_cast<int>(word);
+  const int k0 = blockIdx.x * K3_KPB;
+  const int b = min(max(__ldg(block_bins + k0 / BLK), 0), NB - 1);
+  const int ia = clamp_index(__ldg(tables + b * 512 + tid));
+  const int ib = clamp_index(__ldg(tables + b * 512 + 256 + tid));
+  const int oa = (ia / PATCH) * Wc + ia % PATCH;
+  const int ob = (ib / PATCH) * Wc + ib % PATCH;
+  float va[K3_KPB], vb[K3_KPB];
+#pragma unroll
+  for (int k = 0; k < K3_KPB; ++k) {
+    const int s = min(k0 + k, S - 1);        // a slot past the end repeats the last one
+    // callers clamp corners so the patch lies inside the composite;
+    // the clamp here keeps a bad corner from reading out of bounds
+    const int u = min(max(__ldg(corners + 2 * s), 0), Wc - PATCH);
+    const int v = min(max(__ldg(corners + 2 * s + 1), 0), Hc - PATCH);
+    const float* base = img + (size_t)v * Wc + u;
+    va[k] = __ldg(base + oa);
+    vb[k] = __ldg(base + ob);
+  }
+#pragma unroll
+  for (int k = 0; k < K3_KPB; ++k) {
+    const unsigned word = __ballot_sync(0xffffffffu, va[k] < vb[k]);
+    if (lane == 0 && k0 + k < S) out[(size_t)(k0 + k) * 8 + warp] = static_cast<int>(word);
   }
 }
 
@@ -197,8 +206,7 @@ extern "C" int brief_rotation_tables_i32(const float* cosv, const float* sinv,
 extern "C" int brief_binned_i32(const float* img, int Hc, int Wc, const int* corners,
                                 const int* block_bins, const int* tables, int* out, int S,
                                 cudaStream_t stream) {
-  const int blocks = (S + KPB - 1) / KPB;
-  brief_binned_kernel<<<blocks, NTHREADS, 0, stream>>>(img, Hc, Wc, corners, block_bins,
-                                                       tables, out, S);
+  brief_binned_kernel<<<(S + K3_KPB - 1) / K3_KPB, NTHREADS, 0, stream>>>(
+      img, Hc, Wc, corners, block_bins, tables, out, S);
   return static_cast<int>(cudaGetLastError());
 }

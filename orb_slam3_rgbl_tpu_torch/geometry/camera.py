@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from orb_slam3_rgbl_tpu_torch.device import resolve
+
 
 @dataclasses.dataclass(frozen=True)
 class PinholeCamera:
@@ -61,6 +63,20 @@ def project(cam: PinholeCamera, pts_cam: torch.Tensor) -> torch.Tensor:
     return torch.stack([cam.fx * x + cam.cx, cam.fy * y + cam.cy], dim=-1)
 
 
+def unproject(cam: PinholeCamera, uv: torch.Tensor) -> torch.Tensor:
+    """Pixels (..., 2) → unit-depth bearing (..., 3) (z = 1), the linear
+    inverse of the distortion-free projection."""
+    x = (uv[..., 0] - cam.cx) / cam.fx
+    y = (uv[..., 1] - cam.cy) / cam.fy
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
+def intrinsics(cam: PinholeCamera, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The 3×3 matrix K on ``device`` (default ``cuda``)."""
+    return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
+                        dtype=dtype, device=resolve(device))
+
+
 def project_jacobian(cam: PinholeCamera, pts_cam: torch.Tensor) -> torch.Tensor:
     """d(u,v)/d(X,Y,Z) for camera-frame points — (..., 2, 3),
     distortion-free form."""
@@ -83,6 +99,12 @@ def geo_project_jacobian(cam, pts_cam: torch.Tensor) -> torch.Tensor:
     """(..., 2, 3) ∂uv/∂pt."""
     is_fisheye(cam)
     return project_jacobian(cam, pts_cam)
+
+
+def geo_unproject(cam, uv: torch.Tensor) -> torch.Tensor:
+    """(..., 2) pixels → (..., 3) z=1 bearing."""
+    is_fisheye(cam)
+    return unproject(cam, uv)
 
 
 def np_geo_unproject(cam, uv: np.ndarray) -> np.ndarray:

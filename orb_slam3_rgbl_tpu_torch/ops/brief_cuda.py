@@ -41,6 +41,7 @@ BLK = 64         # slots per bin-pure block
 HALF = 18        # pattern center offset inside the patch
 PATCH = 40       # patch side (≥ 2·HALF+1)
 K2_KPB = 2       # keypoints per 256-thread block of K2 (csrc/brief.cu)
+K3_KPB = 8       # slots per 256-thread block of K3 (csrc/brief.cu)
 
 
 @functools.lru_cache(maxsize=None)

@@ -144,6 +144,25 @@ def test_k3_matches_plain_version(cuda, n):
     assert torch.equal(part, d[:S])
 
 
+@pytest.mark.parametrize("S", [64, 1, 3, 61, 64 * 5 - 37, 64 * 7 + 13])
+def test_k3_slot_counts(cuda, S):
+    """K3 at one whole block of 64 slots and at slot counts its 8 slots a
+    block do not divide, with wild corners and bins: the plain version's
+    words on every slot, and one launch counted."""
+    rng = np.random.default_rng(S)
+    Hc, Wc = 600, 1408
+    comp = torch.tensor(np.round(rng.uniform(0, 255, (Hc, Wc))), dtype=torch.float32, device=cuda)
+    corners = torch.tensor(np.stack([rng.integers(-30, Wc + 30, S), rng.integers(-30, Hc + 30, S)], 1),
+                           dtype=torch.int32, device=cuda)
+    n_blocks = (S + brief_cuda.BLK - 1) // brief_cuda.BLK
+    block_bins = torch.tensor(rng.integers(-1, brief_cuda.NB + 1, (n_blocks, 1)),
+                              dtype=torch.int32, device=cuda)
+    want = brief_cuda.brief_blocks_plain(comp, corners, block_bins)
+    before = cuda_build.launch_counts["brief_blocks"]
+    assert torch.equal(brief_cuda.brief_blocks(comp, corners, block_bins), want)
+    assert cuda_build.launch_counts["brief_blocks"] == before + 1
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         frontend_cuda.fast_and_blur(torch.zeros((3, 64), device=cuda))

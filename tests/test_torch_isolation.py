@@ -26,6 +26,8 @@ PORT_MODULES = [
     "orb_slam3_rgbl_tpu_torch.slam.frame", "orb_slam3_rgbl_tpu_torch.slam.map_state",
     "orb_slam3_rgbl_tpu_torch.slam.tracking", "orb_slam3_rgbl_tpu_torch.slam.system",
     "orb_slam3_rgbl_tpu_torch.slam.atlas", "orb_slam3_rgbl_tpu_torch.io.trajectory",
+    "orb_slam3_rgbl_tpu_torch.geometry.triangulation", "orb_slam3_rgbl_tpu_torch.optim.local_ba",
+    "orb_slam3_rgbl_tpu_torch.slam.ba_assembly", "orb_slam3_rgbl_tpu_torch.slam.local_mapping",
     "chip_smoke",
 ]
 
@@ -57,7 +59,8 @@ def test_entry_points_never_fall_back_to_cpu():
     calls = [lambda: device.resolve(None), lambda: synthetic.make_world(0, tex_size=8),
              lambda: compiled.make_track_step(cfg),
              lambda: frame.extract_features(torch.zeros(64, 64), 64, 64, n_levels=1),
-             lambda: System(tracking_only, enable_mapping=False).track_rgbl(img, cloud, 0.0)]
+             lambda: System(tracking_only, enable_mapping=False).track_rgbl(img, cloud, 0.0),
+             lambda: System(tracking_only).track_rgbl(img, cloud, 0.0)]
     for call in calls:
         if torch.cuda.is_available():
             call()
@@ -101,9 +104,12 @@ def test_device_none_never_answers_on_the_cpu():
     object that already lives on a device, follows that object."""
     import numpy as np
     from orb_slam3_rgbl_tpu_torch import convert, device, synthetic
-    from orb_slam3_rgbl_tpu_torch.geometry import lie
-    from orb_slam3_rgbl_tpu_torch.slam import compiled, frame
+    from orb_slam3_rgbl_tpu_torch.geometry import camera, lie
+    from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
+    from orb_slam3_rgbl_tpu_torch.slam import ba_assembly, compiled, frame
     from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
+    from orb_slam3_rgbl_tpu_torch.slam.local_mapping import DeviceKfCache, LocalMapper
+    from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
     from orb_slam3_rgbl_tpu_torch.slam.system import System
     from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker
 
@@ -112,6 +118,9 @@ def test_device_none_never_answers_on_the_cpu():
         ("uv", (2,), np.float32), ("response", (), np.float32), ("octave", (), np.int32),
         ("angle", (), np.float32), ("desc", (8,), np.uint32), ("valid", (), bool),
         ("depth", (), np.float32), ("u_right", (), np.float32))}
+    ba = {name: np.zeros((2, 3, 7)[: 1 + (name in ("poses", "landmarks", "obs_uv", "obs_kf"))])
+          for name in BAProblem._fields}
+    small_map = MapState.create(2, 8, 4)
     pre = "orb_slam3_rgbl_tpu_torch."
     calls = {
         pre + "device.resolve": lambda: device.resolve(),
@@ -129,12 +138,21 @@ def test_device_none_never_answers_on_the_cpu():
         pre + "synthetic.make_world": lambda: synthetic.make_world(0, tex_size=8).tex,
         pre + "convert.frame_features_from_numpy":
             lambda: convert.frame_features_from_numpy(feats).uv,
+        pre + "convert.ba_problem_from_numpy": lambda: convert.ba_problem_from_numpy(ba).poses,
+        pre + "geometry.camera.intrinsics": lambda: camera.intrinsics(cfg.camera),
+        pre + "slam.ba_assembly.build_full_problem":
+            lambda: ba_assembly.build_full_problem(small_map, np.ones(8, np.float32))[0].poses,
+        pre + "slam.local_mapping.DeviceKfCache.__init__": lambda: DeviceKfCache(4).d_uv,
+        pre + "slam.local_mapping.LocalMapper.__init__":
+            lambda: LocalMapper(cfg, small_map).dev_cache.d_uv,
     }
     # follows the FastPath it is given: covered by tests/test_torch_step.py
     follows_an_object = {pre + "convert.fast_path_state_from_numpy"}
     assert set(_functions_with_device_default_none()) == set(calls) | follows_an_object
     assert lie.se3_identity(device="cpu").device.type == "cpu"
     assert frame.inv_scale_sigma2(device="cpu").device.type == "cpu"
+    assert camera.intrinsics(cfg.camera, device="cpu").device.type == "cpu"
+    assert DeviceKfCache(4, device="cpu").d_desc.device.type == "cpu"
     for name, call in calls.items():
         if torch.cuda.is_available():
             out = call()

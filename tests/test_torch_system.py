@@ -6,6 +6,8 @@ refused, and the map queries. The natural-policy drive with its blank
 stretch is in test_torch_system_lost.py, the ladder's stages on identical
 state in test_torch_ladder.py; both import the helpers here.
 
+The drives with the mapping plane on are in test_torch_system_mapping.py.
+
 Both systems see the same rendered frames (the JAX package's world). JAX
 runs with x64 off, as outside the test suite (see test_torch_frame).
 
@@ -141,7 +143,7 @@ def test_classic_only_drive_matches_jax():
 
 
 @pytest.mark.parametrize("change, item", [
-    (dict(), "item 12"),                                   # enable_mapping=True
+    (dict(sensor=2), "items 14 and 17"),                   # RGBD
     (dict(loop_closing=True), "item 13"),
     (dict(sensor=0), "items 14 and 17"),                   # MONOCULAR
     (dict(sensor=5), "item 15"),                           # IMU_RGBD
@@ -151,12 +153,13 @@ def test_system_refuses_unported_configurations(change, item):
     from orb_slam3_rgbl_tpu_torch import synthetic as t_syn
 
     cfg = dataclasses.replace(t_syn.synthetic_rgbl_config(), loop_closing=False)
-    enable_mapping = not change
     if change.pop("distorted", False):
         cfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, k1=0.1))
     cfg = dataclasses.replace(cfg, **change)
-    with pytest.raises(NotImplementedError, match=item):
-        TSystem(cfg, enable_mapping=enable_mapping, device="cpu")
+    # with the mapping plane on (the default) and with it off
+    for enable_mapping in (True, False):
+        with pytest.raises(NotImplementedError, match=item):
+            TSystem(cfg, enable_mapping=enable_mapping, device="cpu")
 
 
 def test_map_state_queries_match_jax():
