@@ -18,6 +18,7 @@ from orb_slam3_rgbl_tpu_torch import config as cfg_mod
 from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
+from orb_slam3_rgbl_tpu_torch.optim.pose_graph import PoseGraphProblem
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
 from orb_slam3_rgbl_tpu_torch.slam.frame import FrameFeatures
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
@@ -108,6 +109,52 @@ def ba_problem_from_numpy(arrays: dict, device=None) -> BAProblem:
         name: torch.as_tensor(np.array(arrays[name]), device=dev).to(
             dtypes.get(name, torch.float32))
         for name in BAProblem._fields})
+
+
+def pose_graph_problem_from_numpy(arrays: dict, device=None) -> PoseGraphProblem:
+    """A JAX ``PoseGraphProblem`` (as numpy arrays by field name) as the
+    port's, on ``device`` (default ``cuda``): Sim3s and weights as float32,
+    edge endpoints as int64 indices, masks as bool. Padded nodes and edges
+    (``node_valid`` / ``edge_valid`` False) carry across as they are."""
+    dev = resolve(device)
+    missing = set(PoseGraphProblem._fields) - set(arrays)
+    if missing:
+        raise ValueError(f"missing PoseGraphProblem arrays: {sorted(missing)}")
+    dtypes = {"node_fixed": torch.bool, "node_valid": torch.bool, "edge_valid": torch.bool,
+              "edge_i": torch.int64, "edge_j": torch.int64}
+    return PoseGraphProblem(**{
+        name: torch.as_tensor(np.array(arrays[name]), device=dev).to(
+            dtypes.get(name, torch.float32))
+        for name in PoseGraphProblem._fields})
+
+
+# LoopCloser attributes that carry the plane's state from one keyframe to the next
+LOOP_CLOSER_STATE = ("db_vectors", "db_present", "consistent_groups", "extra_edges",
+                     "last_loop_kf")
+
+
+def loop_closer_state_from_numpy(closer, state: dict):
+    """Set the port's ``LoopCloser`` to a JAX closer's state, given as plain
+    numpy and Python values: ``db_vectors`` (capacity_kf, VOCAB_SIZE) and
+    ``db_present`` of its database, ``consistent_groups`` [(set of keyframe
+    ids, count)], ``extra_edges`` [(kf_a, kf_b, S_ab (8,), weight)] and
+    ``last_loop_kf``. The signatures go to the closer's device. Returns
+    ``closer``."""
+    missing = set(LOOP_CLOSER_STATE) - set(state)
+    if missing:
+        raise ValueError(f"missing loop closer state: {sorted(missing)}")
+    vectors = np.asarray(state["db_vectors"], np.float32)
+    if vectors.shape != tuple(closer.db.vectors.shape):
+        raise ValueError(f"db_vectors: shape {vectors.shape}, the database holds "
+                         f"{tuple(closer.db.vectors.shape)}")
+    closer.db.vectors.copy_(torch.as_tensor(vectors))
+    closer.db.present = np.array(state["db_present"], bool)
+    closer._consistent_groups = [(set(int(k) for k in g), int(c))
+                                 for g, c in state["consistent_groups"]]
+    closer.extra_edges = [(int(a), int(b), np.array(S, np.float32), float(w))
+                          for a, b, S, w in state["extra_edges"]]
+    closer.last_loop_kf = int(state["last_loop_kf"])
+    return closer
 
 
 def tracker_state_from_numpy(tracker, state: dict):

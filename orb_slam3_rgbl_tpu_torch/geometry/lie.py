@@ -1,10 +1,13 @@
-"""SO3 / SE3 on flat torch tensors (counterpart of
-``orb_slam3_rgbl_tpu.geometry.lie``; Sim3 waits for the loop-closing slice).
+"""SO3 / SE3 / Sim3 on flat torch tensors (counterpart of
+``orb_slam3_rgbl_tpu.geometry.lie``).
 
 * **SO3**: unit quaternion ``[w, x, y, z]`` — shape ``(..., 4)``.
 * **SE3**: ``[qw, qx, qy, qz, tx, ty, tz]`` — shape ``(..., 7)``.
+* **Sim3**: ``[qw, qx, qy, qz, tx, ty, tz, s]`` — shape ``(..., 8)``,
+  acting as ``x ↦ s·R·x + t``.
 
-The se3 tangent is ``[rho(3), omega(3)]`` (translation block first).
+The se3 tangent is ``[rho(3), omega(3)]`` (translation block first); the
+sim3 tangent appends the log-scale ``sigma``.
 Exp maps use Taylor guards near the identity. The ``np_*`` twins serve
 the per-frame host loop (single (7,) poses), as in the JAX package.
 """
@@ -121,6 +124,19 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return torch.cat([cw, k * w], dim=-1)
 
 
+def so3_log(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) → axis-angle (..., 3)."""
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)   # w >= 0 ⇒ theta in [0, pi]
+    w = q[..., :1].clamp(-1.0, 1.0)
+    xyz = q[..., 1:]
+    n_sq = torch.sum(xyz * xyz, dim=-1, keepdim=True)
+    n = torch.sqrt(n_sq + _EPS * _EPS)
+    theta = 2.0 * torch.atan2(n, w)
+    small = n_sq < _EPS
+    k = torch.where(small, 2.0 / w.clamp_min(0.5) + 2.0 * n_sq / 3.0, theta / n)
+    return k * xyz
+
+
 def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     """Left Jacobian of SO3 at tangent ``w`` — (..., 3, 3)."""
     theta_sq = torch.sum(w * w, dim=-1)[..., None, None]
@@ -189,6 +205,119 @@ def se3_normalize(T: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Sim3
+# ---------------------------------------------------------------------------
+
+def sim3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    """Identity similarity on ``device`` (default ``cuda``)."""
+    return torch.tensor([1.0, 0, 0, 0, 0, 0, 0, 1.0], dtype=dtype, device=resolve(device))
+
+
+def sim3(q: torch.Tensor, t: torch.Tensor, s) -> torch.Tensor:
+    s = torch.as_tensor(s, dtype=t.dtype, device=t.device).expand(t.shape[:-1])
+    return torch.cat([q, t, s[..., None]], dim=-1)
+
+
+def sim3_parts(S: torch.Tensor):
+    return S[..., :4], S[..., 4:7], S[..., 7]
+
+
+def sim3_from_se3(T: torch.Tensor) -> torch.Tensor:
+    return torch.cat([T, torch.ones_like(T[..., :1])], dim=-1)
+
+
+def sim3_to_se3(S: torch.Tensor) -> torch.Tensor:
+    """Drop the scale: the translation is divided by it, as the reference's
+    ``CorrectLoop`` does when it writes a Sim3 correction into SE3 poses."""
+    q, t, s = sim3_parts(S)
+    return torch.cat([q, t / s[..., None]], dim=-1)
+
+
+def sim3_apply(S: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    q, t, s = sim3_parts(S)
+    return s[..., None] * quat_rotate(q, pts) + t
+
+
+def sim3_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    qa, ta, sa = sim3_parts(a)
+    qb, tb, sb = sim3_parts(b)
+    q = quat_mul(qa, qb)
+    t = sa[..., None] * quat_rotate(qa, tb) + ta
+    return torch.cat([q, t, (sa * sb)[..., None]], dim=-1)
+
+
+def sim3_inv(S: torch.Tensor) -> torch.Tensor:
+    q, t, s = S[..., :4], S[..., 4:7], S[..., 7:8]
+    qi = quat_conj(q)
+    si = 1.0 / s
+    return torch.cat([qi, -si * quat_rotate(qi, t), si], dim=-1)
+
+
+def _sim3_W(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The Sim3 'W' matrix with t = W @ rho (Eade's notes, §5.3):
+    W = A I + B Ω + C Ω², coefficients in (θ, σ) with their σ→0 and θ→0
+    limits. ``sigma`` has shape (..., 1): under ``torch.func`` transforms a
+    0-dim operand beside a Python scalar comes out as f64."""
+    theta_sq = torch.sum(w * w, dim=-1, keepdim=True)
+    theta = torch.sqrt(theta_sq + _EPS * _EPS)
+    s = torch.exp(sigma)
+    omega = so3_hat(w)
+    omega2 = omega @ omega
+
+    small_sigma = sigma.abs() < 1e-5
+    small_theta = theta_sq < _EPS
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    sig_sq = sigma * sigma
+    denom = sig_sq + theta_sq
+
+    safe_sigma = sigma.masked_fill(small_sigma, 1.0)
+    safe_theta_sq = theta_sq.masked_fill(small_theta, 1.0)
+    safe_denom = denom.masked_fill(denom < 1e-12, 1.0)
+
+    A = torch.where(small_sigma, 1.0 + sigma / 2.0 + sig_sq / 6.0, (s - 1.0) / safe_sigma)
+    a_ = s * sin_t
+    b_ = s * cos_t
+    B_gen = ((sigma * a_ / theta) + (1.0 - b_)) / safe_denom
+    B_theta0 = torch.where(small_sigma, 0.5 + sigma / 3.0,
+                           (s * (safe_sigma - 1.0) + 1.0) / sig_sq.masked_fill(small_sigma, 1.0))
+    B = torch.where(small_theta, B_theta0, B_gen)
+
+    C_gen = (A - ((b_ - 1.0) * sigma + a_ * theta) / safe_denom) / safe_theta_sq
+    C_sigma = ((s * (safe_sigma * safe_sigma / 2.0 - safe_sigma + 1.0) - 1.0)
+               / (safe_sigma * safe_sigma * safe_sigma))
+    C_theta0 = torch.where(small_sigma, 1.0 / 6.0 + sigma / 8.0, C_sigma)
+    C = torch.where(small_theta, C_theta0, C_gen)
+
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(omega.shape)
+    return A[..., None] * eye + B[..., None] * omega + C[..., None] * omega2
+
+
+def _solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with A x = b for (..., 3, 3) systems, by the adjugate (rows' cross
+    products): elementary operations only, so that it differentiates and
+    batches under ``torch.func`` (a batched ``linalg.solve_ex`` inside
+    ``vmap(jacfwd(...))`` returned non-finite tangents)."""
+    r0, r1, r2 = A[..., 0, :], A[..., 1, :], A[..., 2, :]
+    c0, c1, c2 = _cross(r1, r2), _cross(r2, r0), _cross(r0, r1)     # columns of adj(A)
+    det = torch.sum(r0 * c0, dim=-1, keepdim=True)
+    return (c0 * b[..., 0:1] + c1 * b[..., 1:2] + c2 * b[..., 2:3]) / det
+
+
+def sim3_exp(tau: torch.Tensor) -> torch.Tensor:
+    """Tangent ``[rho(3), omega(3), sigma]`` (..., 7) → Sim3 (..., 8)."""
+    rho, w, sigma = tau[..., :3], tau[..., 3:6], tau[..., 6:7]
+    t = torch.einsum("...ij,...j->...i", _sim3_W(w, sigma), rho)
+    return torch.cat([so3_exp(w), t, torch.exp(sigma)], dim=-1)
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    w = so3_log(S[..., :4])
+    sigma = torch.log(S[..., 7:8])
+    rho = _solve3(_sim3_W(w, sigma), S[..., 4:7])
+    return torch.cat([rho, w, sigma], dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # numpy twins (host control path)
 # ---------------------------------------------------------------------------
 
@@ -235,3 +364,35 @@ def np_se3_centers(Tcw):
 def np_se3_apply(T, X):
     """Numpy SE3 point transform for (..., 7) ∘ (..., 3)."""
     return (np_quat_rotate(T[..., :4], X) + T[..., 4:7]).astype(np.float32)
+
+
+def np_sim3_mul(S1, S2):
+    """Numpy Sim3 composition for (..., 8) ``[q, t, s]``: the loop
+    closer's host math runs on arrays of varying length."""
+    q = np_quat_mul(S1[..., :4], S2[..., :4])
+    t = S1[..., 7:8] * np_quat_rotate(S1[..., :4], S2[..., 4:7]) + S1[..., 4:7]
+    s = S1[..., 7:8] * S2[..., 7:8]
+    return np.concatenate([q, t, s], axis=-1).astype(np.float32)
+
+
+def np_sim3_inv(S):
+    qi = S[..., :4] * np.asarray([1.0, -1.0, -1.0, -1.0], np.float32)
+    si = 1.0 / S[..., 7:8]
+    t = -si * np_quat_rotate(qi, S[..., 4:7])
+    return np.concatenate([qi, t, si], axis=-1).astype(np.float32)
+
+
+def np_sim3_apply(S, X):
+    """(..., 8) ∘ (..., 3): X' = s·R·X + t."""
+    return (S[..., 7:8] * np_quat_rotate(S[..., :4], X) + S[..., 4:7]).astype(np.float32)
+
+
+def np_sim3_from_se3(T):
+    ones = np.ones(T.shape[:-1] + (1,), np.float32)
+    return np.concatenate([np.asarray(T, np.float32), ones], axis=-1)
+
+
+def np_sim3_to_se3(S):
+    """Sim3 → SE3 with the translation divided by the scale: Tcw = [R | t/s]."""
+    t = S[..., 4:7] / S[..., 7:8]
+    return np.concatenate([S[..., :4], t], axis=-1).astype(np.float32)

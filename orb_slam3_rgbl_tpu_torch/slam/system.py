@@ -1,20 +1,27 @@
 """System facade, the port's public entry point (counterpart of
 ``orb_slam3_rgbl_tpu.slam.system``; reference ``System.cc``).
 
-Ported: ``track_rgbl`` with ``config.loop_closing`` off — the fused
-steady-state loop and the classic ladder, the atlas's new-map recovery
-after a lost streak or a backward timestamp, trajectory export, and the
-local-mapping plane: with ``enable_mapping=True`` (the default) every
-frame that created a keyframe is followed, synchronously, by the mapping
-job of ``LocalMapper.process_keyframe`` (landmark culling, triangulation,
-fusion, local BA, keyframe culling). With ``enable_mapping=False``
-keyframes still mint landmarks from LiDAR depth, so a drive tracks over
-any distance, but nothing is ever culled or refined. Relocalization fails
-at once (there is no keyframe database).
+Ported: ``System(cfg).track_rgbl`` with the default configuration (local
+mapping on, loop closing on) — the fused steady-state loop and the classic
+ladder, the atlas's new-map recovery after a lost streak or a backward
+timestamp, trajectory export, and the two synchronous planes behind every
+frame that created a keyframe: the mapping job of
+``LocalMapper.process_keyframe`` (landmark culling, triangulation, fusion,
+local BA, keyframe culling), then ``LoopCloser.on_keyframe`` (the keyframe
+is indexed in the database, loop candidates are detected and verified by
+Sim3, a verified loop is corrected — fusion, essential graph, landmark
+re-anchoring — and a 16-iteration global BA follows). A lost tracker
+relocalizes against the keyframe database. ``track_features`` feeds
+extracted features straight to the ladder.
 
-The other configurations, and the asynchronous mapping worker
-(``async_mapping = True``), raise ``NotImplementedError`` naming the
-ROADMAP Queue 1 item that ports them.
+With ``enable_mapping=False`` keyframes still mint landmarks from LiDAR
+depth, so a drive tracks over any distance, but nothing is culled or
+refined; with ``loop_closing=False`` there is no database, and
+relocalization fails at once.
+
+The other sensors, the asynchronous workers (``async_mapping = True``), a
+trained vocabulary (``vocab_path``) and the merge of two atlas maps raise
+``NotImplementedError`` naming the ROADMAP Queue 1 item that ports them.
 """
 
 from __future__ import annotations
@@ -35,10 +42,13 @@ from orb_slam3_rgbl_tpu_torch.slam import tracking as trk
 from orb_slam3_rgbl_tpu_torch.slam.atlas import Atlas
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
 from orb_slam3_rgbl_tpu_torch.slam.local_mapping import LocalMapper
+from orb_slam3_rgbl_tpu_torch.slam.loop_closing import LoopCloser
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker, TrackResult
 
 log = logging.getLogger(__name__)
+
+GBA_ITERATIONS = 16   # LM iterations of the global BA after a loop correction
 
 
 def _on(t: torch.Tensor, dev: torch.device) -> bool:
@@ -58,10 +68,10 @@ class System:
     CLOUD_CAP = 131072  # fixed LiDAR capacity (KITTI sweeps hold ~120k points)
 
     def __init__(self, config: SlamConfig, enable_mapping: bool = True, device=None):
-        if config.loop_closing:
+        if config.loop_closing and config.vocab_path:
             raise NotImplementedError(
-                "loop closing is not ported yet (ROADMAP Queue 1 item 13); "
-                "set SlamConfig.loop_closing=False")
+                "the trained tree vocabulary (vocab_path) is not ported yet "
+                "(ROADMAP Queue 1 item 13b)")
         if config.inertial:
             raise NotImplementedError(
                 "inertial sensors are not ported yet (ROADMAP Queue 1 item 15)")
@@ -82,7 +92,11 @@ class System:
         self.map: Optional[MapState] = None
         self.tracker: Optional[Tracker] = None
         self.mapper: Optional[LocalMapper] = None   # local-mapping plane
-        self.loop_closer = None     # loop-closing plane (not ported)
+        self.loop_closer: Optional[LoopCloser] = None   # loop-closing plane
+        # the source of the RANSAC draws of loop verification and of
+        # relocalization (CPU generators, seeded: a run repeats)
+        self._loop_rng = torch.Generator().manual_seed(7)
+        self._reloc_rng = torch.Generator().manual_seed(13)
         self._lost_streak = 0
         self._fast: Optional[FastPath] = None   # shared across atlas maps
         self.use_fused = True       # the fused steady-state loop
@@ -180,6 +194,12 @@ class System:
             else torch.as_tensor(cloud_mask, dtype=torch.bool, device=self.device))
         return self._track(feats, timestamp)
 
+    def track_features(self, feats, timestamp: float) -> TrackResult:
+        """Feature-level entry point: extracted ``FrameFeatures`` on the
+        system's device go straight to the classic ladder (testing, or
+        replaying features without images)."""
+        return self._track(feats, timestamp)
+
     # ------------------------------------------------------------------
     def _spawn_components(self, n_feat: int):
         """A new active map and its tracker. Frame ids continue across
@@ -198,6 +218,16 @@ class System:
         # and the mapper's backlog is 0
         self.tracker.join_mapping_fn = self._join_mapping
         self.tracker.fast = self._fast
+        self.loop_closer = None
+        if self.cfg.loop_closing:
+            self.loop_closer = LoopCloser(
+                self.cfg, self.map, device=self.device, generator=self._loop_rng,
+                dev_cache=self.mapper.dev_cache if self.mapper is not None else None)
+            self.loop_closer.gba_dispatch = self._dispatch_gba
+            self.tracker.kf_db = self.loop_closer.db
+            self.tracker.reloc_generator = self._reloc_rng
+            # the entry keeps its database alive for later merge detection
+            self.atlas.entries[self.atlas.active_idx].db = self.loop_closer.db
         self._lost_streak = 0
 
     def _join_mapping(self):
@@ -208,8 +238,44 @@ class System:
             self.tracker.flush_stat_buffer()
 
     def _mapping_job(self, kf_id: int):
+        """The synchronous job behind a new keyframe: local mapping, then
+        loop detection and correction inline; a keyframe that closed no
+        loop is tried against the other atlas maps."""
         if self.mapper is not None and self.map.n_kf > 1:
             self.mapper.process_keyframe(kf_id)
+        if self.loop_closer is None:
+            return
+        if self.loop_closer.on_keyframe(kf_id) is None:
+            self._try_merge(kf_id)
+
+    def _dispatch_gba(self):
+        """The global BA after a loop correction, on the calling thread
+        (the abortable job of the asynchronous plane is not ported). 16 LM
+        iterations: a loop-bent map needs about that many to unbend."""
+        self.loop_closer._global_ba(GBA_ITERATIONS)
+
+    def _try_merge(self, kf_id: int) -> bool:
+        """Cross-map place recognition (reference ``NewDetectCommonRegions``
+        merge branch). With fewer than two maps there is nothing to merge;
+        a keyframe that another map's database recognizes would start the
+        cross-map verification and the weld, which are not ported."""
+        if self.atlas.n_maps() < 2 or self.map.n_kf < 1:
+            return False
+        qv = self.loop_closer.db.vectors[kf_id]
+        for entry in self.atlas.entries:
+            if entry.map is self.map or entry.db is None or entry.map.n_kf < 2:
+                continue
+            scores, shared = entry.db.query(qv, np.zeros(0, np.int64))
+            if shared.max() == 0:
+                continue
+            gate = shared >= max(int(0.8 * shared.max()), 1)
+            cands = np.argsort(-np.where(gate, scores, 0.0))[:3]
+            if any(gate[c] and scores[c] > 0 for c in cands):
+                raise NotImplementedError(
+                    "merging two atlas maps is not ported yet (ROADMAP Queue 1 item 13b): "
+                    f"keyframe {kf_id} of map {self.map.map_id} is a merge candidate "
+                    f"for map {entry.map.map_id}")
+        return False
 
     def _dispatch_mapping(self, kf_id: int):
         self._mapping_job(kf_id)
@@ -304,6 +370,7 @@ class System:
         self.map = None
         self.tracker = None
         self.mapper = None
+        self.loop_closer = None
         self._lost_streak = 0
 
     def reset_active_map(self):

@@ -13,11 +13,11 @@ in the JAX package; matching and pose solves run the port's PyTorch
 functions on the tracker's device.
 
 Ported for the non-inertial RGB-L (stereo-like) sensor. Not ported:
-monocular initialization (Queue 1 item 14), the inertial parts (item 15),
-relocalization's candidate loop (it needs the loop-closing plane's
-keyframe database, item 13) and localization mode with its
-visual-odometry branch (item 17). The mapping hooks stay ``None`` until
-the mapping plane (item 12) wires them.
+monocular initialization and relocalization's DLT solver (Queue 1 item
+14), the inertial parts (item 15) and localization mode with its
+visual-odometry branch (item 17). Relocalization runs against the keyframe
+database that the loop-closing plane wires (``kf_db``). The hooks of the
+asynchronous mapping worker stay ``None`` (item 18).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry import lie
 from orb_slam3_rgbl_tpu_torch.geometry.camera import np_geo_project, np_geo_unproject
 from orb_slam3_rgbl_tpu_torch.ops import matching
-from orb_slam3_rgbl_tpu_torch.optim import pose_opt
+from orb_slam3_rgbl_tpu_torch.optim import pnp, pose_opt
 from orb_slam3_rgbl_tpu_torch.slam import compiled
 from orb_slam3_rgbl_tpu_torch.slam.frame import FrameFeatures, inv_scale_sigma2
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
@@ -50,6 +50,7 @@ STATE_NAMES = {0: "NO_IMAGES_YET", 1: "NOT_INITIALIZED", 2: "OK", 3: "RECENTLY_L
 LOCAL_LM_CAP = 8192   # local-map landmark budget per frame
 LOCAL_KF_CAP = 80     # reference caps local keyframes at 80 (Tracking.cc:3543)
 MIN_FUSED_INLIERS = 30   # below this a fused frame goes to the classic ladder
+RELOC_HYPOTHESES = 256   # PnP RANSAC budget of one relocalization candidate
 
 
 @dataclasses.dataclass
@@ -83,6 +84,7 @@ class Tracker:
         self.state = NO_IMAGES_YET
         self.n_feat: Optional[int] = None   # set on the first frame
         self.kf_db = None   # KeyFrameDatabase, wired by the loop-closing plane
+        self.reloc_generator = None   # torch.Generator of the PnP draws, wired with it
         self.fast = None    # FastPath, wired by System for the fused loop
         # mapping hooks, wired by the mapping plane (all checked for None)
         self.pre_kf_hook = None        # called right before keyframe creation
@@ -430,15 +432,96 @@ class Tracker:
         return v[:7].astype(np.float32), int(v[7]), v[8:] > 0.5
 
     # ------------------------------------------------------------------
+    def _reloc_draws(self, n_pairs: int) -> torch.Tensor:
+        """(RELOC_HYPOTHESES, 3) minimal-set draws in [0, n_pairs) from the
+        generator the owner wired beside the keyframe database."""
+        if self.reloc_generator is None:
+            raise ValueError("relocalization needs the caller's torch.Generator for PnP RANSAC")
+        return torch.randint(0, n_pairs, (RELOC_HYPOTHESES, 3), generator=self.reloc_generator,
+                             device=self.reloc_generator.device)
+
     def _relocalization(self, feats: FrameFeatures):
-        """Recover the pose from scratch (reference ``Relocalization``).
-        Without a keyframe database (no loop-closing plane) it fails at
-        once, as the JAX tracker does."""
+        """Recover the pose from scratch (reference ``Relocalization``
+        ``Tracking.cc:3643-3810``): database candidates → descriptor match
+        → PnP RANSAC → robust pose refinement, and a wide projection search
+        before the final accept. The depth sensor gives the query features
+        their 3D, so hypotheses are rigid 3-point alignments
+        (``optim/pnp.py``). Without a keyframe database (no loop-closing
+        plane) it fails at once."""
+        fail = np.full(self.n_feat, -1, np.int32), 0
         if self.kf_db is None:
-            return np.full(self.n_feat, -1, np.int32), 0
-        raise NotImplementedError(
-            "relocalization against a keyframe database is not ported yet "
-            "(ROADMAP Queue 1 item 13)")
+            return fail
+        hf = self._host(feats)
+        cands = self.kf_db.detect_relocalization_candidates(feats.desc, feats.valid, 5)
+        for cand in cands:
+            cand = int(cand)
+            b2 = self.map.kf_lm_idx[cand] >= 0
+            if b2.sum() < 15:
+                continue
+            d = matching.distance_table(
+                feats.desc, self._dev(_i32(self.map.kf_desc[cand]), torch.int32),
+                feats.valid, self._dev(b2, torch.bool))
+            idx, _ = matching.mutual_best_match(
+                d, feats.angle, self._dev(self.map.kf_angle[cand], torch.float32),
+                th=matching.TH_LOW, ratio=0.75, check_rotation=True)
+            idx = idx.cpu().numpy()
+            f1 = np.nonzero((idx >= 0) & (hf.depth > 0))[0]
+            if f1.size < 15:
+                continue
+            lm = self.map.kf_lm_idx[cand, idx[f1]]
+            ok_lm = self.map.lm_valid[lm]
+            f1, lm = f1[ok_lm], lm[ok_lm]
+            if f1.size < 15:
+                continue
+            uv = hf.uv[f1]
+            s2 = (self.cfg.orb.scale_factor ** (2 * hf.octave[f1])).astype(np.float32)
+            p_cam = (np_geo_unproject(self.geo_cam, uv) * hf.depth[f1][:, None]).astype(np.float32)
+            f32 = torch.float32
+            res = pnp.rigid_pnp_ransac(
+                self._dev(p_cam, f32), self._dev(self.map.lm_pos[lm], f32), self._dev(uv, f32),
+                self._dev(s2, f32), torch.ones(f1.size, dtype=torch.bool, device=self.device),
+                self.cam, n_hypotheses=RELOC_HYPOTHESES, draws=self._reloc_draws(f1.size))
+            down = torch.cat([res.Tcw, res.n_inliers[None].to(f32), res.inliers.to(f32)]
+                             ).cpu().numpy()
+            # reference RANSAC accepts ≥ 10 inliers (Tracking.cc:3690),
+            # refines, then escalates with a wide SearchByProjection against
+            # all the candidate's landmarks before the 50-inlier final accept
+            if int(down[7]) < 10:
+                continue
+            lm_idx = np.full(self.n_feat, -1, np.int32)
+            inl = down[8:] > 0.5
+            lm_idx[f1[inl]] = lm[inl]
+            pose, n_inl, inliers = self._optimize_pose(feats, lm_idx, down[:7].astype(np.float32))
+            if n_inl < 10:
+                continue
+            lm_idx = np.where(inliers, lm_idx, -1)
+            if n_inl < 50:
+                cand_lms = self.map.kf_lm_idx[cand]
+                cand_lms = np.unique(cand_lms[cand_lms >= 0])
+                cand_lms = cand_lms[self.map.lm_valid[cand_lms]]
+                cap = self.n_feat
+                P = np.zeros((cap, 3), np.float32)
+                Pdesc = np.zeros((cap, 8), np.uint32)
+                Poct = np.zeros(cap, np.int32)
+                Pvalid = np.zeros(cap, bool)
+                mm = min(cand_lms.size, cap)
+                P[:mm] = self.map.lm_pos[cand_lms[:mm]]
+                Pdesc[:mm] = self.map.lm_desc[cand_lms[:mm]]
+                Pvalid[:mm] = True
+                ids_global = np.full(cap, -1, np.int64)
+                ids_global[:mm] = cand_lms[:mm]
+                extra, _, _ = self._match_and_bind(
+                    feats, pose, P, Pdesc, Poct, Pvalid, ids_global=ids_global, th=10.0,
+                    exclude_bound=lm_idx)
+                lm_idx = np.where(lm_idx >= 0, lm_idx, extra)
+                pose, n_inl, inliers = self._optimize_pose(feats, lm_idx, pose)
+                lm_idx = np.where(inliers, lm_idx, -1)
+            if n_inl >= 30:
+                self.cur_pose = pose
+                self.last_reloc_frame = self.frame_id
+                self.ref_kf = cand
+                return lm_idx, int(n_inl)
+        return fail
 
     # ------------------------------------------------------------------
     def _maybe_insert_keyframe(self, feats, timestamp, n_inl) -> bool:

@@ -3,7 +3,8 @@
 rendering with exact ground-truth poses, so the port's tracking loop runs
 on real images without a dataset.
 
-A piecewise-planar street canyon (ground + two walls + far wall) with
+A piecewise-planar street canyon (ground + two walls + far wall), or a
+closed square room for drives that revisit their own view, with
 procedural textures drawn from ``numpy.random.default_rng(seed)`` (the
 JAX package draws them with ``jax.random``, so the two worlds share their
 geometry but not their textures). Camera x right / y down / z forward;
@@ -67,6 +68,27 @@ def make_world(seed: int = 0, tex_size: int = 512, half_width: float = 8.0,
         e2=t([[0, 0, 1], [0, 1, 0], [0, 1, 0], [0, 1, 0]]),
         tex=torch.from_numpy(_textures(np.random.default_rng(seed), 4, tex_size)).to(dev),
         tex_scale=t([3.0, 3.0, 3.0, 3.0]),
+    )
+
+
+def make_box_world(seed: int = 0, tex_size: int = 512, half: float = 14.0,
+                   ground_y: float = 1.6, device=None) -> World:
+    """Closed square room (4 inward-facing walls + ground): a circular
+    trajectory inside revisits its own view, the image-level loop-closure
+    scene the straight canyon cannot produce."""
+    dev = resolve(device)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    return World(
+        normals=t([[0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0],
+                   [0.0, 0.0, 1.0]]),
+        offsets=t([ground_y, -half, half, -half, half]),
+        e1=t([[1, 0, 0], [0, 0, 1], [0, 0, 1], [1, 0, 0], [1, 0, 0]]),
+        e2=t([[0, 0, 1], [0, 1, 0], [0, 1, 0], [0, 1, 0], [0, 1, 0]]),
+        tex=torch.from_numpy(_textures(np.random.default_rng(seed), 5, tex_size)).to(dev),
+        tex_scale=t([3.0] * 5),
     )
 
 
@@ -174,6 +196,22 @@ def straight_trajectory(n: int, step: float = 0.8, yaw_rate: float = 0.0,
         z += step * np.cos(yaw)
         yaw += yaw_rate
     return np.stack(poses).astype(np.float32)
+
+
+def multi_loop_trajectory(n: int, radius: float = 18.0, period: int = 84) -> np.ndarray:
+    """(n, 7) Twc of a continuous multi-lap circle through the origin:
+    ``period`` frames per revolution, the phase keeps advancing, so there is
+    no pose jump at the lap seam."""
+    th = 2.0 * np.pi * np.arange(n) / period
+    zeros = np.zeros(n)
+    return np.stack([np.cos(th / 2), zeros, np.sin(th / 2), zeros,
+                     radius * (1.0 - np.cos(th)), zeros, radius * np.sin(th)],
+                    axis=1).astype(np.float32)
+
+
+def loop_trajectory(n: int, radius: float = 18.0) -> np.ndarray:
+    """(n, 7) Twc of one circular lap that returns to its start."""
+    return multi_loop_trajectory(n, radius, period=n)
 
 
 def twc_to_tcw(Twc: np.ndarray) -> np.ndarray:

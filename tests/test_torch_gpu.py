@@ -1,4 +1,5 @@
-"""The CUDA kernels K1, K2 and K3 against their plain versions, on the card. Marked
+"""The CUDA kernels K1, K2 and K3 against their plain versions, and the loop-closing
+plane's solvers against their CPU runs, on the card. Marked
 ``gpu``; without a card each test skips from its fixture.
 
 The machine with the card has no JAX, so run this file without the
@@ -191,3 +192,197 @@ def test_wrappers_reject_bad_inputs(cuda):
         brief_cuda.brief_blocks(comp, corners, torch.zeros((2, 1), dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):
         brief_cuda.brief_blocks(comp, corners.cpu(), torch.zeros((2, 1), dtype=torch.int32, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# The loop-closing plane's solvers: plain PyTorch, no kernel of their own. On
+# the card each must agree with its CPU run, wait for nothing, and the global
+# BA must repeat to the bit.
+# ---------------------------------------------------------------------------
+
+def _loop_cam():
+    from orb_slam3_rgbl_tpu_torch.config import kitti_rgbl_config
+    return kitti_rgbl_config().camera
+
+
+def _sim3_scene(seed=4, P=300, outlier_frac=0.2):
+    from orb_slam3_rgbl_tpu_torch.geometry import lie
+    cam = _loop_cam()
+    rng = np.random.default_rng(seed)
+    p2 = np.stack([rng.uniform(-10, 10, P), rng.uniform(-4, 4, P), rng.uniform(8, 50, P)],
+                  axis=1).astype(np.float32)
+    S12 = lie.sim3_exp(torch.tensor([0.4, -0.2, 0.3, 0.04, 0.02, -0.05, 0.0]))
+    clean = lie.sim3_apply(S12, torch.from_numpy(p2)).numpy()
+    p1 = clean.copy()
+    out_idx = rng.choice(P, int(P * outlier_frac), replace=False)
+    p1[out_idx] += rng.uniform(2, 5, (len(out_idx), 3)).astype(np.float32)
+
+    def proj(p):
+        return np.stack([cam.fx * p[:, 0] / p[:, 2] + cam.cx,
+                         cam.fy * p[:, 1] / p[:, 2] + cam.cy], axis=1).astype(np.float32)
+
+    uv1 = proj(clean) + rng.normal(0, 0.5, (P, 2)).astype(np.float32)
+    uv2 = proj(p2) + rng.normal(0, 0.5, (P, 2)).astype(np.float32)
+    s2 = np.ones(P, np.float32)
+    draws = rng.integers(0, P, (512, 3))
+    arrays = [torch.from_numpy(a) for a in (p1, p2, uv1, uv2, s2, s2, np.ones(P, bool))]
+    return cam, S12, arrays, torch.from_numpy(draws)
+
+
+def _no_sync(fn):
+    """Run ``fn`` with every wait for the device made an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out
+
+
+def test_sim3_and_pnp_solvers_match_their_cpu_runs(cuda):
+    """Same draws on both devices: the same winner and inlier mask; the
+    refined Sim3 within 1e-4. ``optimize_sim3`` waits for nothing (the
+    RANSACs' batched SVD may: the host reads their result anyway)."""
+    from orb_slam3_rgbl_tpu_torch.optim import pnp, sim3
+    cam, S12, arrays, draws = _sim3_scene()
+    on_card = [a.to(cuda) for a in arrays]
+    d_card = draws.to(cuda)
+    res_c = sim3.sim3_ransac(*arrays, cam, n_hypotheses=512, draws=draws)
+    res_g = sim3.sim3_ransac(*on_card, cam, n_hypotheses=512, draws=d_card)
+    assert int(res_g.n_inliers) == int(res_c.n_inliers) >= 200
+    assert torch.equal(res_g.inliers.cpu(), res_c.inliers)
+    assert (res_g.S12.cpu() - res_c.S12).abs().max() < 1e-4
+    p1, p2, uv1, uv2, s1, s2, valid = arrays
+    opt_c = sim3.optimize_sim3(res_c.S12, p1, p2, uv1, uv2, 1 / s1, 1 / s2, res_c.inliers, cam)
+    g1, g2, gu1, gu2, gs1, gs2, gvalid = on_card
+    opt_g = _no_sync(lambda: sim3.optimize_sim3(res_g.S12, g1, g2, gu1, gu2, 1 / gs1, 1 / gs2,
+                                                res_g.inliers, cam))
+    assert (opt_g[0].cpu() - opt_c[0]).abs().max() < 1e-4
+    assert torch.equal(opt_g[1].cpu(), opt_c[1]) and int(opt_g[2]) == int(opt_c[2])
+    assert (opt_g[0].cpu() - S12).abs().max() < 0.02
+    # rigid PnP: p1 are the camera-frame points, p2 stand in for world landmarks
+    pnp_c = pnp.rigid_pnp_ransac(p1, p2, uv1, s1, valid, cam, draws=draws[:256])
+    pnp_g = pnp.rigid_pnp_ransac(g1, g2, gu1, gs1, gvalid, cam, draws=d_card[:256])
+    assert int(pnp_g.n_inliers) == int(pnp_c.n_inliers) >= 200
+    assert torch.equal(pnp_g.inliers.cpu(), pnp_c.inliers)
+    assert (pnp_g.Tcw.cpu() - pnp_c.Tcw).abs().max() < 1e-4
+    # a tie among hypotheses goes to the first, on the card too
+    counts = torch.tensor([3, 9, 9, 2, 9], device=cuda)
+    assert int(sim3.first_argmax(counts)) == 1
+
+
+def test_pose_graph_matches_its_cpu_run(cuda):
+    """A 40-node drift ring with a loop edge: 20 iterations on the card
+    within 1e-4 of the CPU's, cost lowered, nothing waited for."""
+    from orb_slam3_rgbl_tpu_torch.geometry import lie
+    from orb_slam3_rgbl_tpu_torch.optim import pose_graph as pg
+    K = 40
+    step = lie.sim3_exp(torch.tensor([0.0, 0.0, 1.0, 0.0, 0.15, 0.0, 0.0]))
+    meas = lie.sim3_mul(step, lie.sim3_exp(torch.tensor([0.02, 0.0, 0.0, 0.0, 0.004, 0.0, 0.0])))
+    gt, nodes = [lie.sim3_identity(device="cpu")], [lie.sim3_identity(device="cpu")]
+    for _ in range(K - 1):
+        gt.append(lie.sim3_mul(step, gt[-1]))
+        nodes.append(lie.sim3_mul(meas, nodes[-1]))
+    gt, nodes = torch.stack(gt), torch.stack(nodes)
+    ei = torch.arange(1, K).tolist() + [K - 1]
+    ej = torch.arange(0, K - 1).tolist() + [0]
+    Sij = torch.cat([meas.expand(K - 1, 8), pg.relative_sim3(gt, K - 1, 0)[None]])
+    problem = pg.PoseGraphProblem(
+        nodes=nodes, node_fixed=torch.arange(K) == 0, node_valid=torch.ones(K, dtype=torch.bool),
+        edge_i=torch.tensor(ei), edge_j=torch.tensor(ej), edge_Sij=Sij,
+        edge_weight=torch.tensor([1.0] * (K - 1) + [10.0]),
+        edge_valid=torch.ones(K, dtype=torch.bool))
+    on_card = pg.PoseGraphProblem(*(t.to(cuda) for t in problem))
+    out_c = pg.optimize_pose_graph(problem, iterations=20, fix_scale=True)
+    out_g = _no_sync(lambda: pg.optimize_pose_graph(on_card, iterations=20, fix_scale=True))
+    assert (out_g.cpu() - out_c).abs().max() < 1e-4
+    assert torch.equal(out_g[0].cpu(), nodes[0])
+    assert float(pg.pose_graph_cost(on_card, out_g)) < 0.1 * float(pg.pose_graph_cost(on_card, on_card.nodes))
+
+
+def _ba_problem(seed=0, K=24, M=4000, D=8):
+    """A ring of K cameras looking outwards at M points, each seen by up to
+    D cameras with stereo observations; poses and points perturbed."""
+    from orb_slam3_rgbl_tpu_torch.geometry import lie
+    from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
+    cam = _loop_cam()
+    rng = np.random.default_rng(seed)
+    th = 2 * np.pi * np.arange(K) / K
+    Twc = np.stack([np.cos(th / 2), 0 * th, np.sin(th / 2), 0 * th,
+                    6 * (1 - np.cos(th)), 0 * th, 6 * np.sin(th)], axis=1).astype(np.float32)
+    Tcw = lie.np_se3_inv(Twc)
+    ang = rng.uniform(0, 2 * np.pi, M)
+    r = rng.uniform(12, 30, M)
+    X = np.stack([6 + r * np.cos(ang), rng.uniform(-3, 1.5, M), r * np.sin(ang)], 1).astype(np.float32)
+    obs_kf = np.zeros((M, D), np.int64)
+    obs_uv = np.zeros((M, D, 2), np.float32)
+    obs_ur = np.full((M, D), -1.0, np.float32)
+    obs_mask = np.zeros((M, D), bool)
+    for k in range(K):
+        pc = lie.np_se3_apply(Tcw[k], X)
+        u = cam.fx * pc[:, 0] / pc[:, 2] + cam.cx
+        v = cam.fy * pc[:, 1] / pc[:, 2] + cam.cy
+        vis = (pc[:, 2] > 1) & (u > 0) & (u < cam.width) & (v > 0) & (v < cam.height)
+        slot = obs_mask.sum(axis=1)
+        take = np.nonzero(vis & (slot < D))[0]
+        obs_kf[take, slot[take]] = k
+        obs_uv[take, slot[take]] = np.stack([u[take], v[take]], 1) + rng.normal(0, 0.5, (len(take), 2))
+        obs_ur[take, slot[take]] = u[take] - cam.bf / pc[take, 2]
+        obs_mask[take, slot[take]] = True
+    poses = Tcw.copy()
+    poses[1:, 4:7] += rng.normal(0, 0.05, (K - 1, 3)).astype(np.float32)
+    arrays = dict(poses=poses, pose_fixed=np.arange(K) == 0, pose_valid=np.ones(K, bool),
+                  landmarks=X + rng.normal(0, 0.1, X.shape).astype(np.float32),
+                  lm_valid=obs_mask.sum(axis=1) >= 2, obs_kf=obs_kf, obs_uv=obs_uv, obs_ur=obs_ur,
+                  obs_inv_sigma2=np.ones((M, D), np.float32), obs_mask=obs_mask)
+    from orb_slam3_rgbl_tpu_torch import convert
+    return cam, arrays, convert
+
+
+def test_global_ba_repeats_to_the_bit_and_matches_its_cpu_run(cuda):
+    from orb_slam3_rgbl_tpu_torch.optim import global_ba as gba
+    cam, arrays, convert = _ba_problem()
+    p_c = convert.ba_problem_from_numpy(arrays, device="cpu")
+    p_g = convert.ba_problem_from_numpy(arrays)
+    assert p_g.poses.device.type == "cuda" and int(p_c.obs_mask.sum()) > 8000
+    seg = gba.PoseSegments(p_g.obs_kf, p_g.obs_mask, p_g.poses.shape[0])
+    first = _no_sync(lambda: gba.global_bundle_adjust(p_g, cam, seg, iterations=4, cg_iters=64))
+    again = gba.global_bundle_adjust(p_g, cam, seg, iterations=4, cg_iters=64)
+    assert torch.equal(first.poses, again.poses) and torch.equal(first.landmarks, again.landmarks)
+    assert torch.equal(first.cost, again.cost)
+    seg_c = gba.PoseSegments(p_c.obs_kf, p_c.obs_mask, p_c.poses.shape[0])
+    on_cpu = gba.global_bundle_adjust(p_c, cam, seg_c, iterations=4, cg_iters=64)
+    assert (first.poses.cpu() - on_cpu.poses).abs().max() < 1e-3
+    assert (first.landmarks.cpu() - on_cpu.landmarks).abs().median() < 1e-3
+    assert float(first.cost) < 0.2 * float(gba.ba_cost(p_g, cam))
+    np.testing.assert_allclose(float(first.cost), float(on_cpu.cost), rtol=1e-3)
+    assert torch.equal(first.poses[0].cpu(), p_c.poses[0])
+    # the segment sums against index_add_, which adds with atomics on the card
+    vals = torch.randn(p_g.obs_kf.shape + (6,), device=cuda) * p_g.obs_mask[..., None]
+    want = torch.zeros(p_g.poses.shape[0], 6, device=cuda).index_add_(
+        0, p_g.obs_kf.reshape(-1), vals.reshape(-1, 6))
+    assert (seg.sum(vals) - want).abs().max() < 1e-3
+    assert torch.equal(seg.sum(vals), seg.sum(vals))
+
+
+def test_keyframe_database_lives_on_the_card(cuda):
+    from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
+    rng = np.random.default_rng(1)
+    desc = rng.integers(0, 2**32, (6, 2000, 8), dtype=np.uint32)
+    valid = np.ones(2000, bool)
+    db_g, db_c = KeyFrameDatabase(16), KeyFrameDatabase(16, device="cpu")
+    for k in range(6):
+        db_g.add(k, desc[k], valid)
+        db_c.add(k, desc[k], valid)
+    assert db_g.vectors.device.type == "cuda"
+    ptr = db_g.vectors.data_ptr()
+    assert torch.equal(db_g.vectors.cpu(), db_c.vectors)       # integer counts: exact
+    s_g, c_g = db_g.query(db_g.vectors[2], np.array([0]))
+    s_c, c_c = db_c.query(db_c.vectors[2], np.array([0]))
+    np.testing.assert_allclose(s_g, s_c, atol=1e-6)
+    np.testing.assert_array_equal(c_g, c_c)
+    assert db_g.vectors.data_ptr() == ptr and s_g[2] > 0.999 and s_g[0] == 0
+    np.testing.assert_array_equal(
+        db_g.detect_relocalization_candidates(desc[3], valid, 5),
+        db_c.detect_relocalization_candidates(desc[3], valid, 5))

@@ -28,6 +28,10 @@ PORT_MODULES = [
     "orb_slam3_rgbl_tpu_torch.slam.atlas", "orb_slam3_rgbl_tpu_torch.io.trajectory",
     "orb_slam3_rgbl_tpu_torch.geometry.triangulation", "orb_slam3_rgbl_tpu_torch.optim.local_ba",
     "orb_slam3_rgbl_tpu_torch.slam.ba_assembly", "orb_slam3_rgbl_tpu_torch.slam.local_mapping",
+    "orb_slam3_rgbl_tpu_torch.retrieval", "orb_slam3_rgbl_tpu_torch.retrieval.vocab",
+    "orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db", "orb_slam3_rgbl_tpu_torch.optim.sim3",
+    "orb_slam3_rgbl_tpu_torch.optim.pnp", "orb_slam3_rgbl_tpu_torch.optim.pose_graph",
+    "orb_slam3_rgbl_tpu_torch.optim.global_ba", "orb_slam3_rgbl_tpu_torch.slam.loop_closing",
     "chip_smoke",
 ]
 
@@ -60,7 +64,8 @@ def test_entry_points_never_fall_back_to_cpu():
              lambda: compiled.make_track_step(cfg),
              lambda: frame.extract_features(torch.zeros(64, 64), 64, 64, n_levels=1),
              lambda: System(tracking_only, enable_mapping=False).track_rgbl(img, cloud, 0.0),
-             lambda: System(tracking_only).track_rgbl(img, cloud, 0.0)]
+             lambda: System(tracking_only).track_rgbl(img, cloud, 0.0),
+             lambda: System(cfg).track_rgbl(img, cloud, 0.0)]      # the default configuration
     for call in calls:
         if torch.cuda.is_available():
             call()
@@ -108,7 +113,10 @@ def test_device_none_never_answers_on_the_cpu():
     from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
     from orb_slam3_rgbl_tpu_torch.slam import ba_assembly, compiled, frame
     from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
+    from orb_slam3_rgbl_tpu_torch.optim.pose_graph import PoseGraphProblem
+    from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
     from orb_slam3_rgbl_tpu_torch.slam.local_mapping import DeviceKfCache, LocalMapper
+    from orb_slam3_rgbl_tpu_torch.slam.loop_closing import LoopCloser
     from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
     from orb_slam3_rgbl_tpu_torch.slam.system import System
     from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker
@@ -120,6 +128,8 @@ def test_device_none_never_answers_on_the_cpu():
         ("depth", (), np.float32), ("u_right", (), np.float32))}
     ba = {name: np.zeros((2, 3, 7)[: 1 + (name in ("poses", "landmarks", "obs_uv", "obs_kf"))])
           for name in BAProblem._fields}
+    pg = {name: np.zeros((2, 8) if name in ("nodes", "edge_Sij") else (2,))
+          for name in PoseGraphProblem._fields}
     small_map = MapState.create(2, 8, 4)
     pre = "orb_slam3_rgbl_tpu_torch."
     calls = {
@@ -145,6 +155,14 @@ def test_device_none_never_answers_on_the_cpu():
         pre + "slam.local_mapping.DeviceKfCache.__init__": lambda: DeviceKfCache(4).d_uv,
         pre + "slam.local_mapping.LocalMapper.__init__":
             lambda: LocalMapper(cfg, small_map).dev_cache.d_uv,
+        pre + "geometry.lie.sim3_identity": lambda: lie.sim3_identity(),
+        pre + "synthetic.make_box_world": lambda: synthetic.make_box_world(0, tex_size=8).tex,
+        pre + "convert.pose_graph_problem_from_numpy":
+            lambda: convert.pose_graph_problem_from_numpy(pg).nodes,
+        pre + "retrieval.keyframe_db.KeyFrameDatabase.__init__":
+            lambda: KeyFrameDatabase(4).vectors,
+        pre + "slam.loop_closing.LoopCloser.__init__":
+            lambda: LoopCloser(cfg, small_map).db.vectors,
     }
     # follows the FastPath it is given: covered by tests/test_torch_step.py
     follows_an_object = {pre + "convert.fast_path_state_from_numpy"}
@@ -153,6 +171,9 @@ def test_device_none_never_answers_on_the_cpu():
     assert frame.inv_scale_sigma2(device="cpu").device.type == "cpu"
     assert camera.intrinsics(cfg.camera, device="cpu").device.type == "cpu"
     assert DeviceKfCache(4, device="cpu").d_desc.device.type == "cpu"
+    assert lie.sim3_identity(device="cpu").device.type == "cpu"
+    assert KeyFrameDatabase(4, device="cpu").vectors.device.type == "cpu"
+    assert LoopCloser(cfg, small_map, device="cpu").db.vectors.device.type == "cpu"
     for name, call in calls.items():
         if torch.cuda.is_available():
             out = call()
