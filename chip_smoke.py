@@ -55,6 +55,22 @@ keyframe, candidate and event cost, the event split by ``loop.*`` span.
 Then 6 textureless frames and 6 frames of a place the lap mapped: the
 tracker must come back through relocalization against the database, in the
 same atlas map.
+Phase 7 drives ``System(cfg)`` with nothing switched off over the canyon of
+phase 2 (its 41 frames with a keyframe forced every 4), 12 textureless
+frames with the camera held at its last pose (a lost streak past ``fps``:
+a second atlas map starts) and the 15 frames that follow on the path: the
+new map's first keyframe is recognized in the archived map's database,
+verified by Sim3 and welded (``slam/merging.py``). It checks that the atlas
+is back to one map, every frame after the weld, the frames that leave the
+fused step, the binding invariants before and after the weld-window BA,
+that BA's cost, the scale, the trajectory against ground truth (ATE) and
+that ``optimize_sim3`` and the BA do not wait for the card; it prints the
+weld's counts and host ms by ``merge.*`` span, then drives the same frames
+again with the revisit under the profiler.
+Phase 8 trains a tree vocabulary (k=8, depth=3) on phase 6's map, holds its
+recall@3 against the LSH words' on that frozen map, times one ``bow`` of a
+frame, and drives phase 6's forced pass again with ``vocab_path`` set: it
+must close the loop.
 
 ``--mapping-drive N`` runs, instead of the phases, N frames tracking only
 and then with the mapping plane on (a keyframe every 4 in both): the
@@ -88,13 +104,15 @@ from torch.profiler import record_function
 from orb_slam3_rgbl_tpu_torch import cuda_build
 from orb_slam3_rgbl_tpu_torch import synthetic as syn
 from orb_slam3_rgbl_tpu_torch.config import kitti_rgbl_config
-from orb_slam3_rgbl_tpu_torch.geometry import lie
+from orb_slam3_rgbl_tpu_torch.geometry import align, lie
 from orb_slam3_rgbl_tpu_torch.ops import brief_cuda, fast as fast_ops, frontend_cuda
 from orb_slam3_rgbl_tpu_torch.ops import orb as orb_ops, pyramid as pyr_ops
 from orb_slam3_rgbl_tpu_torch.optim import local_ba, pose_graph
 from orb_slam3_rgbl_tpu_torch.optim import sim3 as sim3_opt
+from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
+from orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab import train_vocabulary
 from orb_slam3_rgbl_tpu_torch.slam import frame as frame_mod, tracking as trk
-from orb_slam3_rgbl_tpu_torch.slam import map_state as map_mod
+from orb_slam3_rgbl_tpu_torch.slam import map_state as map_mod, merging
 from orb_slam3_rgbl_tpu_torch.slam.local_mapping import MAP_SPANS, LocalMapper
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
 from orb_slam3_rgbl_tpu_torch.slam.loop_closing import LOOP_SPANS, LoopCloser
@@ -122,6 +140,14 @@ PROFILED_ITERATIONS = 2     # iterations of the pose graph and of the global BA 
 # then this many frames from frame RELOC_BACK_TO of the lap on
 N_RELOC_BLANK, RELOC_BACK_TO, N_RELOC_AFTER = 6, 40, 6
 MIN_INLIERS = 30
+# phase 7: frames right after the weld that may leave the fused step
+MAX_CLASSIC_AFTER_WELD = 3
+# phase 8: the tree vocabulary's shape (tests/test_tree_vocab_e2e.py's), the
+# first frame of the lap's revisit stretch, and the recall bounds of that test
+VOCAB_K, VOCAB_DEPTH, REVISIT_FROM = 8, 3, 88
+MIN_TREE_RECALL, MAX_RECALL_GAP = 0.5, 0.34
+VOCAB_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "vocab",
+                          "phase8.npz")
 # translation error bound against ground truth over the drive (metres):
 # ~3x the 0.118 m this 41-frame loop reaches when its helpers run on the
 # CPU at this size. At 320x192 the same loop ends at 0.181 m on both the
@@ -1224,6 +1250,356 @@ def phase6_relocalization(cfg, sysm, frames, device):
         fail(f"check_binding_consistency after relocalization: {faults}")
 
 
+@contextlib.contextmanager
+def spy_weld(rec: dict, device):
+    """For the duration: time every ``merging.verify_cross_map``
+    (``rec['verify']``: keyframe, candidate, pairs, RANSAC and refined
+    inliers, host ms synchronized, the refinement's arguments); time
+    ``System._do_merge`` and its weld-window ``local_bundle_adjustment``
+    (synchronized); check the binding invariants before and after that BA;
+    keep the BA's problem and Huber cost before and after it, the
+    ``MergeResult`` and the event with its keyframes' frames."""
+    orig_verify, orig_merge = merging.verify_cross_map, merging.merge_maps
+    orig_ransac, orig_opt = sim3_opt.sim3_ransac, sim3_opt.optimize_sim3
+    orig_do, orig_lba = System._do_merge, LocalMapper.local_bundle_adjustment
+    orig_ba = local_ba.bundle_adjust
+    rec.update(verify=[])
+    inside = {"verify": None, "weld": False}
+
+    def timed_verify(cfg, m1, kf1, m2, kf2, *a, **k):
+        cand = {"kf": int(kf1), "cand": int(kf2), "pairs": 0, "ransac": None, "refined": None}
+        inside["verify"] = cand
+        _synchronize(device)
+        t = time.perf_counter()
+        try:
+            out = orig_verify(cfg, m1, kf1, m2, kf2, *a, **k)
+        finally:
+            inside["verify"] = None
+        _synchronize(device)
+        cand.update(ms=(time.perf_counter() - t) * 1e3, accepted=out is not None)
+        rec["verify"].append(cand)
+        return out
+
+    def recorded_ransac(p1, *a, **k):
+        res = orig_ransac(p1, *a, **k)
+        if inside["verify"] is not None:
+            inside["verify"].update(pairs=int(p1.shape[0]), ransac=res.n_inliers)
+        return res
+
+    def recorded_opt(*a, **k):
+        out = orig_opt(*a, **k)
+        if inside["verify"] is not None:
+            inside["verify"].update(refined=out[2], args=(a, k))
+        return out
+
+    def recorded_merge(old, active, kf_cur, S):
+        res = orig_merge(old, active, kf_cur, S)
+        rec["merge"] = (res, int(active.lm_valid.sum()))
+        return res
+
+    def timed_do_merge(self, ev):
+        rec["event"] = ev
+        rec["frames"] = (int(self.map.kf_frame_id[ev.kf_cur]),
+                         int(self.atlas.entries[ev.entry_idx].map.kf_frame_id[ev.kf_matched]))
+        inside["weld"] = True
+        _synchronize(device)
+        t = time.perf_counter()
+        try:
+            orig_do(self, ev)
+        finally:
+            inside["weld"] = False
+        _synchronize(device)
+        rec["do_merge_ms"] = (time.perf_counter() - t) * 1e3
+        rec["faults_after_ba"] = map_mod.check_binding_consistency(self.map)
+        rec["n_maps"] = self.atlas.n_maps()
+
+    def timed_lba(self, kf_id, *a, **k):
+        if not inside["weld"]:
+            return orig_lba(self, kf_id, *a, **k)
+        rec["faults_before_ba"] = map_mod.check_binding_consistency(self.map)
+        _synchronize(device)
+        t = time.perf_counter()
+        out = orig_lba(self, kf_id, *a, **k)
+        _synchronize(device)
+        rec["lba_ms"] = (time.perf_counter() - t) * 1e3
+        return out
+
+    def recorded_ba(problem, cam, **k):
+        if not inside["weld"]:
+            return orig_ba(problem, cam, **k)
+        before = ba_robust_cost(problem, problem.poses, problem.landmarks, cam)
+        res = orig_ba(problem, cam, **k)
+        rec["ba"] = (problem, cam, k, before,
+                     ba_robust_cost(problem, res.poses, res.landmarks, cam))
+        return res
+
+    merging.verify_cross_map, merging.merge_maps = timed_verify, recorded_merge
+    sim3_opt.sim3_ransac, sim3_opt.optimize_sim3 = recorded_ransac, recorded_opt
+    System._do_merge, LocalMapper.local_bundle_adjustment = timed_do_merge, timed_lba
+    local_ba.bundle_adjust = recorded_ba
+    try:
+        yield
+    finally:
+        merging.verify_cross_map, merging.merge_maps = orig_verify, orig_merge
+        sim3_opt.sim3_ransac, sim3_opt.optimize_sim3 = orig_ransac, orig_opt
+        System._do_merge, LocalMapper.local_bundle_adjustment = orig_do, orig_lba
+        local_ba.bundle_adjust = orig_ba
+
+
+def phase7_weld(cfg, traj, frames, device, prof_ctx=None):
+    """The canyon with nothing switched off: ``N_DRIVE`` frames with a
+    keyframe forced every ``KF_EVERY`` (the archived map and its database),
+    ``N_BLANK`` textureless frames with the camera held at its last pose (a
+    second map starts), then the rest of the path (the revisit: the new
+    map's first keyframe is welded into the archived map). With
+    ``prof_ctx`` the frames from the first textured one up to the weld run
+    under the profiler. Returns (System, per-frame results, the weld's
+    frame, rec, frame_calls, ground-truth positions)."""
+    blank = torch.full_like(frames[0][0], 12.0)         # textureless: no corners
+    seq = (frames[:N_DRIVE] + [(blank,) + frames[N_DRIVE - 1][1:]] * N_BLANK
+           + frames[N_DRIVE:])
+    gt_idx = list(range(N_DRIVE)) + [N_DRIVE - 1] * N_BLANK + list(range(N_DRIVE, len(frames)))
+    rec, calls, frame_calls, weld_at = {}, [], [], []
+
+    @contextlib.contextmanager
+    def on_frame(i):
+        calls.clear()
+        profiled = prof_ctx is not None and i >= N_DRIVE + N_BLANK and "event" not in rec
+        with prof_ctx() if profiled else contextlib.nullcontext():
+            yield
+        frame_calls.append(list(calls))
+        if "event" in rec and not weld_at:
+            weld_at.append(i)
+
+    _synchronize(device)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    sysm = System(cfg, device=device)                   # mapping on, loop closing on
+    sysm.CLOUD_CAP = frames[0][1].shape[0]
+    with spy(calls, []), spy_weld(rec, device):
+        sysm, results = drive(cfg, seq, device, sysm=sysm, on_frame=on_frame)
+    if not weld_at:
+        fail(f"no weld over the revisit: states "
+             f"{[trk.STATE_NAMES[r.state] for r, _ in results]}, atlas maps {sysm.atlas.n_maps()}")
+    gt_pos = traj[gt_idx, 4:7] - traj[0, 4:7]
+    return sysm, results, weld_at[0], rec, frame_calls, gt_pos
+
+
+def check_weld(cfg, sysm, results, w, rec, frame_calls, gt_pos, device):
+    """Phase 7's hard checks on the unprofiled pass, and its report."""
+    n = len(results)
+    counts = dict(cuda_build.launch_counts)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    states = [trk.STATE_NAMES[r.state] for r, _ in results]
+    ev, (res, n_active_lms) = rec["event"], rec["merge"]
+    acc = [c for c in rec["verify"] if c["accepted"]][-1]
+    s_weld, s12 = float(res.S_w2_w1[7]), float(ev.S12[7])
+    losers = np.unique(res.lm_remap[ev.fusion[0]]).size
+    log(f"weld drive states: {' '.join(states)}")
+    log(f"weld at frame {w}: keyframe {ev.kf_cur} of the new map (frame {rec['frames'][0]}) against "
+        f"keyframe {ev.kf_matched} of the archived map (frame {rec['frames'][1]}); "
+        f"{acc['pairs']} descriptor pairs -> {int(acc['ransac'])} RANSAC inliers -> "
+        f"{int(acc['refined'])} refined; {len(res.appended_kfs)} keyframes and {n_active_lms} "
+        f"landmarks transported, {len(ev.fusion[0])} fusion pairs, {losers} duplicates fused; "
+        f"scale {s_weld}")
+    for c in rec["verify"]:
+        log(f"merge candidate: keyframe {c['kf']} against {c['cand']}: {c['pairs']} pairs, "
+            f"{'accepted' if c['accepted'] else 'rejected'}, merge.verify host {c['ms']:.1f} ms")
+    weld_ms = rec["do_merge_ms"] - rec["lba_ms"]
+    log(f"weld host ms (synchronized): merge.verify {acc['ms']:.1f} (the accepted candidate), "
+        f"merge.weld {weld_ms:.1f}, merge.ba {rec['lba_ms']:.1f}; the weld's frame "
+        f"{results[w][1]:.1f}")
+    if states[w:] != ["OK"] * (n - w):
+        fail(f"frames after the weld are not all OK: {states[w:]}")
+    if rec["n_maps"] != 1 or sysm.atlas.n_maps() != 1:
+        fail(f"{sysm.atlas.n_maps()} atlas maps after the weld, expected 1")
+    if abs(s_weld - 1.0) > 1e-6 or abs(s12 - 1.0) > 1e-6:
+        fail(f"weld scale {s_weld}, S12 scale {s12}: RGB-L fixes the scale at 1")
+    for when in ("faults_before_ba", "faults_after_ba"):
+        if rec[when]:
+            fail(f"check_binding_consistency {when.split('_', 1)[1].replace('_', ' ')}: {rec[when]}")
+    problem, cam, kwargs, before, after = rec["ba"]
+    before, after = float(before), float(after)
+    n_fixed = int((problem.pose_fixed & problem.pose_valid).sum())
+    log(f"weld-window BA: {int(problem.pose_valid.sum())} poses ({n_fixed} fixed) in "
+        f"{problem.poses.shape[0]} slots, {int(problem.lm_valid.sum())} landmarks, "
+        f"{int(problem.obs_mask.sum())} observations, Huber cost {before:.1f} -> {after:.1f}")
+    if not (np.isfinite([before, after]).all() and after < before):
+        fail(f"the weld-window BA did not lower its Huber cost: {before} -> {after}")
+    not_fused = [i for i in range(w + 1, n) if "_accept_fused" not in frame_calls[i]]
+    log(f"frames after the weld that took the classic ladder: {not_fused or 'none'}")
+    if any(i > w + MAX_CLASSIC_AFTER_WELD for i in not_fused):
+        fail(f"frames {not_fused} after the weld left the fused step (at most the "
+             f"{MAX_CLASSIC_AFTER_WELD} right after frame {w} may)")
+    if counts["fast_and_blur"] != n or counts["brief_continuous"] != n:
+        fail(f"weld drive launch counts {counts} over {n} frames; expected 1 K1 and 1 K2 per frame")
+    est = sysm.trajectory()
+    if est.shape != (n, 7) or not np.isfinite(est).all():
+        fail(f"trajectory() gave {est.shape}, expected ({n}, 7) finite poses")
+    ok = ~np.asarray(sysm.tracker.traj_lost)
+    ate = float(align.ate_rmse(gt_pos[ok], est[ok, 4:7]))
+    bound_m = MAX_TRANS_ERR_M * n / N_DRIVE
+    log(f"weld drive: {n} frames, {int(ok.sum())} not lost; ATE after Horn alignment {ate:.3f} m "
+        f"(bound {bound_m:.2f}); max frame error after the weld "
+        f"{np.linalg.norm(est[w:, 4:7] - gt_pos[w:], axis=1).max():.3f} m; "
+        f"{sysm.map.n_kf} keyframes, {int(sysm.map.lm_valid.sum())} landmarks in the welded map; "
+        f"launches {counts}; peak memory {peak_mb:.0f} MiB")
+    if not ate < bound_m:
+        fail(f"ATE of the weld drive {ate:.3f} m >= {bound_m:.2f} m")
+    # the solvers of the weld once more: no wait for the card
+    a, kw = acc["args"]
+    _, enq, ms = timed_without_sync(lambda: sim3_opt.optimize_sim3(*a, **kw), device)
+    log(f"optimize_sim3 of the weld again ({a[1].shape[0]} pairs): enqueued in {enq:.1f} ms, done "
+        f"in {ms:.1f} ms, without a synchronizing call")
+    _, enq, ms = timed_without_sync(lambda: local_ba.bundle_adjust(problem, cam, **kwargs), device)
+    log(f"weld-window bundle_adjust again: enqueued in {enq:.1f} ms, done in {ms:.1f} ms, without "
+        f"a synchronizing call")
+    return (w, ev.kf_cur, ev.kf_matched, acc["pairs"], int(acc["ransac"]), int(acc["refined"]))
+
+
+def phase7(cfg, traj, frames, device):
+    """The weld drive twice: once unprofiled (the checks and the host
+    times), once with the revisit's frames under the profiler (device time
+    and kernels by ``merge.*`` span); both must weld alike."""
+    t0 = time.perf_counter()
+    sysm, results, w, rec, frame_calls, gt_pos = phase7_weld(cfg, traj, frames, device)
+    first = check_weld(cfg, sysm, results, w, rec, frame_calls, gt_pos, device)
+    sysm.shutdown()
+    del sysm
+    log(f"phase 7 weld drive: {time.perf_counter() - t0:.1f} s")
+    prof_ctx, prof_stats = profile_frames("merge.")
+    sysm, results, w, rec, _, _ = phase7_weld(cfg, traj, frames, device, prof_ctx)
+    sysm.shutdown()
+    acc = [c for c in rec["verify"] if c["accepted"]][-1]
+    again = (w, rec["event"].kf_cur, rec["event"].kf_matched, acc["pairs"], int(acc["ransac"]),
+             int(acc["refined"]))
+    log(f"the weld drive again, the revisit under the profiler: weld (frame, keyframes, pairs, "
+        f"RANSAC and refined inliers) {again}, the first pass's {first}: same {again == first}")
+    if prof_stats and prof_stats[-1][1] > 0:
+        busy, n_kernels, by_name, by_span = prof_stats[-1]
+        log(f"the weld's frame under the profiler: device busy {busy:.2f} ms in {n_kernels} kernels")
+        for span in merging.MERGE_SPANS:
+            if span in by_span:
+                host, sbusy, sn = by_span[span]
+                log(f"  span {span:14s} host {host:9.2f} ms  device busy {sbusy:8.3f} ms  kernels {sn}")
+        for name, (ms, n_calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            log(f"  {ms:8.3f} ms {n_calls:6d} calls  {name[:110]}")
+    else:
+        log("profiler: no device events recorded for the weld's frame (not measured)")
+
+
+def recall_at_3(db, m, traj) -> tuple:
+    """Retrieval on a frozen map (tests/test_tree_vocab_e2e.py's measure):
+    the share of keyframes of the revisit stretch whose top 3 candidates
+    more than ``MIN_LOOP_FRAME_GAP`` frames older hold one within 3 m, and
+    the number of such queries."""
+    hits, total = 0, 0
+    live = m.valid_kf_ids()
+    for k in live:
+        fid = int(m.kf_frame_id[k])
+        if not REVISIT_FROM <= fid < len(traj):
+            continue
+        total += 1
+        scores, _ = db.query(db.vectors[k], np.asarray([k], np.int64))
+        elig = np.zeros_like(scores, bool)
+        elig[live] = fid - m.kf_frame_id[live] > MIN_LOOP_FRAME_GAP
+        scores = np.where(elig, scores, 0.0)
+        for c in np.argsort(-scores)[:3]:
+            if scores[c] > 0 and np.linalg.norm(traj[int(m.kf_frame_id[c]), 4:7]
+                                                - traj[fid, 4:7]) < 3.0:
+                hits += 1
+                break
+    return hits / max(total, 1), total
+
+
+def phase8_vocabulary(cfg, loop_sys, traj, frames, device):
+    """The trained tree vocabulary: trained on phase 6's map, its recall@3
+    beside the LSH words' on that frozen map, saved to ``VOCAB_PATH``; one
+    ``bow`` of a frame at KITTI size timed and profiled."""
+    m = loop_sys.map
+    kfs = m.valid_kf_ids()
+    docs = [m.kf_desc[k][m.kf_feat_valid[k]] for k in kfs]
+    t = time.perf_counter()
+    voc = train_vocabulary(np.concatenate(docs), k=VOCAB_K, depth=VOCAB_DEPTH, seed=0,
+                           idf_docs=docs, device=device)
+    train_s = time.perf_counter() - t
+    recall_lsh, n_q = recall_at_3(loop_sys.loop_closer.db, m, traj)
+    db = KeyFrameDatabase(m.capacity_kf, vocabulary=voc, device=device)
+    for k in kfs:
+        db.add(int(k), m.kf_desc[k], m.kf_feat_valid[k])
+    recall_tree, _ = recall_at_3(db, m, traj)
+    log(f"tree vocabulary k={VOCAB_K} depth={VOCAB_DEPTH} ({voc.n_words} words) trained on "
+        f"{sum(len(d) for d in docs)} descriptors of {len(kfs)} keyframes in {train_s:.1f} s; "
+        f"checksum {voc.checksum()}; recall@3 on the frozen map: LSH {recall_lsh:.2f}, tree "
+        f"{recall_tree:.2f} ({n_q} queries)")
+    if n_q < 3:
+        fail(f"{n_q} revisit keyframes to query (< 3)")
+    if recall_tree < MIN_TREE_RECALL or recall_tree < recall_lsh - MAX_RECALL_GAP:
+        fail(f"tree recall@3 {recall_tree:.2f} (LSH {recall_lsh:.2f}): needs >= {MIN_TREE_RECALL} "
+             f"and >= LSH - {MAX_RECALL_GAP}")
+    os.makedirs(os.path.dirname(VOCAB_PATH), exist_ok=True)
+    voc.save(VOCAB_PATH)
+    # one bow of a frame at KITTI size
+    o, cam = cfg.orb, cfg.camera
+    f = frame_mod.extract_features(frames[0][0], cam.height, cam.width, n_features=o.n_features,
+                                   n_levels=o.n_levels, scale_factor=o.scale_factor,
+                                   ini_th=float(o.ini_th_fast), min_th=float(o.min_th_fast),
+                                   device=device)
+    ms = []
+    for _ in range(11):
+        _synchronize(device)
+        t = time.perf_counter()
+        voc.bow(f.desc, f.valid)
+        _synchronize(device)
+        ms.append((time.perf_counter() - t) * 1e3)
+    busy = kernel_device_ms(lambda: voc.bow(f.desc, f.valid), "", iters=5)
+    with _profile() as prof:
+        voc.bow(f.desc, f.valid)
+        torch.cuda.synchronize()
+    n_kernels = sum(1 for e in prof.events() if _on_device(e))
+    log(f"TreeVocabulary.bow of one frame ({f.desc.shape[0]} descriptor slots, "
+        f"{int(f.valid.sum())} valid): host ms synchronized median {statistics.median(ms[1:]):.3f}; "
+        f"device busy {busy:.4f} ms in {n_kernels} kernels")
+    return VOCAB_PATH
+
+
+def phase8_vocab_drive(cfg, traj, frames, path, device):
+    """Phase 6's forced pass once more with ``vocab_path`` set: the database
+    scores with the trained tree vocabulary and must close the loop."""
+    cfg = dataclasses.replace(cfg, vocab_path=path)
+    n = len(frames)
+    _synchronize(device)
+    cuda_build.reset_launch_counts()
+    sysm = System(cfg, device=device)
+    sysm.CLOUD_CAP = frames[0][1].shape[0]
+    t = time.perf_counter()
+    sysm, results = drive(cfg, frames, device, sysm=sysm, kf_every=KF_EVERY)
+    drive_s = time.perf_counter() - t
+    sysm.shutdown()
+    counts = dict(cuda_build.launch_counts)
+    m, closer = sysm.map, sysm.loop_closer
+    states = [trk.STATE_NAMES[r.state] for r, _ in results]
+    events = [(ev.kf_cur, ev.kf_matched, int(m.kf_frame_id[ev.kf_cur]),
+               int(m.kf_frame_id[ev.kf_matched]), ev.n_inliers) for ev in closer.events]
+    est = sysm.trajectory()
+    ate = float(align.ate_rmse(traj[:n, 4:7] - traj[0, 4:7], est[:, 4:7]))
+    bound_m = MAX_TRANS_ERR_M * n / N_DRIVE
+    log(f"vocab_path drive (a keyframe forced every {KF_EVERY}): {n} frames in {drive_s:.1f} s, "
+        f"{m.n_kf} keyframes; loop events (keyframes, frames, inliers) {events}; ATE {ate:.3f} m "
+        f"(bound {bound_m:.2f}); launches {counts}")
+    if closer.db.vocabulary is None:
+        fail("vocab_path did not reach the keyframe database")
+    if any(st != "OK" for st in states):
+        fail(f"vocab_path drive states {states}: every frame must be OK")
+    if not any(fc - fm > MIN_LOOP_FRAME_GAP for _, _, fc, fm, _ in events):
+        fail(f"the vocab_path drive closed no loop over more than {MIN_LOOP_FRAME_GAP} frames: "
+             f"{events}")
+    if counts["fast_and_blur"] != n or counts["brief_continuous"] != n:
+        fail(f"vocab_path drive launch counts {counts} over {n} frames")
+    if not ate < bound_m:
+        fail(f"ATE of the vocab_path drive {ate:.3f} m >= {bound_m:.2f} m")
+
+
 def long_mapping_drive(cfg, device, n_frames: int):
     """``--mapping-drive N``: N frames of the canyon (the far wall stands
     120 m ahead: N ≤ 161), tracking only and then with the mapping plane
@@ -1479,9 +1855,21 @@ def main():
         loop_sys = phase6_loop(loop_cfg, loop_traj, loop_frames, device, KF_EVERY)
     if loop_sys is None:
         fail("no loop was closed over the loop drive")
+    # ---- phase 8, first half: a tree vocabulary trained on that map ----------
+    vocab_path = phase8_vocabulary(loop_cfg, loop_sys, loop_traj, loop_frames, device)
     phase6_relocalization(loop_cfg, loop_sys, loop_frames, device)
     loop_sys.shutdown()
+    del loop_sys
     log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
+
+    # ---- phase 7: the atlas weld ---------------------------------------------
+    phase7(loop_cfg, traj, frames, device)
+    del frames
+    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
+
+    # ---- phase 8, second half: the loop drive with vocab_path set ------------
+    phase8_vocab_drive(loop_cfg, loop_traj, loop_frames, vocab_path, device)
+    log(f"command time: {time.perf_counter() - T_START:.1f} s")
 
     kernels = [
         {"name": "fast_and_blur", "route": "cuda",

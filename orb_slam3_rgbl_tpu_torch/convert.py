@@ -1,8 +1,9 @@
 """Carry configuration and state across from the JAX package.
 
 The system has no weights: what must carry across is its configuration,
-the fused step's inter-frame device state, the host map and the
-tracker's inter-frame scalars. Inputs are plain Python (``dataclasses.
+the fused step's inter-frame device state, the host map, the tracker's
+inter-frame state, the loop closer's, an archived atlas entry with its
+keyframe database, and a trained tree vocabulary. Inputs are plain Python (``dataclasses.
 asdict`` of a JAX ``SlamConfig``, a JAX ``MapState`` read by attribute)
 and numpy arrays, so this module needs nothing of JAX.
 """
@@ -19,6 +20,9 @@ from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
 from orb_slam3_rgbl_tpu_torch.optim.pose_graph import PoseGraphProblem
+from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
+from orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab import TreeVocabulary
+from orb_slam3_rgbl_tpu_torch.slam.atlas import AtlasEntry
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
 from orb_slam3_rgbl_tpu_torch.slam.frame import FrameFeatures
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
@@ -75,6 +79,10 @@ def fast_path_state_from_numpy(fp: FastPath, arrays: dict, device=None) -> FastP
 # Tracker attributes that carry one frame's tracking state to the next
 TRACKER_STATE = ("cur_pose", "last_pose", "velocity", "ref_kf", "last_lm_idx", "last_lm_gen",
                  "frame_id", "last_kf_frame", "last_reloc_frame")
+# ... and those a caller may add: the current frame's bindings, the last
+# frame's features (as numpy by field name) and the trajectory log
+TRACKER_EXTRA_STATE = ("cur_lm_idx", "last_feats", "traj_rel", "traj_ref_kf", "traj_time",
+                       "traj_lost")
 
 
 def map_state_from_numpy(jax_map) -> MapState:
@@ -159,19 +167,55 @@ def loop_closer_state_from_numpy(closer, state: dict):
 
 def tracker_state_from_numpy(tracker, state: dict):
     """Set the ``TRACKER_STATE`` attributes of the port's ``Tracker`` from
-    a JAX tracker's values (numpy arrays, ints or None). Returns
-    ``tracker``."""
+    a JAX tracker's values (numpy arrays, ints or None), and those of
+    ``TRACKER_EXTRA_STATE`` that ``state`` holds (``last_feats`` as numpy
+    by field name, put on the tracker's device). Returns ``tracker``."""
     missing = set(TRACKER_STATE) - set(state)
     if missing:
         raise ValueError(f"missing tracker state: {sorted(missing)}")
-    for name in TRACKER_STATE:
+    for name in TRACKER_STATE + TRACKER_EXTRA_STATE:
+        if name not in state:
+            continue
         v = state[name]
-        if isinstance(v, np.ndarray):
+        if name == "last_feats":
+            v = None if v is None else frame_features_from_numpy(v, tracker.device)
+        elif name.startswith("traj_"):
+            v = [x.copy() if isinstance(x, np.ndarray) else x for x in v]
+        elif isinstance(v, np.ndarray):
             v = v.copy()
         elif v is not None:
             v = int(v)
         setattr(tracker, name, v)
     return tracker
+
+
+def tree_vocabulary_from_numpy(jax_vocab, device=None) -> TreeVocabulary:
+    """A JAX ``TreeVocabulary`` (``k``, uint32 ``levels``, ``idf``, read by
+    attribute) as the port's on ``device`` (default ``cuda``): the same
+    bits, so the same words and the same ``checksum``."""
+    return TreeVocabulary.from_numpy(jax_vocab.k, jax_vocab.levels, jax_vocab.idf, device=device)
+
+
+def atlas_entry_from_numpy(jax_entry, device=None) -> AtlasEntry:
+    """A JAX ``AtlasEntry`` (read by attribute: its map, its keyframe
+    database's ``vectors``, ``present`` and vocabulary, and its trajectory
+    segment) as the port's, the database on ``device`` (default ``cuda``).
+    An entry without a database keeps none."""
+    db = None
+    if jax_entry.db is not None:
+        src = jax_entry.db
+        voc = getattr(src, "vocabulary", None)
+        db = KeyFrameDatabase(
+            src.vectors.shape[0], device=device,
+            vocabulary=None if voc is None else tree_vocabulary_from_numpy(voc, device))
+        db.vectors.copy_(torch.as_tensor(np.asarray(src.vectors, np.float32)))
+        db.present = np.array(src.present, bool)
+    return AtlasEntry(
+        map=map_state_from_numpy(jax_entry.map), db=db,
+        traj_rel=[np.array(t, np.float32) for t in jax_entry.traj_rel],
+        traj_ref_kf=[int(k) for k in jax_entry.traj_ref_kf],
+        traj_time=[float(t) for t in jax_entry.traj_time],
+        traj_lost=[bool(x) for x in jax_entry.traj_lost])
 
 
 def frame_features_from_numpy(arrays: dict, device=None) -> FrameFeatures:

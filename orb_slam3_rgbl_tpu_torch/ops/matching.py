@@ -25,7 +25,7 @@ HISTO_LENGTH = 30  # rotation-consistency histogram bins
 TWO_PI = 2.0 * math.pi
 
 
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
+def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Per-element bit count of int32 words (SWAR, in int64 so the shifts
     see the unsigned bit pattern)."""
     x = x.to(torch.int64) & 0xFFFFFFFF
@@ -39,7 +39,7 @@ def hamming_distance_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(N, 8) × (M, 8) int32 words → (N, M) int32 Hamming distances via
     XOR + popcount (reference path for small tables)."""
     x = a[:, None, :] ^ b[None, :, :]
-    return _popcount32(x).sum(dim=-1).to(torch.int32)
+    return popcount32(x).sum(dim=-1).to(torch.int32)
 
 
 def hamming_distance_pm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

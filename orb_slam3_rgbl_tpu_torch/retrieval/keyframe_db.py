@@ -5,9 +5,12 @@
 
 Selection follows the reference — shared-word gate at 0.8·max, L1 scores
 accumulated over each candidate's top-10 covisible group, best-N groups —
-computed densely over the whole database. The ``(capacity_kf, VOCAB_SIZE)``
-table of signatures lives on the device: ``add`` writes one row in place
-and ``query`` brings back two vectors of ``capacity_kf`` numbers.
+computed densely over the whole database. Signatures come from the LSH
+words of ``retrieval.vocab`` or from a trained ``TreeVocabulary``. The
+``(capacity_kf, n_words)`` table of signatures lives on the device: ``add``
+writes one row in place, ``grow`` extends it by one concatenation (an
+atlas weld), and ``query`` brings back two vectors of ``capacity_kf``
+numbers.
 """
 
 from __future__ import annotations
@@ -24,12 +27,13 @@ from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 
 class KeyFrameDatabase:
     def __init__(self, capacity_kf: int, vocabulary=None, device=None):
-        if vocabulary is not None:
-            raise NotImplementedError(
-                "the trained tree vocabulary is not ported yet (ROADMAP Queue 1 item 13b); "
-                "the database uses the LSH word scheme of retrieval.vocab")
+        """``vocabulary``: a trained :class:`~orb_slam3_rgbl_tpu_torch.
+        retrieval.tree_vocab.TreeVocabulary` on ``device`` (the DBoW2
+        equivalent); the LSH words of ``retrieval.vocab`` without one."""
         self.device = resolve(device)
-        self.vectors = torch.zeros((capacity_kf, vocab.VOCAB_SIZE), dtype=torch.float32,
+        self.vocabulary = vocabulary
+        n_words = vocab.VOCAB_SIZE if vocabulary is None else vocabulary.n_words
+        self.vectors = torch.zeros((capacity_kf, n_words), dtype=torch.float32,
                                    device=self.device)
         self.present = np.zeros(capacity_kf, bool)
 
@@ -40,7 +44,18 @@ class KeyFrameDatabase:
             desc = np.ascontiguousarray(desc).view(np.int32)
         desc = torch.as_tensor(desc, dtype=torch.int32, device=self.device)
         valid = torch.as_tensor(valid, dtype=torch.bool, device=self.device)
+        if self.vocabulary is not None:
+            return self.vocabulary.bow(desc, valid)
         return vocab.bow_vector(desc, valid)
+
+    def grow(self, capacity_kf: int):
+        """Extend the table and ``present`` to ``capacity_kf`` rows (empty
+        rows); a no-op when they are that long already."""
+        extra = capacity_kf - self.vectors.shape[0]
+        if extra <= 0:
+            return
+        self.vectors = torch.cat([self.vectors, self.vectors.new_zeros((extra, self.vectors.shape[1]))])
+        self.present = np.concatenate([self.present, np.zeros(extra, bool)])
 
     def add(self, kf_id: int, desc, valid):
         self.vectors[kf_id] = self._bow(desc, valid)

@@ -19,8 +19,8 @@ from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 @dataclasses.dataclass(eq=False)  # identity equality: fields hold arrays
 class AtlasEntry:
     map: MapState
-    # keyframe database of this map (set by the loop-closing plane, which
-    # is not ported yet; kept for later merge detection)
+    # keyframe database of this map (set by the loop-closing plane; kept
+    # for merge detection and grown by a weld)
     db: object = None
     # trajectory log segments recorded while this map was active
     traj_rel: list = dataclasses.field(default_factory=list)

@@ -101,10 +101,13 @@ class DeviceKfCache:
             getattr(self, f)[:old_cap] = a
         self.cap = cap
 
-    def reset(self):
+    def reset(self, capacity_kf: int):
         """Invalidate after an id remap (atlas merge): entries backfill
-        lazily from the host map on next use."""
+        lazily from the host map on next use. The mirror grows to
+        ``capacity_kf`` rows at once when the welded map has more."""
         self.have.clear()
+        if capacity_kf > self.cap:
+            self._grow(capacity_kf)
 
     def ensure(self, m: MapState, ids):
         """Backfill any keyframes missing from the device mirror (maps

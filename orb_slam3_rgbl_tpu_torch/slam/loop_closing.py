@@ -19,10 +19,14 @@ runs inside a ``torch.profiler.record_function`` span named
 ``loop.<stage>`` (``LOOP_SPANS``), and ``stats`` keeps what each keyframe,
 candidate and event cost and found.
 
-Not ported: the trained tree vocabulary and cross-map merging (ROADMAP
-Queue 1 item 13b), the 4-DoF pose graph of inertial maps (item 15), the
-loop worker and the abortable global-BA thread (item 18). ``prewarm`` has
-no counterpart: it warms XLA's compile tiers.
+With ``cfg.vocab_path`` set the database scores with that trained tree
+vocabulary (``retrieval.tree_vocab``), loaded onto the closer's device; the
+LSH words of ``retrieval.vocab`` otherwise. Cross-map merging lives in
+``slam.merging`` and ``System``.
+
+Not ported: the 4-DoF pose graph of inertial maps (ROADMAP Queue 1 item 15),
+the loop worker and the abortable global-BA thread (item 18). ``prewarm``
+has no counterpart: it warms XLA's compile tiers.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from orb_slam3_rgbl_tpu_torch.ops import matching
 from orb_slam3_rgbl_tpu_torch.optim import global_ba, pose_graph
 from orb_slam3_rgbl_tpu_torch.optim import sim3 as sim3_opt
 from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
+from orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab import TreeVocabulary
 from orb_slam3_rgbl_tpu_torch.slam import ba_assembly
 from orb_slam3_rgbl_tpu_torch.slam.frame import inv_scale_sigma2
 from orb_slam3_rgbl_tpu_torch.slam.local_mapping import DeviceKfCache, _i32_words
@@ -73,10 +78,6 @@ class LoopCloser:
         generator; the draws are uploaded). ``dev_cache``: the mapping
         plane's device mirror of keyframe features, shared when there is
         one; without it the closer keeps its own, backfilled from the map."""
-        if config.vocab_path:
-            raise NotImplementedError(
-                "the trained tree vocabulary (vocab_path) is not ported yet "
-                "(ROADMAP Queue 1 item 13b)")
         self.cfg = config
         self.cam = config.camera
         self.map = map_state
@@ -84,7 +85,10 @@ class LoopCloser:
         self.generator = generator
         self.dev_cache = dev_cache if dev_cache is not None else DeviceKfCache(
             map_state.n_features, device=self.device)
-        self.db = KeyFrameDatabase(map_state.capacity_kf, device=self.device)
+        vocabulary = (TreeVocabulary.load(config.vocab_path, device=self.device)
+                      if config.vocab_path else None)
+        self.db = KeyFrameDatabase(map_state.capacity_kf, vocabulary=vocabulary,
+                                   device=self.device)
         self.fix_scale = config.sensor != 0  # everything but pure mono
         self.last_loop_kf = -9999
         self.events: list = []

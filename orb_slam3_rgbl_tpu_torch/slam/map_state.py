@@ -1,7 +1,8 @@
 """Map state on the host (counterpart of
 ``orb_slam3_rgbl_tpu.slam.map_state`` without its inertial state and
 ``apply_scaled_rotation``, which wait for the inertial slice):
-fixed-capacity numpy struct-of-arrays with validity masks, the (K, N)
+numpy struct-of-arrays whose capacity grows on demand (landmarks double,
+keyframes grow to what an atlas weld needs), with validity masks, the (K, N)
 ``kf_lm_idx`` binding table (landmark id per keyframe feature slot, −1
 unbound) and the ``version`` counter that tells the fast path when to
 refresh its device window. Tracking, keyframe creation, the mapping
@@ -170,6 +171,31 @@ class MapState:
         self.lm_visible = pad(self.lm_visible, 1)
         self.lm_found = pad(self.lm_found, 1)
         self.lm_gen = pad(self.lm_gen)
+
+    def _grow_keyframes(self, capacity: int):
+        """Extend the keyframe arrays to ``capacity`` rows with empty
+        keyframes (identity poses, unknown depths, no bindings), the
+        keyframe half of the JAX package's ``merging._grow_map``."""
+        grow = capacity - self.capacity_kf
+        if grow <= 0:
+            return
+
+        def pad(a, fill=0):
+            return np.concatenate([a, np.full((grow,) + a.shape[1:], fill, a.dtype)])
+
+        self.kf_pose = pad(self.kf_pose)
+        self.kf_pose[-grow:, 0] = 1.0
+        self.kf_valid = pad(self.kf_valid, False)
+        self.kf_timestamp = pad(self.kf_timestamp)
+        self.kf_frame_id = pad(self.kf_frame_id)
+        self.kf_uv = pad(self.kf_uv)
+        self.kf_octave = pad(self.kf_octave)
+        self.kf_desc = pad(self.kf_desc)
+        self.kf_depth = pad(self.kf_depth, -1.0)
+        self.kf_ur = pad(self.kf_ur, -1.0)
+        self.kf_feat_valid = pad(self.kf_feat_valid, False)
+        self.kf_lm_idx = pad(self.kf_lm_idx, INVALID)
+        self.kf_angle = pad(self.kf_angle)
 
     def refresh_free_list(self):
         """Rebuild the recycled-slot stack from validity (after load/merge)."""

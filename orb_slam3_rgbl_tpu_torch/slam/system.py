@@ -10,18 +10,24 @@ frame that created a keyframe: the mapping job of
 local BA, keyframe culling), then ``LoopCloser.on_keyframe`` (the keyframe
 is indexed in the database, loop candidates are detected and verified by
 Sim3, a verified loop is corrected — fusion, essential graph, landmark
-re-anchoring — and a 16-iteration global BA follows). A lost tracker
-relocalizes against the keyframe database. ``track_features`` feeds
-extracted features straight to the ladder.
+re-anchoring — and a 16-iteration global BA follows). A keyframe that
+closed no loop is looked up in the databases of the archived atlas maps;
+a verified match welds the active map into the archived one
+(``slam.merging``, ``_do_merge``: the trajectory, the database, the tracker
+and both planes move to the welded map, and a weld-window local BA
+follows). A lost tracker relocalizes against the keyframe database.
+``cfg.vocab_path`` swaps the database's LSH words for a trained tree
+vocabulary. ``track_features`` feeds extracted features straight to the
+ladder.
 
 With ``enable_mapping=False`` keyframes still mint landmarks from LiDAR
 depth, so a drive tracks over any distance, but nothing is culled or
-refined; with ``loop_closing=False`` there is no database, and
-relocalization fails at once.
+refined; with ``loop_closing=False`` there is no database, so
+relocalization fails at once and no map is ever welded.
 
-The other sensors, the asynchronous workers (``async_mapping = True``), a
-trained vocabulary (``vocab_path``) and the merge of two atlas maps raise
-``NotImplementedError`` naming the ROADMAP Queue 1 item that ports them.
+The other sensors and the asynchronous workers (``async_mapping = True``)
+raise ``NotImplementedError`` naming the ROADMAP Queue 1 item that ports
+them.
 """
 
 from __future__ import annotations
@@ -31,13 +37,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from orb_slam3_rgbl_tpu_torch.config import RGBL, SlamConfig
 from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry import lie
 from orb_slam3_rgbl_tpu_torch.io import trajectory as traj_io
 from orb_slam3_rgbl_tpu_torch.ops import fast as fast_ops
-from orb_slam3_rgbl_tpu_torch.slam import compiled
+from orb_slam3_rgbl_tpu_torch.slam import compiled, merging
 from orb_slam3_rgbl_tpu_torch.slam import tracking as trk
 from orb_slam3_rgbl_tpu_torch.slam.atlas import Atlas
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
@@ -68,10 +75,6 @@ class System:
     CLOUD_CAP = 131072  # fixed LiDAR capacity (KITTI sweeps hold ~120k points)
 
     def __init__(self, config: SlamConfig, enable_mapping: bool = True, device=None):
-        if config.loop_closing and config.vocab_path:
-            raise NotImplementedError(
-                "the trained tree vocabulary (vocab_path) is not ported yet "
-                "(ROADMAP Queue 1 item 13b)")
         if config.inertial:
             raise NotImplementedError(
                 "inertial sensors are not ported yet (ROADMAP Queue 1 item 15)")
@@ -256,13 +259,13 @@ class System:
 
     def _try_merge(self, kf_id: int) -> bool:
         """Cross-map place recognition (reference ``NewDetectCommonRegions``
-        merge branch). With fewer than two maps there is nothing to merge;
-        a keyframe that another map's database recognizes would start the
-        cross-map verification and the weld, which are not ported."""
+        merge branch, LoopClosing.cc:324-533): the keyframe's signature
+        against every archived map's database, the best three gated
+        candidates verified by Sim3; the first verified one is welded."""
         if self.atlas.n_maps() < 2 or self.map.n_kf < 1:
             return False
         qv = self.loop_closer.db.vectors[kf_id]
-        for entry in self.atlas.entries:
+        for ei, entry in enumerate(self.atlas.entries):
             if entry.map is self.map or entry.db is None or entry.map.n_kf < 2:
                 continue
             scores, shared = entry.db.query(qv, np.zeros(0, np.int64))
@@ -270,12 +273,99 @@ class System:
                 continue
             gate = shared >= max(int(0.8 * shared.max()), 1)
             cands = np.argsort(-np.where(gate, scores, 0.0))[:3]
-            if any(gate[c] and scores[c] > 0 for c in cands):
-                raise NotImplementedError(
-                    "merging two atlas maps is not ported yet (ROADMAP Queue 1 item 13b): "
-                    f"keyframe {kf_id} of map {self.map.map_id} is a merge candidate "
-                    f"for map {entry.map.map_id}")
+            for cand in cands:
+                if not gate[cand] or scores[cand] <= 0:
+                    continue
+                with record_function("merge.verify"):
+                    out = merging.verify_cross_map(
+                        self.cfg, self.map, kf_id, entry.map, int(cand), self.loop_closer.fix_scale,
+                        generator=self._loop_rng, device=self.device)
+                if out is None:
+                    continue
+                S12, n_inl, fusion = out
+                self._do_merge(merging.MergeEvent(kf_cur=kf_id, kf_matched=int(cand), entry_idx=ei,
+                                                  n_inliers=n_inl, S12=S12, fusion=fusion))
+                return True
         return False
+
+    def _do_merge(self, ev: merging.MergeEvent):
+        """Weld the active map into the archived map of ``ev`` (reference
+        ``MergeLocal``): transport and append the active map, fuse the
+        verified duplicates, weld the trajectory segments, extend the
+        archived database, rebind the tracker and both planes, drop the
+        active atlas entry, then a local BA around the weld."""
+        entry_old = self.atlas.entries[ev.entry_idx]
+        old = entry_old.map
+        active_map_id = self.map.map_id
+        with record_function("merge.weld"):
+            S_w2_w1 = merging.world_alignment(ev.S12, self.map.kf_pose[ev.kf_cur],
+                                              old.kf_pose[ev.kf_matched])
+            res = merging.merge_maps(old, self.map, ev.kf_cur, S_w2_w1)
+            # fuse the verified duplicates (active-side ids → merged ids first)
+            fuse_remap = merging.apply_fusion(res.map, res.lm_remap[ev.fusion[0]], ev.fusion[1])
+            lm_map = np.where(res.lm_remap >= 0, fuse_remap[np.clip(res.lm_remap, 0, None)],
+                              -1).astype(np.int32)
+
+            # the active trajectory segment joins the archived one, relative
+            # translations in merged-map units
+            self.atlas.archive_trajectory(self.tracker)
+            active_entry = self.atlas.entries[self.atlas.active_idx]
+            s = float(S_w2_w1[7])
+            for Tcr, rk, t, lost in zip(active_entry.traj_rel, active_entry.traj_ref_kf,
+                                        active_entry.traj_time, active_entry.traj_lost):
+                Tcr2 = np.asarray(Tcr, np.float32).copy()
+                Tcr2[4:7] *= s
+                entry_old.traj_rel.append(Tcr2)
+                entry_old.traj_ref_kf.append(int(res.kf_remap[rk]))
+                entry_old.traj_time.append(t)
+                entry_old.traj_lost.append(lost)
+
+            # the archived database grows to the welded map and indexes the
+            # transported keyframes
+            db = entry_old.db
+            db.grow(res.map.capacity_kf)
+            for k in res.appended_kfs:
+                db.add(int(k), res.map.kf_desc[k], res.map.kf_feat_valid[k])
+
+        # rebind the tracker and both planes to the welded map
+        self.map = res.map
+        self.tracker.rebind_after_merge(res.map, res.kf_remap, lm_map, S_w2_w1)
+        self.tracker.traj_rel = list(entry_old.traj_rel)
+        self.tracker.traj_ref_kf = list(entry_old.traj_ref_kf)
+        self.tracker.traj_time = list(entry_old.traj_time)
+        self.tracker.traj_lost = list(entry_old.traj_lost)
+        self.tracker.kf_db = db
+        if self.mapper is not None:
+            self.mapper.map = res.map
+            # the JAX package remaps the creation count of each batch as if
+            # it were a keyframe id; carried as it is
+            self.mapper.recent_lm = [
+                (lm_map[np.clip(ids, 0, None)][lm_map[np.clip(ids, 0, None)] >= 0],
+                 int(res.kf_remap[k]) if k < len(res.kf_remap) and res.kf_remap[k] >= 0
+                 else res.map.n_kf - 1)
+                for ids, k in self.mapper.recent_lm]
+        self.loop_closer.map = res.map
+        self.loop_closer.db = db
+        # merged ids invalidate the device mirror of keyframe features (the
+        # mapper's, which the closer shares, or the closer's own)
+        self.loop_closer.dev_cache.reset(res.map.capacity_kf)
+        # no re-detection right around the weld
+        self.loop_closer.last_loop_kf = res.kf_cur_new
+        # the weld constraint joins every later essential graph
+        # (reference KeyFrame::AddMergeEdge)
+        self.loop_closer.extra_edges.append(
+            (int(res.kf_cur_new), int(ev.kf_matched), np.asarray(ev.S12, np.float32), 10.0))
+        self.loop_closer._consistent_groups = []
+        self.atlas.entries.remove(active_entry)
+        self.atlas.active_idx = self.atlas.entries.index(entry_old)
+
+        # weld-window bundle adjustment (LoopClosing.cc:1623-1627)
+        if self.mapper is not None:
+            with record_function("merge.ba"):
+                res.map.update_landmark_stats(np.array([res.kf_cur_new]))
+                self.mapper.local_bundle_adjustment(res.kf_cur_new)
+        log.info("merge: welded map %d into map %d (%d keyframes transported, scale %.4f)",
+                 active_map_id, old.map_id, len(res.appended_kfs), s)
 
     def _dispatch_mapping(self, kf_id: int):
         self._mapping_job(kf_id)

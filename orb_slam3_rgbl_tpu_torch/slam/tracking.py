@@ -818,6 +818,50 @@ class Tracker:
             m.lm_found[found_ids[m.lm_gen[found_ids] == found_gen]] += 1
         self._stat_buffer.clear()
 
+    # ------------------------------------------------------------------
+    def rebind_after_merge(self, new_map: MapState, kf_remap: np.ndarray, lm_map: np.ndarray,
+                           S_w2_w1: np.ndarray):
+        """Re-express the tracker's state in the welded map's frame and ids
+        after an atlas weld (the reference's ``MergeLocal`` updates the
+        current frame and the tracker's last-frame pointers the same way,
+        ``LoopClosing.cc:1383-1401``). The fused step's device window
+        re-syncs on its own: it keys on the map object."""
+        self.map = new_map
+        S_w1_w2 = lie.np_sim3_inv(np.asarray(S_w2_w1, np.float32))
+        s = float(S_w2_w1[7])
+
+        def transport(T):
+            return lie.np_sim3_to_se3(lie.np_sim3_mul(lie.np_sim3_from_se3(T), S_w1_w2))
+
+        self.cur_pose = transport(self.cur_pose)
+        if self.last_pose is not None:
+            self.last_pose = transport(self.last_pose)
+        if self.velocity is not None:
+            # a relative pose: the rotation stays, the translation rescales
+            # (merged-map units are s× active-map units)
+            v = self.velocity.copy()
+            v[4:7] *= s
+            self.velocity = v
+
+        def remap_lms(idx):
+            if idx is None:
+                return None
+            return np.where(idx >= 0, lm_map[np.clip(idx, 0, None)], -1).astype(np.int32)
+
+        self.last_lm_idx = remap_lms(self.last_lm_idx)
+        if self.last_lm_idx is not None:
+            self.last_lm_gen = new_map.lm_gen[np.clip(self.last_lm_idx, 0, None)].copy()
+        self.cur_lm_idx = remap_lms(self.cur_lm_idx)
+        self._stat_buffer.clear()        # pre-weld ids are void
+        self._ref_tracked_cache = None   # keyed on the old map's version
+        if self.ref_kf >= 0:
+            self.ref_kf = int(kf_remap[self.ref_kf])
+        # metric depth of the last frame rescales with the weld, on its device
+        if self.last_feats is not None and s != 1.0:
+            d = self.last_feats.depth
+            self.last_feats = self.last_feats._replace(depth=torch.where(d > 0, d * s, d))
+        self.th_depth_m = self.cam.bf * self.cam.th_depth / self.cam.fx
+
     def trajectory_world(self) -> np.ndarray:
         """The per-frame relative log resolved into world-frame camera
         poses Twc (F, 7) against the current keyframe poses."""

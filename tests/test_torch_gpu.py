@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2 and K3 against their plain versions, and the loop-closing
-plane's solvers against their CPU runs, on the card. Marked
+"""The CUDA kernels K1, K2 and K3 against their plain versions, the loop-closing
+plane's solvers, the atlas weld and the tree vocabulary against their CPU runs,
+on the card. Marked
 ``gpu``; without a card each test skips from its fixture.
 
 The machine with the card has no JAX, so run this file without the
@@ -386,3 +387,116 @@ def test_keyframe_database_lives_on_the_card(cuda):
     np.testing.assert_array_equal(
         db_g.detect_relocalization_candidates(desc[3], valid, 5),
         db_c.detect_relocalization_candidates(desc[3], valid, 5))
+
+
+def _weld_scene(n=300):
+    """An archived map and an active map that hold the same ``n`` landmarks
+    in two world frames a rigid transform apart, each with one keyframe at
+    the same camera; the transform (archived ← active)."""
+    from orb_slam3_rgbl_tpu_torch.config import kitti_rgbl_config
+    from orb_slam3_rgbl_tpu_torch.geometry import lie
+    from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
+    cfg = kitti_rgbl_config()
+    cam = cfg.camera
+    rng = np.random.default_rng(3)
+    X_w2 = np.stack([rng.uniform(-10, 10, n), rng.uniform(-3, 3, n), rng.uniform(8, 40, n)],
+                    1).astype(np.float32)
+    desc = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    a = 0.4
+    S_w2_w1 = np.array([np.cos(a / 2), 0, np.sin(a / 2), 0, 1.5, 0.2, -3.0, 1.0], np.float32)
+    X_w1 = lie.np_sim3_apply(lie.np_sim3_inv(S_w2_w1), X_w2).astype(np.float32)
+    T_c_w2 = lie.np_se3_identity()
+    T_c_w1 = lie.np_sim3_to_se3(lie.np_sim3_mul(lie.np_sim3_from_se3(T_c_w2), S_w2_w1))
+
+    def keyframe(m, T, X):
+        pc = lie.np_se3_apply(T, X)
+        uv = np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                       cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], 1).astype(np.float32)
+        k = m.add_keyframe(T, uv, np.zeros(n, np.int16), desc, pc[:, 2].astype(np.float32),
+                           (uv[:, 0] - cam.bf / pc[:, 2]).astype(np.float32), np.ones(n, bool),
+                           np.full(n, -1, np.int32), 0.0, 0)
+        m.add_landmarks(X, desc, k, np.arange(n), np.tile([0, 0, 1.0], (n, 1)).astype(np.float32),
+                        np.full(n, 80.0, np.float32), np.full(n, 1.0, np.float32))
+        return m
+
+    old = keyframe(MapState.create(2, 512, n), T_c_w2, X_w2)
+    active = keyframe(MapState.create(2, 512, n, map_id=1), T_c_w1, X_w1)
+    return cfg, old, active, S_w2_w1
+
+
+def test_weld_on_device_backed_state(cuda):
+    """``verify_cross_map`` on the card and on the CPU from the same draws,
+    then the weld: the archived map grows, the database on the card grows
+    and indexes the transported keyframe, the mapping plane's device mirror
+    grows on ``reset`` and backfills the welded rows."""
+    import copy
+    from orb_slam3_rgbl_tpu_torch.geometry import lie
+    from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
+    from orb_slam3_rgbl_tpu_torch.slam import map_state as ms, merging
+    from orb_slam3_rgbl_tpu_torch.slam.local_mapping import DeviceKfCache
+    cfg, old, active, S_true = _weld_scene()
+    draws = torch.randint(0, 300, (512, 3), generator=torch.Generator().manual_seed(0))
+    out_c = merging.verify_cross_map(cfg, active, 0, old, 0, True, draws=draws, device="cpu")
+    out_g = merging.verify_cross_map(cfg, active, 0, old, 0, True, draws=draws.to(cuda),
+                                     device=cuda)
+    (S_c, n_c, (a_c, b_c)), (S_g, n_g, (a_g, b_g)) = out_c, out_g
+    assert n_g == n_c >= 290 and (S_g[7], S_c[7]) == (1.0, 1.0)
+    np.testing.assert_allclose(S_g, S_c, atol=1e-4)
+    np.testing.assert_array_equal(a_g, a_c)
+    np.testing.assert_array_equal(b_g, b_c)
+    S_w2_w1 = merging.world_alignment(S_g, active.kf_pose[0], old.kf_pose[0])
+    np.testing.assert_allclose(lie.np_sim3_apply(S_w2_w1, np.eye(3, dtype=np.float32)),
+                               lie.np_sim3_apply(S_true, np.eye(3, dtype=np.float32)), atol=1e-3)
+    db_g, db_c = KeyFrameDatabase(1, device=cuda), KeyFrameDatabase(1, device="cpu")
+    for db in (db_g, db_c):
+        db.add(0, old.kf_desc[0], old.kf_feat_valid[0])
+    cache = DeviceKfCache(old.n_features, cap=1, device=cuda)
+    cache.ensure(old, [0])
+    old_c = copy.deepcopy({f: getattr(old, f) for f in ("kf_lm_idx", "lm_pos")})
+    res = merging.merge_maps(old, active, 0, S_w2_w1)
+    fuse = merging.apply_fusion(res.map, res.lm_remap[a_g], b_g)
+    assert res.map.capacity_kf == 2 and res.map.n_kf == 2 and res.kf_cur_new == 1
+    np.testing.assert_array_equal(res.map.kf_lm_idx[0], old_c["kf_lm_idx"][0])
+    assert (res.map.kf_lm_idx[1] == res.map.kf_lm_idx[0]).mean() >= 290 / 300
+    assert not res.map.lm_valid[res.lm_remap[a_g]].any() and (fuse[res.lm_remap[a_g]] == b_g).all()
+    assert ms.check_binding_consistency(res.map) == []
+    np.testing.assert_allclose(res.map.kf_pose[1, 4:7], old.kf_pose[0, 4:7], atol=1e-3)
+    for db in (db_g, db_c):
+        db.grow(res.map.capacity_kf)
+        for k in res.appended_kfs:
+            db.add(int(k), res.map.kf_desc[k], res.map.kf_feat_valid[k])
+    assert db_g.vectors.device.type == "cuda" and db_g.vectors.shape[0] == 2
+    assert torch.equal(db_g.vectors.cpu(), db_c.vectors) and db_g.present.all()
+    s_g, _ = db_g.query(db_g.vectors[1], np.array([1]))
+    assert s_g[0] > 0.999                        # the same place, the same words
+    cache.reset(res.map.capacity_kf)
+    assert cache.cap >= 2 and not cache.have and cache.d_uv.device.type == "cuda"
+    cache.ensure(res.map, res.map.valid_kf_ids())
+    np.testing.assert_array_equal(cache.d_uv[1].cpu().numpy(), res.map.kf_uv[1])
+    np.testing.assert_array_equal(cache.d_desc[1].cpu().numpy().view(np.uint32), res.map.kf_desc[1])
+
+
+def test_tree_vocabulary_on_the_card(cuda):
+    """``words`` exact and ``bow`` within 1e-6 of the CPU's; a database
+    with the vocabulary grows on the card."""
+    from orb_slam3_rgbl_tpu_torch.retrieval import tree_vocab
+    from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
+    rng = np.random.default_rng(2)
+    train = rng.integers(0, 2 ** 32, (3000, 8), dtype=np.uint32)
+    docs = [train[i::4] for i in range(4)]
+    voc_c = tree_vocab.train_vocabulary(train, k=8, depth=3, seed=0, idf_docs=docs, device="cpu")
+    voc_g = tree_vocab.train_vocabulary(train, k=8, depth=3, seed=0, idf_docs=docs)
+    assert voc_g.device.type == "cuda" and voc_g.checksum() == voc_c.checksum()
+    assert torch.equal(voc_g.idf.cpu(), voc_c.idf)
+    desc = torch.from_numpy(rng.integers(0, 2 ** 32, (2000, 8), dtype=np.uint32).view(np.int32))
+    valid = torch.from_numpy(rng.random(2000) < 0.9)
+    d_g, v_g = desc.to(cuda), valid.to(cuda)
+    w_g = _no_sync(lambda: voc_g.words(d_g))
+    assert torch.equal(w_g.cpu(), voc_c.words(desc))
+    b_g = _no_sync(lambda: voc_g.bow(d_g, v_g))
+    assert (b_g.cpu() - voc_c.bow(desc, valid)).abs().max() <= 1e-6
+    db = KeyFrameDatabase(2, vocabulary=voc_g)
+    db.add(1, desc.numpy(), valid.numpy())
+    db.grow(5)
+    assert db.vectors.shape == (5, 512) and db.vectors.device.type == "cuda"
+    assert torch.equal(db.vectors[1], b_g) and db.present.tolist() == [False, True] + [False] * 3

@@ -32,6 +32,8 @@ PORT_MODULES = [
     "orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db", "orb_slam3_rgbl_tpu_torch.optim.sim3",
     "orb_slam3_rgbl_tpu_torch.optim.pnp", "orb_slam3_rgbl_tpu_torch.optim.pose_graph",
     "orb_slam3_rgbl_tpu_torch.optim.global_ba", "orb_slam3_rgbl_tpu_torch.slam.loop_closing",
+    "orb_slam3_rgbl_tpu_torch.geometry.align", "orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab",
+    "orb_slam3_rgbl_tpu_torch.slam.merging",
     "chip_smoke",
 ]
 
@@ -107,9 +109,13 @@ def test_device_none_never_answers_on_the_cpu():
     Each such function either resolves it (so on a host without a card the
     call raises, and with one the result lies on it) or, where it takes an
     object that already lives on a device, follows that object."""
+    import types
+
     import numpy as np
     from orb_slam3_rgbl_tpu_torch import convert, device, synthetic
     from orb_slam3_rgbl_tpu_torch.geometry import camera, lie
+    from orb_slam3_rgbl_tpu_torch.retrieval import tree_vocab, vocab
+    from orb_slam3_rgbl_tpu_torch.slam import merging
     from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
     from orb_slam3_rgbl_tpu_torch.slam import ba_assembly, compiled, frame
     from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
@@ -131,6 +137,13 @@ def test_device_none_never_answers_on_the_cpu():
     pg = {name: np.zeros((2, 8) if name in ("nodes", "edge_Sij") else (2,))
           for name in PoseGraphProblem._fields}
     small_map = MapState.create(2, 8, 4)
+    descs = np.arange(32, dtype=np.uint32).reshape(4, 8)
+    jax_vocab = types.SimpleNamespace(k=2, levels=[np.zeros((2, 8), np.uint32)],
+                                      idf=np.ones(2, np.float32))
+    jax_entry = types.SimpleNamespace(
+        map=small_map, traj_rel=[], traj_ref_kf=[], traj_time=[], traj_lost=[],
+        db=types.SimpleNamespace(vectors=np.zeros((2, vocab.VOCAB_SIZE), np.float32),
+                                 present=np.zeros(2, bool), vocabulary=None))
     pre = "orb_slam3_rgbl_tpu_torch."
     calls = {
         pre + "device.resolve": lambda: device.resolve(),
@@ -163,6 +176,14 @@ def test_device_none_never_answers_on_the_cpu():
             lambda: KeyFrameDatabase(4).vectors,
         pre + "slam.loop_closing.LoopCloser.__init__":
             lambda: LoopCloser(cfg, small_map).db.vectors,
+        pre + "retrieval.tree_vocab.train_vocabulary":
+            lambda: tree_vocab.train_vocabulary(descs, k=2, depth=1).idf,
+        pre + "slam.merging.verify_cross_map":
+            lambda: merging.verify_cross_map(cfg, small_map, 0, small_map, 0, True),
+        pre + "convert.tree_vocabulary_from_numpy":
+            lambda: convert.tree_vocabulary_from_numpy(jax_vocab).idf,
+        pre + "convert.atlas_entry_from_numpy":
+            lambda: convert.atlas_entry_from_numpy(jax_entry).db.vectors,
     }
     # follows the FastPath it is given: covered by tests/test_torch_step.py
     follows_an_object = {pre + "convert.fast_path_state_from_numpy"}
@@ -174,6 +195,8 @@ def test_device_none_never_answers_on_the_cpu():
     assert lie.sim3_identity(device="cpu").device.type == "cpu"
     assert KeyFrameDatabase(4, device="cpu").vectors.device.type == "cpu"
     assert LoopCloser(cfg, small_map, device="cpu").db.vectors.device.type == "cpu"
+    assert tree_vocab.train_vocabulary(descs, k=2, depth=1, device="cpu").idf.device.type == "cpu"
+    assert convert.atlas_entry_from_numpy(jax_entry, device="cpu").db.vectors.device.type == "cpu"
     for name, call in calls.items():
         if torch.cuda.is_available():
             out = call()

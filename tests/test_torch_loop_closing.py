@@ -36,6 +36,7 @@ from orb_slam3_rgbl_tpu.slam import loop_closing as j_lc
 from orb_slam3_rgbl_tpu.slam.system import System as JSystem
 from orb_slam3_rgbl_tpu_torch import convert
 from orb_slam3_rgbl_tpu_torch.geometry import lie as t_lie
+from orb_slam3_rgbl_tpu_torch.retrieval import tree_vocab as t_tv
 from orb_slam3_rgbl_tpu_torch.slam import loop_closing as t_lc
 from orb_slam3_rgbl_tpu_torch.slam import map_state as t_ms
 
@@ -285,11 +286,15 @@ def test_apply_gba_rejects_a_diverged_result(corrected):
     assert tc._apply_gba((window, lm_ids, nan, pose_before, gen_before)) is False
 
 
-def test_closer_refuses_unported_branches(state):
+def test_closer_refuses_unported_branches(state, tmp_path):
     js, tcfg = state[0], state[5]
     tm = convert.map_state_from_numpy(js.map)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        t_lc.LoopCloser(dataclasses.replace(tcfg, vocab_path="vocab.npz"), tm, device="cpu")
+    # vocab_path is ported: the closer's database scores with the tree vocabulary
+    path = str(tmp_path / "vocab.npz")
+    t_tv.train_vocabulary(tm.kf_desc[0][tm.kf_feat_valid[0]], k=4, depth=2,
+                          device="cpu").save(path)
+    closer = t_lc.LoopCloser(dataclasses.replace(tcfg, vocab_path=path), tm, device="cpu")
+    assert closer.db.vocabulary is not None and closer.db.vectors.shape == (tm.capacity_kf, 16)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             t_lc.LoopCloser(tcfg, tm)

@@ -19,6 +19,7 @@ from orb_slam3_rgbl_tpu.retrieval import vocab as j_vocab
 from orb_slam3_rgbl_tpu_torch import convert
 from orb_slam3_rgbl_tpu_torch.retrieval import vocab as t_vocab
 from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
+from orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab import train_vocabulary
 
 from test_torch_loop_closing import (feats_to_port, jax_state_before_loop, loop_drive_features,
                                      port_closer)
@@ -109,8 +110,9 @@ def test_database_add_query_erase_match_jax(jax_map):
     jdb_present[5] = False
     np.testing.assert_array_equal(db.present, jdb_present)
     assert db.query(db.vectors[5], exclude)[0][5] == 0
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        KeyFrameDatabase(4, vocabulary=object(), device="cpu")
+    # a trained tree vocabulary sets the table's width (tests/test_torch_tree_vocab.py)
+    voc = train_vocabulary(jm.kf_desc[0][jm.kf_feat_valid[0]], k=4, depth=2, device="cpu")
+    assert KeyFrameDatabase(4, vocabulary=voc, device="cpu").vectors.shape == (4, 16)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             KeyFrameDatabase(4)

@@ -144,7 +144,7 @@ def test_classic_only_drive_matches_jax():
 
 @pytest.mark.parametrize("change, item", [
     (dict(sensor=2), "items 14 and 17"),                   # RGBD
-    (dict(loop_closing=True, vocab_path="orb_vocab.npz"), "item 13b"),   # the tree vocabulary
+    (dict(sensor=1), "items 14 and 17"),                   # STEREO
     (dict(sensor=0), "items 14 and 17"),                   # MONOCULAR
     (dict(sensor=5), "item 15"),                           # IMU_RGBD
     (dict(distorted=True), "item 17"),
@@ -160,8 +160,8 @@ def test_system_refuses_unported_configurations(change, item):
     for enable_mapping in (True, False):
         with pytest.raises(NotImplementedError, match=item):
             TSystem(cfg, enable_mapping=enable_mapping, device="cpu")
-    # loop closing itself is ported: the default configuration constructs (the merge of
-    # a second atlas map raises where it would start, tests/test_torch_system_loop.py)
+    # loop closing, the atlas weld and the tree vocabulary are ported: the default
+    # configuration constructs (tests/test_torch_merge.py, tests/test_torch_tree_vocab.py)
     default = t_syn.synthetic_rgbl_config()
     assert default.loop_closing and not default.vocab_path
     assert TSystem(default, device="cpu").loop_closer is None     # built on the first frame

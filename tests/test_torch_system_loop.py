@@ -170,24 +170,34 @@ def test_plane_wiring_and_resets(drive):
 
 def test_a_merge_candidate_in_a_second_map_raises(drive):
     """With two atlas maps, a keyframe that the other map's database
-    recognizes would start cross-map verification: not ported, and never
-    skipped silently."""
+    recognizes starts the cross-map verification, which no longer raises:
+    the new map's first keyframe sees exactly what the old map's first
+    keyframe saw, so it is verified and welded into the old map (the weld
+    against the JAX package: tests/test_torch_merge.py)."""
     _, ts, _, _ = drive
     _, feats, _ = loop_drive_features(2)
     sysm = TSystem(ts.cfg, device="cpu")
     sysm.track_features(feats_to_port(feats[0]), 0.0)
     sysm.track_features(feats_to_port(feats[1]), 0.1)
     assert sysm._try_merge(0) is False                     # one map: nothing to merge
-    old_db = sysm.loop_closer.db
+    old_db, old_map = sysm.loop_closer.db, sysm.map
     assert old_db.present[0]
     sysm.map.n_kf = max(sysm.map.n_kf, 2)                  # an archived map worth keeping
     sysm._create_map_in_atlas()
     assert sysm.atlas.n_maps() == 2 and sysm.loop_closer.db is not old_db
     assert sysm.atlas.entries[0].db is old_db
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        # the new map's first keyframe sees what the old map's first keyframe
-        # saw (a frame needs over 500 points with depth to start a map)
-        sysm.track_features(feats_to_port(feats[0]), 0.2)
+    # the new map's first keyframe sees what the old map's first keyframe saw
+    # (a frame needs over 500 points with depth to start a map)
+    r = sysm.track_features(feats_to_port(feats[0]), 0.2)
+    assert r.state == t_trk.OK and r.created_kf
+    assert sysm.atlas.n_maps() == 1 and sysm.map is old_map and sysm.atlas.entries[0].map is old_map
+    assert sysm.loop_closer.db is old_db and sysm.tracker.kf_db is old_db
+    welded = old_map.n_kf - 1
+    assert old_db.present[welded] and sysm.tracker.ref_kf == welded
+    assert sysm.loop_closer.extra_edges[-1][:2] == (welded, 0)
+    np.testing.assert_allclose(old_map.kf_pose[welded], old_map.kf_pose[0], atol=1e-4)
+    assert t_ms.check_binding_consistency(old_map) == []
+    assert len(sysm.trajectory()) == 3
 
 
 def test_box_world_and_loop_trajectories_match_jax():
