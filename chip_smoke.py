@@ -95,6 +95,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -105,7 +106,8 @@ from orb_slam3_rgbl_tpu_torch import cuda_build
 from orb_slam3_rgbl_tpu_torch import synthetic as syn
 from orb_slam3_rgbl_tpu_torch.config import kitti_rgbl_config
 from orb_slam3_rgbl_tpu_torch.geometry import align, lie
-from orb_slam3_rgbl_tpu_torch.ops import brief_cuda, fast as fast_ops, frontend_cuda
+from orb_slam3_rgbl_tpu_torch.ops import brief_cuda, depth as depth_ops, fast as fast_ops
+from orb_slam3_rgbl_tpu_torch.ops import frontend_cuda
 from orb_slam3_rgbl_tpu_torch.ops import orb as orb_ops, pyramid as pyr_ops
 from orb_slam3_rgbl_tpu_torch.optim import local_ba, pose_graph
 from orb_slam3_rgbl_tpu_torch.optim import sim3 as sim3_opt
@@ -113,6 +115,7 @@ from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
 from orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab import train_vocabulary
 from orb_slam3_rgbl_tpu_torch.slam import frame as frame_mod, tracking as trk
 from orb_slam3_rgbl_tpu_torch.slam import map_state as map_mod, merging
+from orb_slam3_rgbl_tpu_torch.slam.compiled import lidar_projection
 from orb_slam3_rgbl_tpu_torch.slam.local_mapping import MAP_SPANS, LocalMapper
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
 from orb_slam3_rgbl_tpu_torch.slam.loop_closing import LOOP_SPANS, LoopCloser
@@ -355,7 +358,8 @@ def drive(cfg, frames, device, sysm=None, t0: int = 0, on_frame=None,
             t0_host = time.perf_counter()
             res = sysm.track_rgbl(img, pts, (t0 + i) * 0.1, cloud_mask=mask)
             if device.type == "cuda":
-                torch.cuda.synchronize()
+                # the tracking thread's stream: worker streams run on
+                torch.cuda.current_stream(device).synchronize()
             ms = (time.perf_counter() - t0_host) * 1e3
         if t0 + i == 0:
             sysm.tracker.force_kf_every = kf_every
@@ -1035,7 +1039,8 @@ def log_loop_spans(what: str, stat):
 
 def phase6_loop(cfg, traj, frames, device, kf_every: int):
     """The loop drive with nothing switched off. Returns the System after
-    the drive, or None if no loop was closed (the caller may try again with
+    the drive and the drive's record (per-frame results, the event's frame,
+    wall time), or None if no loop was closed (the caller may try again with
     forced keyframes)."""
     policy = "the natural keyframe policy" if kf_every == 0 else f"a keyframe forced every {kf_every}"
     n = len(frames)
@@ -1191,7 +1196,9 @@ def phase6_loop(cfg, traj, frames, device, kf_every: int):
         f"{c['kf_culled']} keyframes culled; max trans err after the loop "
         f"{errs[fired + 1:].max():.3f} m (bound {bound_m:.2f}); launches {counts}; "
         f"FastPath.sync refreshes {len(sync_ms)}; peak memory {peak_mb:.0f} MiB")
-    return sysm
+    detect_ms = dict(rec["detect"])[ev.kf_cur]
+    return sysm, {"results": results, "fired": fired, "drive_s": drive_s, "peak_mb": peak_mb,
+                  "kf_every": kf_every, "event_ms": (detect_ms, rec["apply_ms"])}
 
 
 def phase6_relocalization(cfg, sysm, frames, device):
@@ -1600,6 +1607,261 @@ def phase8_vocab_drive(cfg, traj, frames, path, device):
         fail(f"ATE of the vocab_path drive {ate:.3f} m >= {bound_m:.2f} m")
 
 
+def _median_p90(ms) -> str:
+    if not ms:
+        return "no frames"
+    p90 = statistics.quantiles(ms, n=10)[-1] if len(ms) > 1 else ms[0]
+    return f"{len(ms)} frames, median {statistics.median(ms):.2f} p90 {p90:.2f}"
+
+
+def phase9_async(cfg, traj, frames, device, sync_run):
+    """Phase 6's forced pass again with ``async_mapping = True``: the
+    mapping, loop and GBA workers on their threads and CUDA streams. Hard
+    checks, then per-kind host ms beside the synchronous pass's on the same
+    frames (``sync_run``, phase 6's record in this call)."""
+    n = len(frames)
+    kf_every = sync_run["kf_every"] or KF_EVERY
+    tracker_stream = torch.cuda.current_stream(device)
+    now = {"frame": -1}
+    spans = {"mapping": [], "loop": [], "gba": []}     # (thread, stream, t0, t1)
+    marks = {"detected": [], "applied": [], "gba_landed": []}
+    frame_span = {}
+    orig = {"job": System._mapping_job, "detect": LoopCloser.detect_only,
+            "iterate": LoopCloser._gba_iterate, "apply": LoopCloser.apply_event,
+            "apply_gba": LoopCloser._apply_gba}
+
+    def timed(plane, fn, on_out=None):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            spans[plane].append((threading.current_thread().name,
+                                 torch.cuda.current_stream(device), t0, time.perf_counter()))
+            if on_out is not None:
+                on_out(out)
+            return out
+        return wrapper
+
+    def job(self, kf_id, defer_merge):
+        return timed("mapping", orig["job"])(self, kf_id, defer_merge)
+
+    def apply_event(self, ev):
+        t0 = time.perf_counter()
+        out = orig["apply"](self, ev)
+        marks["applied"].append((now["frame"], threading.current_thread().name,
+                                 round((time.perf_counter() - t0) * 1e3, 1)))
+        return out
+
+    def apply_gba(self, out):
+        ok = orig["apply_gba"](self, out)
+        marks["gba_landed"].append((now["frame"], threading.current_thread().name, ok))
+        return ok
+
+    @contextlib.contextmanager
+    def on_frame(i):
+        now["frame"] = i
+        t0 = time.perf_counter()
+        yield
+        frame_span[i] = (t0, time.perf_counter())
+
+    _synchronize(device)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    sysm = System(cfg, device=device)
+    sysm.CLOUD_CAP = frames[0][1].shape[0]
+    sysm.async_mapping = True
+    System._mapping_job = job
+    LoopCloser.detect_only = timed("loop", orig["detect"], lambda ev: ev is not None and marks[
+        "detected"].append((now["frame"], round((spans["loop"][-1][3] - spans["loop"][-1][2])
+                                                * 1e3, 1))))
+    LoopCloser._gba_iterate = timed("gba", orig["iterate"])
+    LoopCloser.apply_event, LoopCloser._apply_gba = apply_event, apply_gba
+    try:
+        t_drive = time.perf_counter()
+        sysm, results = drive(cfg, frames, device, sysm=sysm, on_frame=on_frame,
+                              kf_every=kf_every)
+        drive_s = time.perf_counter() - t_drive
+        now["frame"] = "shutdown"
+        t_shut = time.perf_counter()
+        sysm.shutdown()
+        shutdown_ms = (time.perf_counter() - t_shut) * 1e3
+    finally:
+        System._mapping_job = orig["job"]
+        LoopCloser.detect_only, LoopCloser._gba_iterate = orig["detect"], orig["iterate"]
+        LoopCloser.apply_event, LoopCloser._apply_gba = orig["apply"], orig["apply_gba"]
+    counts = dict(cuda_build.launch_counts)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    m, closer = sysm.map, sysm.loop_closer
+    states = [r.state for r, _ in results]
+    kf = [r.created_kf for r, _ in results]
+    log(f"async loop drive (a keyframe forced every {kf_every}): {n} frames in {drive_s:.1f} s "
+        f"(+ {shutdown_ms:.0f} ms of shutdown), keyframe frames "
+        + " ".join(str(i) for i, k in enumerate(kf) if k))
+
+    # ---- hard checks ----------------------------------------------------------
+    if any(st != trk.OK for st in states):
+        fail(f"async loop drive states {[trk.STATE_NAMES[st] for st in states]}: every frame "
+             f"must be OK")
+    if sysm.worker_errors:
+        fail(f"{len(sysm.worker_errors)} worker errors; the first:\n{sysm.worker_errors[0]}")
+    if counts["fast_and_blur"] != n or counts["brief_continuous"] != n:
+        fail(f"async loop drive launch counts {counts} over {n} frames; expected 1 K1 and 1 K2 "
+             f"per frame")
+    jobs = spans["mapping"]
+    if not jobs or any(not t.startswith("mapping") or st == tracker_stream
+                       for t, st, _, _ in jobs):
+        fail(f"mapping jobs ran on {sorted({(t, st.cuda_stream) for t, st, _, _ in jobs})}; "
+             f"expected the mapping thread, on a stream other than the tracker's "
+             f"({tracker_stream.cuda_stream})")
+    loops = [ev for ev in closer.events
+             if int(m.kf_frame_id[ev.kf_cur]) - int(m.kf_frame_id[ev.kf_matched])
+             > MIN_LOOP_FRAME_GAP]
+    if not loops:
+        fail(f"no loop event with keyframes more than {MIN_LOOP_FRAME_GAP} frames apart "
+             f"(events {[(e.kf_cur, e.kf_matched) for e in closer.events]})")
+    gba_threads = {t for t, _, _, _ in spans["gba"]}
+    landed = [mk for mk in marks["gba_landed"] if mk[2]]
+    if gba_threads != {"gba_0"} or not landed:
+        fail(f"global BA ran on {gba_threads}, writebacks {marks['gba_landed']}; expected the gba "
+             f"thread and an applied writeback")
+    faults = map_mod.check_binding_consistency(m)
+    if faults:
+        fail(f"check_binding_consistency after the async drive's shutdown: {faults}")
+    est = sysm.trajectory()
+    ate = float(align.ate_rmse(traj[:, 4:7] - traj[0, 4:7], est[:, 4:7]))
+    bound_m = MAX_TRANS_ERR_M * n / N_DRIVE
+    if not (est.shape == (n, 7) and np.isfinite(est).all() and ate < bound_m):
+        fail(f"async loop drive trajectory {est.shape}, ATE {ate:.3f} m (bound {bound_m:.2f})")
+
+    # ---- what it gave back ----------------------------------------------------
+    ev = loops[0]
+    ev_frame = int(m.kf_frame_id[ev.kf_cur])
+    busy = [(t0, t1) for plane in spans.values() for _, _, t0, t1 in plane]
+
+    def overlaps(i):
+        f0, f1 = frame_span[i]
+        return any(t0 < f1 and t1 > f0 for t0, t1 in busy)
+
+    timed_frames = range(2, n)
+    a_ms = [ms for _, ms in results]
+    s_res, s_fired = sync_run["results"], sync_run["fired"]
+    s_ms = [ms for _, ms in s_res]
+    s_kf = [r.created_kf for r, _ in s_res]
+    plain = [i for i in timed_frames if not kf[i] and i != ev_frame]
+    log(f"phase 9 host ms/frame, async | synchronous (phase 6's pass, a keyframe forced every "
+        f"{sync_run['kf_every'] or KF_EVERY}, same frames, this call):")
+    log(f"  no keyframe: {_median_p90([a_ms[i] for i in plain])} | "
+        f"{_median_p90([s_ms[i] for i in timed_frames if not s_kf[i] and i != s_fired])}")
+    log(f"  keyframe: {_median_p90([a_ms[i] for i in timed_frames if kf[i] and i != ev_frame])} | "
+        f"{_median_p90([s_ms[i] for i in timed_frames if s_kf[i] and i != s_fired])}")
+    log(f"  the event keyframe's frame: {a_ms[ev_frame]:.1f} (frame {ev_frame}) | "
+        f"{s_ms[s_fired]:.1f} (frame {s_fired}, with phase 6's profiled second detection; "
+        f"synchronized index + detection {sync_run['event_ms'][0]:.1f} and apply_event "
+        f"{sync_run['event_ms'][1]:.1f} of it)")
+    over = [i for i in plain if overlaps(i)]
+    alone = [i for i in plain if not overlaps(i)]
+    log(f"  no keyframe, overlapping a worker's job: {_median_p90([a_ms[i] for i in over])}; "
+        f"with no job running: {_median_p90([a_ms[i] for i in alone])}")
+    log(f"  drive wall time {drive_s:.1f} s | {sync_run['drive_s']:.1f} s; peak memory "
+        f"{peak_mb:.0f} MiB | {sync_run['peak_mb']:.0f} MiB")
+    shed = sum(k["index_only"] for k in closer.stats["keyframes"])
+    log(f"async planes: {len(spans['mapping'])} mapping jobs (host ms median "
+        f"{statistics.median([(t1 - t0) * 1e3 for _, _, t0, t1 in jobs]):.1f}), "
+        f"{len(spans['loop'])} detections ({shed} index only, shed), "
+        f"{len(spans['gba'])} global-BA solves; busy-gate deferrals (deferred_kf) "
+        f"{sysm.tracker.deferred_kf}; streams: tracker {tracker_stream.cuda_stream}, mapping "
+        f"{jobs[0][1].cuda_stream}, loop "
+        f"{spans['loop'][0][1].cuda_stream if spans['loop'] else '-'}, gba "
+        f"{spans['gba'][0][1].cuda_stream if spans['gba'] else '-'}")
+    log(f"async loop event: keyframe {ev.kf_cur} (frame {ev_frame}) against {ev.kf_matched} "
+        f"(frame {int(m.kf_frame_id[ev.kf_matched])}), {ev.n_inliers} inliers; detected during "
+        f"(frame, detection ms) {marks['detected']}, applied during (frame, thread, ms) "
+        f"{marks['applied']}, the global BA landed at {marks['gba_landed']} (frame, thread, "
+        f"applied) after a solve of {(spans['gba'][-1][3] - spans['gba'][-1][2]) * 1e3:.1f} ms "
+        f"on its thread; events in all "
+        f"{len(closer.events)}; ATE {ate:.3f} m (bound {bound_m:.2f}); {m.n_kf} keyframes, "
+        f"{len(m.valid_kf_ids())} alive, {int(m.lm_valid.sum())} landmarks; launches {counts}")
+
+
+N_UPSAMPLE = 21    # phase 10: frames of phase 2's drive per upsampling method
+
+
+def phase10_upsamplers(cfg, traj, frames, device, id_depth_span):
+    """The fused step with the paper's two other LiDAR upsamplers: phase 2's
+    first frames per method, mapping off, a keyframe forced every 4. Hard
+    checks as phase 2's; the share of valid keypoints with depth beside
+    InverseDilation's on the same keypoints, and ``track.depth`` under the
+    profiler on the last frame beside phase 2's (``id_depth_span``)."""
+    n = N_UPSAMPLE
+    bound = MAX_TRANS_ERR_M * n / N_DRIVE
+    cam, lc = cfg.camera, cfg.lidar
+    P = lidar_projection(cfg, device)
+    for method in ("AverageFiltering", "NearestNeighborPixel"):
+        mcfg = dataclasses.replace(cfg, lidar=dataclasses.replace(lc, method=method))
+        prof_ctx, prof_stats = profile_frames()
+        calls, sync_ms, frame_calls, steps = [], [], [], []
+        run = FastPath.run
+
+        def recorded_run(self, img, points, cloud_valid, Tcw_pred):
+            out = run(self, img, points, cloud_valid, Tcw_pred)
+            steps.append((points, cloud_valid, out.feats))
+            return out
+
+        @contextlib.contextmanager
+        def on_frame(i):
+            calls.clear()
+            with prof_ctx() if i == n - 1 else contextlib.nullcontext():
+                yield
+            frame_calls.append(list(calls))
+
+        cuda_build.reset_launch_counts()
+        FastPath.run = recorded_run
+        try:
+            with spy(calls, sync_ms):
+                _, results = drive(mcfg, frames[:n], device, on_frame=on_frame)
+        finally:
+            FastPath.run = run
+        counts = dict(cuda_build.launch_counts)
+        states = [r.state for r, _ in results]
+        inliers = [r.n_inliers for r, _ in results[1:]]
+        fused = ["_accept_fused" in c for c in frame_calls]
+        errs = trans_errors(traj, results)
+        if any(st != trk.OK for st in states) or min(inliers) < MIN_INLIERS:
+            fail(f"{method}: states {[trk.STATE_NAMES[st] for st in states]}, inliers {inliers}; "
+                 f"every frame must be OK with >= {MIN_INLIERS}")
+        if not all(fused[2:]):
+            fail(f"{method}: fused frames {[i for i, f in enumerate(fused) if f]}; expected 2..{n - 1}")
+        if counts["fast_and_blur"] != n or counts["brief_continuous"] != n:
+            fail(f"{method}: launch counts {counts} over {n} frames; expected 1 K1 and 1 K2 a frame")
+        if not float(errs.max()) < bound:
+            fail(f"{method}: translation error {errs.max():.3f} m >= {bound:.3f} m")
+        with_depth, id_depth, valid = [], [], []
+        for points, cloud_valid, f in steps:
+            d_id, _, _ = depth_ops.compute_depth_from_pointcloud(
+                points, P, f.uv, f.uv, height=cam.height, width=cam.width, bf=cam.bf,
+                method="InverseDilation", min_dist=lc.min_dist, max_dist=lc.max_dist,
+                dil_kind=lc.dil_kernel_type, dil_ku=lc.dil_kernel_size_u,
+                dil_kv=lc.dil_kernel_size_v, valid_mask=cloud_valid)
+            v = f.valid
+            valid.append(int(v.sum()))
+            with_depth.append(int(((f.depth > 0) & v).sum()))
+            id_depth.append(int(((d_id > 0) & v).sum()))
+        share = sum(with_depth) / sum(valid)
+        share_id = sum(id_depth) / sum(valid)
+        depth_spans = [st[3].get("track.depth") for st in prof_stats if st[1] > 0]
+        log(f"{method}: {n} frames, all OK, fused from frame 2, launches {counts}, max trans err "
+            f"{errs.max():.3f} m (bound {bound:.3f}); valid keypoints with depth {share:.4f} "
+            f"against InverseDilation's {share_id:.4f} on the same keypoints "
+            f"({len(steps)} fused steps); host ms/frame fused "
+            f"{_median_p90([ms for i, (_, ms) in enumerate(results) if fused[i]])}")
+        if depth_spans:
+            log(f"  track.depth under the profiler, host ms / device busy ms / kernels: "
+                + "; ".join(f"{h:.2f} / {b:.3f} / {k}" for h, b, k in depth_spans)
+                + f" (InverseDilation, phase 2: {id_depth_span[0]:.2f} / {id_depth_span[1]:.3f} / "
+                  f"{id_depth_span[2]})")
+        else:
+            log(f"  {method}: profiler recorded no device events (track.depth not measured)")
+
+
 def long_mapping_drive(cfg, device, n_frames: int):
     """``--mapping-drive N``: N frames of the canyon (the far wall stands
     120 m ahead: N ≤ 161), tracking only and then with the mapping plane
@@ -1850,11 +2112,12 @@ def main():
     loop_traj, loop_frames = render_loop_drive(loop_cfg, device)
     torch.cuda.synchronize()
     log(f"rendered {N_LOOP} frames of the loop drive in {time.perf_counter() - t0:.1f} s")
-    loop_sys = phase6_loop(loop_cfg, loop_traj, loop_frames, device, 0)
-    if loop_sys is None:
-        loop_sys = phase6_loop(loop_cfg, loop_traj, loop_frames, device, KF_EVERY)
-    if loop_sys is None:
+    loop_run = phase6_loop(loop_cfg, loop_traj, loop_frames, device, 0)
+    if loop_run is None:
+        loop_run = phase6_loop(loop_cfg, loop_traj, loop_frames, device, KF_EVERY)
+    if loop_run is None:
         fail("no loop was closed over the loop drive")
+    loop_sys, sync_loop = loop_run
     # ---- phase 8, first half: a tree vocabulary trained on that map ----------
     vocab_path = phase8_vocabulary(loop_cfg, loop_sys, loop_traj, loop_frames, device)
     phase6_relocalization(loop_cfg, loop_sys, loop_frames, device)
@@ -1864,11 +2127,21 @@ def main():
 
     # ---- phase 7: the atlas weld ---------------------------------------------
     phase7(loop_cfg, traj, frames, device)
+    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
+
+    # ---- phase 10: the two other LiDAR upsamplers on the fused step ----------
+    id_depth = prof_stats[0][3].get("track.depth", (0.0, 0.0, 0)) if prof_stats else (0.0, 0.0, 0)
+    phase10_upsamplers(cfg, traj, frames, device, id_depth)
     del frames
     log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
 
     # ---- phase 8, second half: the loop drive with vocab_path set ------------
     phase8_vocab_drive(loop_cfg, loop_traj, loop_frames, vocab_path, device)
+    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
+
+    # ---- phase 9: the asynchronous planes on phase 6's frames ----------------
+    phase9_async(loop_cfg, loop_traj, loop_frames, device, sync_loop)
+    del loop_frames
     log(f"command time: {time.perf_counter() - T_START:.1f} s")
 
     kernels = [

@@ -3,12 +3,17 @@
 
 Project the raw cloud through ``P = K·T_velo→cam``, scatter-min into a
 sparse depth image (collisions keep the closest point, deterministic under
-parallel execution), then densify. Ported methods: ``InverseDilation``
-(the KITTI default) and ``None``; ``AverageFiltering`` and
-``NearestNeighborPixel`` are not ported yet.
+parallel execution), then densify by one of the paper's three methods
+(``LiDAR.Method``): ``InverseDilation`` (the KITTI default),
+``AverageFiltering`` (a normalized box filter after a Diamond-3
+pre-dilation) or ``NearestNeighborPixel`` (per keypoint, the nearest
+occupied pixel's depth within a search radius); ``None`` keeps the raw
+projection.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -107,6 +112,85 @@ def upsample_inverse_dilation(raw_depth: torch.Tensor, max_dist: float = 200.0,
     return torch.where(torch.isfinite(dilated), max_dist - dilated, 0.0)
 
 
+def _window_sum(img: torch.Tensor, k: int) -> torch.Tensor:
+    """Sum over the k×k window centred (for odd k) on each pixel, zero
+    padding."""
+    c = k // 2
+    padded = F.pad(img[None, None], (c, k - 1 - c, c, k - 1 - c))
+    return F.avg_pool2d(padded, k, stride=1, divisor_override=1)[0, 0]
+
+
+def upsample_average_filtering(raw_depth: torch.Tensor, kernel_size: int = 5,
+                               pre_dilate: bool = True, pre_kind: str = "Diamond",
+                               pre_size: int = 3, max_dist: float = 200.0) -> torch.Tensor:
+    """Normalized box filter, box(depth) / box(occupancy), after an optional
+    inverse-dilation pre-pass (reference ``DepthModule::Upsample_AverageFiltering``
+    with ``bDoDilationPreprocessing``). Empty neighbourhoods give 0."""
+    if pre_dilate:
+        raw_depth = upsample_inverse_dilation(raw_depth, max_dist, pre_kind, pre_size, pre_size)
+    occ = (raw_depth > 0).to(raw_depth.dtype)
+    s = _window_sum(raw_depth, kernel_size)
+    n = _window_sum(occ, kernel_size)
+    return torch.where(n > 0, s / n.clamp(min=1.0), 0.0)
+
+
+_CHAMFER_W = float(np.float32(math.sqrt(2.0)))   # diagonal step, as the f32 JAX weight
+
+
+def chamfer_distance(occupancy: torch.Tensor, search_radius: int = 7) -> torch.Tensor:
+    """Distance from each pixel to the nearest occupied one, capped at
+    ``search_radius + 1``: ``search_radius + 1`` rounds of a 3×3 min-plus
+    relaxation with weights 1 and √2 (in place of the reference's
+    ``cv::distanceTransform(DIST_L2, MASK_5)``)."""
+    cap = float(search_radius + 1)
+    d = torch.where(occupancy, 0.0, cap).to(torch.float32)
+    H, W = d.shape
+    for _ in range(search_radius + 1):
+        pad = F.pad(d, (1, 1, 1, 1), value=cap)
+        best = d
+        for dy in range(3):
+            for dx in range(3):
+                if dy == 1 and dx == 1:
+                    continue
+                w = _CHAMFER_W if dy != 1 and dx != 1 else 1.0
+                best = torch.minimum(best, pad[dy:dy + H, dx:dx + W] + w)
+        d = best.clamp(max=cap)
+    return d
+
+
+def nearest_neighbor_depth_at_keypoints(raw_depth: torch.Tensor, kp_uv: torch.Tensor,
+                                        search_radius: int = 7) -> torch.Tensor:
+    """Per-keypoint nearest-neighbour depth (reference
+    ``DepthModule::Upsample_NearestNeighbor_Pixel``): the distance transform
+    gives each keypoint a radius r; its depth is the max over the
+    (2(r+1))² window anchored as the reference's Rect, [v−r−1, v+r+1) ×
+    [u−r−1, u+r+1). A keypoint whose radius reaches ``search_radius`` gets 0.
+    The window maxima for every radius are computed once for the whole
+    image (one max-pool each), then gathered."""
+    H, W = raw_depth.shape
+    dist = chamfer_distance(raw_depth > 0, search_radius)
+    pooled = torch.stack([
+        F.max_pool2d(F.pad(raw_depth[None, None], (r, r - 1, r, r - 1), value=float("-inf")),
+                     2 * r, stride=1)[0, 0]
+        for r in range(1, search_radius + 1)])                        # (R, H, W)
+    u = kp_uv[..., 0].to(torch.int32).clamp(0, W - 1).long()
+    v = kp_uv[..., 1].to(torch.int32).clamp(0, H - 1).long()
+    r_kp = dist[v, u].to(torch.int32)           # truncation, as the reference
+    within = r_kp < search_radius
+    d = pooled[r_kp.clamp(0, search_radius - 1).long(), v, u]
+    d = torch.where(torch.isfinite(d), d, 0.0)
+    return torch.where(within, d.clamp(min=0.0), 0.0)
+
+
+def _pseudo_stereo(d: torch.Tensor, kp_uv_undist: torch.Tensor, bf: float):
+    """(depth, uRight) of keypoints with sampled depth ``d``: d and
+    u − bf/d where d > 0, else both −1."""
+    valid = d > 0
+    depth = torch.where(valid, d, -1.0)
+    u_right = torch.where(valid, kp_uv_undist[..., 0] - bf / torch.where(valid, d, 1.0), -1.0)
+    return depth, u_right
+
+
 def feature_depth(depth_map: torch.Tensor, kp_uv: torch.Tensor,
                   kp_uv_undist: torch.Tensor, bf: float):
     """Depth at keypoint pixels and the pseudo-stereo uRight: d =
@@ -115,11 +199,7 @@ def feature_depth(depth_map: torch.Tensor, kp_uv: torch.Tensor,
     H, W = depth_map.shape
     u = kp_uv[..., 0].to(torch.int32).clamp(0, W - 1).long()
     v = kp_uv[..., 1].to(torch.int32).clamp(0, H - 1).long()
-    d = depth_map[v, u]
-    valid = d > 0
-    depth = torch.where(valid, d, -1.0)
-    u_right = torch.where(valid, kp_uv_undist[..., 0] - bf / torch.where(valid, d, 1.0), -1.0)
-    return depth, u_right
+    return _pseudo_stereo(depth_map[v, u], kp_uv_undist, bf)
 
 
 def compute_depth_from_pointcloud(points, P, kp_uv, kp_uv_undist, *, height: int,
@@ -128,14 +208,22 @@ def compute_depth_from_pointcloud(points, P, kp_uv, kp_uv_undist, *, height: int
                                   dil_kind: str = "Diamond", dil_ku: int = 5,
                                   dil_kv: int = 7, valid_mask=None):
     """≡ ``DepthModule::CalculateDepthFromPcd``. Returns (depth_per_kp,
-    u_right_per_kp, dense_depth_map)."""
+    u_right_per_kp, dense_depth_map); for ``NearestNeighborPixel``, which
+    densifies nothing, the third is the raw projection. ``AverageFiltering``
+    and ``NearestNeighborPixel`` run at their defaults (box 5 after a
+    Diamond-3 pre-dilation; radius 7), as every caller of the JAX package
+    runs them."""
     raw = project_pointcloud(points, P, height, width, min_dist, max_dist, valid_mask)
     if method == "None":
         dense = raw
     elif method == "InverseDilation":
         dense = upsample_inverse_dilation(raw, max_dist, dil_kind, dil_ku, dil_kv)
-    elif method in ("AverageFiltering", "NearestNeighborPixel"):
-        raise NotImplementedError(f"LiDAR upsampling method {method!r} is not ported yet")
+    elif method == "AverageFiltering":
+        dense = upsample_average_filtering(raw, max_dist=max_dist)
+    elif method == "NearestNeighborPixel":
+        depth, u_right = _pseudo_stereo(nearest_neighbor_depth_at_keypoints(raw, kp_uv),
+                                        kp_uv_undist, bf)
+        return depth, u_right, raw
     else:
         raise ValueError(f"unknown upsampling method: {method}")
     depth, u_right = feature_depth(dense, kp_uv, kp_uv_undist, bf)

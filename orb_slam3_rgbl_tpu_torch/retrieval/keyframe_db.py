@@ -10,17 +10,22 @@ words of ``retrieval.vocab`` or from a trained ``TreeVocabulary``. The
 ``(capacity_kf, n_words)`` table of signatures lives on the device: ``add``
 writes one row in place, ``grow`` extends it by one concatenation (an
 atlas weld), and ``query`` brings back two vectors of ``capacity_kf``
-numbers.
+numbers. With the asynchronous planes the loop worker writes rows on its
+CUDA stream while the tracking thread queries (relocalization, merge
+detection): writes, growth and the enqueue of a query go under one lock,
+and a query's stream waits for every stream's last write
+(``device.StreamOrder``).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from orb_slam3_rgbl_tpu_torch.device import resolve
+from orb_slam3_rgbl_tpu_torch.device import StreamOrder, resolve
 from orb_slam3_rgbl_tpu_torch.retrieval import vocab
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 
@@ -36,6 +41,8 @@ class KeyFrameDatabase:
         self.vectors = torch.zeros((capacity_kf, n_words), dtype=torch.float32,
                                    device=self.device)
         self.present = np.zeros(capacity_kf, bool)
+        self._lock = threading.Lock()
+        self._order = StreamOrder(self.device)
 
     def _bow(self, desc, valid) -> torch.Tensor:
         """Signature of one frame; ``desc`` (N, 8) as uint32 numpy words or
@@ -51,28 +58,38 @@ class KeyFrameDatabase:
     def grow(self, capacity_kf: int):
         """Extend the table and ``present`` to ``capacity_kf`` rows (empty
         rows); a no-op when they are that long already."""
-        extra = capacity_kf - self.vectors.shape[0]
-        if extra <= 0:
-            return
-        self.vectors = torch.cat([self.vectors, self.vectors.new_zeros((extra, self.vectors.shape[1]))])
-        self.present = np.concatenate([self.present, np.zeros(extra, bool)])
+        with self._lock:
+            extra = capacity_kf - self.vectors.shape[0]
+            if extra <= 0:
+                return
+            self._order.before_read([self.vectors])
+            self.vectors = torch.cat([self.vectors,
+                                      self.vectors.new_zeros((extra, self.vectors.shape[1]))])
+            self._order.wrote([self.vectors])
+            self.present = np.concatenate([self.present, np.zeros(extra, bool)])
 
     def add(self, kf_id: int, desc, valid):
-        self.vectors[kf_id] = self._bow(desc, valid)
-        self.present[kf_id] = True
+        bow = self._bow(desc, valid)
+        with self._lock:
+            self.vectors[kf_id] = bow
+            self._order.wrote([self.vectors])
+            self.present[kf_id] = True
 
     def erase(self, kf_id: int):
-        self.present[kf_id] = False
+        with self._lock:
+            self.present[kf_id] = False
 
     def query(self, query_vec, exclude: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """L1 scores + shared-word counts against all stored keyframes
         (excluded / absent → 0), downloaded in one transfer."""
         q = torch.as_tensor(query_vec, dtype=torch.float32, device=self.device)
-        both = torch.stack([vocab.l1_score(q, self.vectors),
-                            vocab.shared_word_counts(q, self.vectors).to(torch.float32)])
+        with self._lock:
+            self._order.before_read([self.vectors])
+            both = torch.stack([vocab.l1_score(q, self.vectors),
+                                vocab.shared_word_counts(q, self.vectors).to(torch.float32)])
+            ok = self.present.copy()
         both = both.cpu().numpy()
         scores, shared = both[0], both[1].astype(np.int32)
-        ok = self.present.copy()
         ok[exclude] = False
         return np.where(ok, scores, np.float32(0.0)), np.where(ok, shared, 0)
 

@@ -5,7 +5,9 @@
 frame's features and bound landmark positions, and the local-map landmark
 window (the reference keyframe's covisibility neighbourhood) — refreshed
 from the host map only when ``MapState.version`` moves. ``advance`` rolls
-the state forward from a step's outputs without leaving the device.
+the state forward from a step's outputs without leaving the device. While a
+mapping worker mutates the map, ``hold`` keeps ``sync`` serving the last
+consistent window of that map.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ class FastPath:
         self.step = compiled.make_track_step(cfg, window_cap=window_cap, mode=mode,
                                              device=dev)
         self._sync_key = None
+        # set by the mapping worker around each job: the map is mid-mutation
+        self.hold = False
         # host id maps for the device windows; generations snapshot the
         # landmark slots at sync time (slot-recycling detection)
         self.win_ids = np.zeros(0, np.int64)
@@ -68,9 +72,11 @@ class FastPath:
         """Refresh window + previous-frame device state iff the map or its
         version moved (≈ once per keyframe / mapping event, and on every
         new atlas map). The key holds the map itself, so a new map can
-        never pass for the old one."""
+        never pass for the old one. Under ``hold`` a window already synced
+        on ``m`` is kept as it is (the reference's tracker likewise reads
+        the map while the mapping thread works)."""
         if self._sync_key is not None and self._sync_key[0] is m \
-                and self._sync_key[1] == m.version:
+                and (self.hold or self._sync_key[1] == m.version):
             return
         # --- window: landmarks of the ref-KF covisibility neighbourhood ---
         kfs = [ref_kf] + [int(k) for k in m.best_covisible(ref_kf, LOCAL_KF_CAP, min_weight=1)]

@@ -27,13 +27,15 @@ from __future__ import annotations
 
 import collections
 import logging
+import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from orb_slam3_rgbl_tpu_torch.config import SlamConfig
-from orb_slam3_rgbl_tpu_torch.device import resolve
+from orb_slam3_rgbl_tpu_torch.device import StreamOrder, resolve
 from orb_slam3_rgbl_tpu_torch.geometry import camera as cam_mod
 from orb_slam3_rgbl_tpu_torch.geometry import lie, triangulation
 from orb_slam3_rgbl_tpu_torch.geometry.camera import np_geo_project
@@ -60,6 +62,16 @@ def _i32_words(desc) -> np.ndarray:
     return np.ascontiguousarray(desc, np.uint32).view(np.int32)
 
 
+class KfRows(NamedTuple):
+    """The feature blocks of ``DeviceKfCache``, as one reader took them."""
+    d_uv: torch.Tensor
+    d_desc: torch.Tensor
+    d_oct: torch.Tensor
+    d_angle: torch.Tensor
+    d_valid: torch.Tensor
+    d_ur: torch.Tensor
+
+
 class DeviceKfCache:
     """Device-resident mirror of the keyframes' feature arrays.
 
@@ -71,13 +83,21 @@ class DeviceKfCache:
     the extraction's device tensors, with no trip through the host — and
     every program gathers by keyframe id on the device. Poses stay
     host-authoritative (BA rewrites them) and ride in as a small per-call
-    argument."""
+    argument.
+
+    The tracking thread writes rows (``add``) while the mapping and loop
+    workers read and backfill them (``ensure``), each on its own CUDA
+    stream; growth replaces every block. Both go under one lock, and
+    ``ensure`` returns the blocks as they stood (``KfRows``): its caller
+    reads those, ordered after every stream's writes (``StreamOrder``)."""
 
     def __init__(self, n_feat: int, cap: int = 128, device=None):
         self.n_feat = n_feat
         self.cap = cap
         self.device = resolve(device)
         self.have = set()
+        self._lock = threading.RLock()
+        self._order = StreamOrder(self.device)
         self._alloc(cap)
 
     def _alloc(self, cap):
@@ -89,53 +109,66 @@ class DeviceKfCache:
         self.d_valid = torch.zeros((cap, N), dtype=torch.bool, device=dev)
         self.d_ur = torch.zeros((cap, N), dtype=torch.float32, device=dev)
 
-    _FIELDS = ("d_uv", "d_desc", "d_oct", "d_angle", "d_valid", "d_ur")
+    _FIELDS = KfRows._fields
+
+    def _rows(self) -> KfRows:
+        return KfRows(*(getattr(self, f) for f in self._FIELDS))
 
     def _grow(self, need):
         old_cap, cap = self.cap, self.cap
         while cap < need:
             cap *= 2
-        old = [getattr(self, f) for f in self._FIELDS]
+        old = self._rows()
+        self._order.before_read(old)
         self._alloc(cap)
         for f, a in zip(self._FIELDS, old):
             getattr(self, f)[:old_cap] = a
+        self._order.wrote(self._rows())
         self.cap = cap
 
     def reset(self, capacity_kf: int):
         """Invalidate after an id remap (atlas merge): entries backfill
         lazily from the host map on next use. The mirror grows to
         ``capacity_kf`` rows at once when the welded map has more."""
-        self.have.clear()
-        if capacity_kf > self.cap:
-            self._grow(capacity_kf)
+        with self._lock:
+            self.have.clear()
+            if capacity_kf > self.cap:
+                self._grow(capacity_kf)
 
-    def ensure(self, m: MapState, ids):
+    def ensure(self, m: MapState, ids) -> KfRows:
         """Backfill any keyframes missing from the device mirror (maps
-        built before the cache attached, loads)."""
-        for k in ids:
-            k = int(k)
-            if k not in self.have:
-                self.add(k, _HostFeats(
-                    uv=m.kf_uv[k], desc=m.kf_desc[k],
-                    octave=m.kf_octave[k].astype(np.int32),
-                    angle=m.kf_angle[k], valid=m.kf_feat_valid[k],
-                    u_right=m.kf_ur[k]))
+        built before the cache attached, loads), then return the blocks for
+        the caller to read on its stream."""
+        with self._lock:
+            for k in ids:
+                k = int(k)
+                if k not in self.have:
+                    self.add(k, _HostFeats(
+                        uv=m.kf_uv[k], desc=m.kf_desc[k],
+                        octave=m.kf_octave[k].astype(np.int32),
+                        angle=m.kf_angle[k], valid=m.kf_feat_valid[k],
+                        u_right=m.kf_ur[k]))
+            rows = self._rows()
+            self._order.before_read(rows)
+            return rows
 
     def add(self, kf_id: int, feats):
         """Register a keyframe's features (``FrameFeatures`` on the device
         or on the host; host descriptors may be uint32 words): one in-place
         row write per array."""
-        if kf_id >= self.cap:
-            self._grow(kf_id + 1)
-        self.have.add(int(kf_id))
         desc = feats.desc
         if isinstance(desc, np.ndarray):
             desc = _i32_words(desc) if desc.dtype == np.uint32 else desc
-        for field, value in (("d_uv", feats.uv), ("d_desc", desc), ("d_oct", feats.octave),
-                             ("d_angle", feats.angle), ("d_valid", feats.valid),
-                             ("d_ur", feats.u_right)):
-            row = getattr(self, field)[kf_id]
-            row.copy_(torch.as_tensor(value).to(device=self.device, dtype=row.dtype))
+        with self._lock:
+            if kf_id >= self.cap:
+                self._grow(kf_id + 1)
+            for field, value in (("d_uv", feats.uv), ("d_desc", desc), ("d_oct", feats.octave),
+                                 ("d_angle", feats.angle), ("d_valid", feats.valid),
+                                 ("d_ur", feats.u_right)):
+                row = getattr(self, field)[kf_id]
+                row.copy_(torch.as_tensor(value).to(device=self.device, dtype=row.dtype))
+            self._order.wrote(self._rows())
+            self.have.add(int(kf_id))
 
 
 class _HostFeats:
@@ -183,8 +216,7 @@ def fuse_project_targets_async(mapper, tg, P, Pdesc, Pmaxd, Pvalid):
     keyframes ``tg`` against the device feature mirror. Returns device
     tensors."""
     m = mapper.map
-    mapper.dev_cache.ensure(m, tg)
-    c, up = mapper.dev_cache, mapper._dev
+    c, up = mapper.dev_cache.ensure(m, tg), mapper._dev
     return _fuse_project_batch(
         mapper.geo_cam, float(mapper.cfg.orb.scale_factor), mapper.cfg.orb.n_levels,
         up(np.asarray(tg, np.int64), torch.int64), up(m.kf_pose[tg], torch.float32),
@@ -593,8 +625,7 @@ class LocalMapper:
         if not pv_all.any():
             return
         nb_all, unbound2_all = nb_all[pv_all], unbound2_all[pv_all]
-        self.dev_cache.ensure(m, np.concatenate([[kf_id], nb_all]))
-        c, up = self.dev_cache, self._dev
+        c, up = self.dev_cache.ensure(m, np.concatenate([[kf_id], nb_all])), self._dev
         f1_b, f2_b, X_b, cnt_b = (a.cpu().numpy() for a in _triangulate_batch(
             self.geo_cam, float(self.cfg.orb.scale_factor),
             up(np.int64(kf_id), torch.int64), up(m.kf_pose[kf_id], torch.float32),
@@ -704,7 +735,7 @@ class LocalMapper:
 
         obs_kf, obs_feat, obs_mask, obs_uv, obs_ur = self.map.gather_observations(
             window, lm_ids, self.obs_cap)
-        self.dev_cache.ensure(self.map, window)
+        c = self.dev_cache.ensure(self.map, window)
         if self.map.last_dropped_obs:
             # no silent caps: dense covisibility exceeded the D-per-landmark
             # budget (the reference local BA keeps every observer)
@@ -718,7 +749,6 @@ class LocalMapper:
         kfg_dev = up(kf_global, torch.int64)
         feat_dev = up(obs_feat, torch.int64)
         mask_dev = up(obs_mask, torch.bool)
-        c = self.dev_cache
         obs_ur_dev = torch.where(mask_dev, c.d_ur[kfg_dev, feat_dev], -1.0)
         oct_dev = c.d_oct[kfg_dev, feat_dev].clamp(0, self.inv_sigma2.shape[0] - 1).long()
 

@@ -24,15 +24,24 @@ vocabulary (``retrieval.tree_vocab``), loaded onto the closer's device; the
 LSH words of ``retrieval.vocab`` otherwise. Cross-map merging lives in
 ``slam.merging`` and ``System``.
 
-Not ported: the 4-DoF pose graph of inertial maps (ROADMAP Queue 1 item 15),
-the loop worker and the abortable global-BA thread (item 18). ``prewarm``
-has no counterpart: it warms XLA's compile tiers.
+The halves are split the way ``System``'s worker threads call them:
+``detect_only`` (index, and with ``index_only`` nothing more, the loop
+worker's load shedding) reads the map and mutates only the database and
+the consistency state; ``apply_event`` mutates the whole map;
+``_gba_assemble`` snapshots the map, ``_gba_iterate`` solves on the
+snapshot alone (stopping between chunks when its ``abort_event`` is set)
+and ``_apply_gba`` writes back. The RANSAC draws are taken under
+``rng_lock``, which the owner of the generator shares with its other users.
+
+Not ported: the 4-DoF pose graph of inertial maps (ROADMAP Queue 1 item 15).
+``prewarm`` has no counterpart: it warms XLA's compile tiers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import time
 from typing import Optional
 
@@ -83,6 +92,7 @@ class LoopCloser:
         self.map = map_state
         self.device = resolve(device)
         self.generator = generator
+        self.rng_lock = threading.Lock()   # replaced by an owner that shares the generator
         self.dev_cache = dev_cache if dev_cache is not None else DeviceKfCache(
             map_state.n_features, device=self.device)
         vocabulary = (TreeVocabulary.load(config.vocab_path, device=self.device)
@@ -119,27 +129,28 @@ class LoopCloser:
             self.apply_event(event)
         return event
 
-    def detect_only(self, kf_id: int) -> Optional[LoopEvent]:
+    def detect_only(self, kf_id: int, index_only: bool = False) -> Optional[LoopEvent]:
         """Detection half: reads the map, mutates only the database and the
-        consistency state."""
+        consistency state. ``index_only``: index the keyframe and stop (the
+        loop worker's load shedding while the mapping plane is busy: the
+        database must still see every keyframe)."""
         m = self.map
         t0 = time.perf_counter()
         with record_function("loop.index"):
             # index first: detect_candidates queries kf_id's stored
             # signature (itself and its covisibles are excluded)
-            self.dev_cache.ensure(m, [kf_id])
-            c = self.dev_cache
+            c = self.dev_cache.ensure(m, [kf_id])
             self.db.add(kf_id, c.d_desc[kf_id], c.d_valid[kf_id])
         t1 = time.perf_counter()
         event = None
         # reference skips detection until the map holds ≥ 12 KFs
         # (LoopClosing.cc:356) and right after a correction
-        if m.n_kf >= 12 and kf_id > self.last_loop_kf + 5:
+        if not index_only and m.n_kf >= 12 and kf_id > self.last_loop_kf + 5:
             with record_function("loop.detect"):
                 event = self._detect(kf_id)
         self.stats["keyframes"].append({
             "kf": int(kf_id), "index_ms": (t1 - t0) * 1e3,
-            "detect_ms": (time.perf_counter() - t1) * 1e3})
+            "detect_ms": (time.perf_counter() - t1) * 1e3, "index_only": index_only})
         return event
 
     def apply_event(self, event: LoopEvent):
@@ -199,8 +210,9 @@ class LoopCloser:
         caller's generator."""
         if self.generator is None:
             raise ValueError("LoopCloser needs the caller's torch.Generator for Sim3 RANSAC")
-        return torch.randint(0, n_pairs, (RANSAC_HYPOTHESES, 3), generator=self.generator,
-                             device=self.generator.device)
+        with self.rng_lock:
+            return torch.randint(0, n_pairs, (RANSAC_HYPOTHESES, 3), generator=self.generator,
+                                 device=self.generator.device)
 
     def _pair_tensors(self, kf_id, cand, f1, f2, lm1, lm2):
         """The Sim3 solvers' arguments for feature pairs (f1 of ``kf_id``,
@@ -235,8 +247,7 @@ class LoopCloser:
         b2 = m.kf_lm_idx[cand] >= 0
         if b1.sum() < 20 or b2.sum() < 20:
             return None
-        c = self.dev_cache
-        c.ensure(m, [kf_id, cand])
+        c = self.dev_cache.ensure(m, [kf_id, cand])
         d = matching.distance_table(c.d_desc[kf_id], c.d_desc[cand],
                                     self._dev(b1, torch.bool), self._dev(b2, torch.bool))
         idx, _ = matching.mutual_best_match(d, c.d_angle[kf_id], c.d_angle[cand],
@@ -360,8 +371,7 @@ class LoopCloser:
                             & (v >= 0) & (v < self.cam.height), nan=False)
         proj_uv = np.stack([np.nan_to_num(u), np.nan_to_num(v)], 1).astype(np.float32)
         n = lms.size
-        c = self.dev_cache
-        c.ensure(m, [kf])
+        c = self.dev_cache.ensure(m, [kf])
         zeros_p = torch.zeros(n, dtype=torch.int32, device=self.device)
         zeros_k = torch.zeros(m.n_features, dtype=torch.int32, device=self.device)
         idx, dist = matching.windowed_projection_match(
@@ -650,16 +660,19 @@ class LoopCloser:
                                           problem.poses.shape[0])
         return (problem, window, lm_ids, m.kf_pose.copy(), m.lm_gen[lm_ids].copy(), segments)
 
-    def _gba_iterate(self, snapshot, iterations: int = 6):
+    def _gba_iterate(self, snapshot, iterations: int = 6, abort_event=None):
         """Solve half: LM iterations on the frozen snapshot, ``GBA_CHUNK`` at a
-        time (the reference polls its stop flag between iterations; here
-        the chunks keep the solver's damping and Huber schedule as the JAX
-        package runs it). Touches no live map state."""
+        time (the chunks keep the solver's damping and Huber schedule as the
+        JAX package runs it). Touches no live map state. Before each chunk
+        it polls ``abort_event`` (the reference's ``mbStopGBA``) and returns
+        None once it is set."""
         problem, window, lm_ids, pose_before, lm_gen_before, segments = snapshot
         poses, lms = problem.poses, problem.landmarks
         res = None
         it = 0
         while it < iterations:
+            if abort_event is not None and abort_event.is_set():
+                return None
             n = min(GBA_CHUNK, iterations - it)
             res = global_ba.global_bundle_adjust(
                 problem._replace(poses=poses, landmarks=lms), self.cam, segments,

@@ -1,9 +1,19 @@
 """Port vs JAX: SE3 algebra, LiDAR depth, descriptor matching and the
-fused step's collision resolution. Integer outputs are held exactly."""
+fused step's collision resolution. Integer outputs are held exactly.
+
+The paper's three densification methods: InverseDilation and the chamfer
+distance transform are min/max and one f32 add a tap, so they are held
+exactly; AverageFiltering divides two 25-tap window sums whose order of
+addition is each library's own, so it is held to 1e-6 relative (observed
+equal); NearestNeighborPixel gathers window maxima, exact. One fused step per
+method runs through both packages on identical ``FastPath`` state: the
+per-slot depths of slots whose keypoint is the same on both sides are
+held as above, the pose to 1e-3 as in test_torch_step.py."""
 
 import dataclasses
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -13,12 +23,19 @@ from orb_slam3_rgbl_tpu import synthetic as j_syn
 from orb_slam3_rgbl_tpu.geometry import lie as j_lie
 from orb_slam3_rgbl_tpu.ops import depth as j_depth
 from orb_slam3_rgbl_tpu.ops import matching as j_match
+from orb_slam3_rgbl_tpu.ops import fast as j_fast
 from orb_slam3_rgbl_tpu.slam import compiled as j_compiled
+from orb_slam3_rgbl_tpu.slam.fast_path import FastPath as JFastPath
+from orb_slam3_rgbl_tpu.slam.map_state import MapState as JMapState
+from orb_slam3_rgbl_tpu.slam.tracking import Tracker as JTracker
 from orb_slam3_rgbl_tpu_torch import convert
 from orb_slam3_rgbl_tpu_torch.geometry import lie as t_lie
 from orb_slam3_rgbl_tpu_torch.ops import depth as t_depth
 from orb_slam3_rgbl_tpu_torch.ops import matching as t_match
 from orb_slam3_rgbl_tpu_torch.slam import compiled as t_compiled
+from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath as TFastPath
+
+from test_depth import H as D_H, W as D_W, sparse_map
 
 
 def _t(a):
@@ -85,9 +102,117 @@ def test_projection_and_inverse_dilation_exact(rng):
                                       jnp.asarray(uv), cam.bf)
     np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
     np.testing.assert_allclose(ur_t.numpy(), np.asarray(ur_j), rtol=1e-6)   # one f32 divide
-    with pytest.raises(NotImplementedError):
+    # the other two methods through the master function, at their defaults
+    for method in ("AverageFiltering", "NearestNeighborPixel"):
+        d_t, ur_t, dense_t = t_depth.compute_depth_from_pointcloud(
+            _t(pts), _t(P), _t(uv), _t(uv), height=H, width=W, bf=cam.bf, method=method,
+            min_dist=1.5, max_dist=150.0)
+        with jax.enable_x64(False):
+            d_j, ur_j, dense_j = j_depth.compute_depth_from_pointcloud(
+                jnp.asarray(pts), jnp.asarray(P), jnp.asarray(uv), jnp.asarray(uv), height=H,
+                width=W, bf=cam.bf, method=method, min_dist=1.5, max_dist=150.0)
+        assert (np.asarray(d_j) > 0).sum() > 100, method
+        np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-6, err_msg=method)
+        # u − bf/d: XLA fuses the divide and the subtraction (≤ 2 ulp of u)
+        np.testing.assert_allclose(ur_t.numpy(), np.asarray(ur_j), atol=1e-4, err_msg=method)
+        np.testing.assert_allclose(dense_t.numpy(), np.asarray(dense_j), rtol=1e-6,
+                                   err_msg=method)
+    # NearestNeighborPixel densifies nothing: its map is the raw projection
+    np.testing.assert_array_equal(dense_t.numpy(),
+                                  t_depth.project_pointcloud(_t(pts), _t(P), H, W, 1.5, 150.0).numpy())
+    with pytest.raises(ValueError, match="unknown upsampling"):
         t_depth.compute_depth_from_pointcloud(_t(pts), _t(P), _t(uv), _t(uv), height=H,
-                                              width=W, bf=cam.bf, method="AverageFiltering")
+                                              width=W, bf=cam.bf, method="Bilateral")
+
+
+@pytest.mark.parametrize("density", [0.02, 0.002])
+def test_chamfer_distance_exact(density):
+    """On tests/test_depth.py's sparse maps, at the default radius and a small one."""
+    raw = sparse_map(np.random.default_rng(0), density=density)
+    assert raw.shape == (D_H, D_W)
+    for radius in (7, 3):
+        with jax.enable_x64(False):
+            ref = np.asarray(j_depth.chamfer_distance(jnp.asarray(raw > 0), radius))
+        out = t_depth.chamfer_distance(_t(raw > 0), radius)
+        assert out.dtype == torch.float32
+        np.testing.assert_array_equal(out.numpy(), ref)
+        assert (ref == 0).any() and (ref > 1).any()
+
+
+def test_average_filtering_matches_jax(rng):
+    raw = sparse_map(rng)
+    for kernel, pre in ((5, False), (5, True), (3, True)):
+        with jax.enable_x64(False):
+            ref = np.asarray(j_depth.upsample_average_filtering(jnp.asarray(raw), kernel_size=kernel,
+                                                                pre_dilate=pre))
+        out = t_depth.upsample_average_filtering(_t(raw), kernel_size=kernel, pre_dilate=pre)
+        assert (ref > 0).mean() > 0.3
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6)   # window sums' order
+    assert (t_depth.upsample_average_filtering(torch.zeros(D_H, D_W)) == 0).all()
+
+
+def test_nearest_neighbor_matches_jax(rng):
+    raw = sparse_map(rng, density=0.005)
+    kp = np.stack([rng.uniform(0, D_W, 500), rng.uniform(0, D_H, 500)], 1).astype(np.float32)
+    # tests/test_depth.py's cases: an isolated point passes through, a point
+    # 3.6 px away is found, one far away is not
+    iso = np.zeros((D_H, D_W), np.float32)
+    iso[40, 100], iso[10, 10] = 77.0, 50.0
+    cases = [(raw, kp), (iso, np.array([[100.0, 40.0], [103.0, 42.0], [200.0, 80.0]], np.float32))]
+    found = []
+    for m, pts in cases:
+        with jax.enable_x64(False):
+            ref = np.asarray(j_depth.nearest_neighbor_depth_at_keypoints(jnp.asarray(m),
+                                                                         jnp.asarray(pts)))
+        out = t_depth.nearest_neighbor_depth_at_keypoints(_t(m), _t(pts))
+        np.testing.assert_array_equal(out.numpy(), ref)
+        found.append(out.numpy())
+    assert 0.2 < (found[0] > 0).mean() < 1.0
+    assert found[1].tolist() == [77.0, 77.0, 0.0]
+
+
+@pytest.mark.parametrize("method", ["AverageFiltering", "NearestNeighborPixel"])
+def test_fused_step_per_method_matches_jax(method):
+    """One fused step on frame 1 of the 320×192 canyon, from the same
+    ``FastPath`` state (the JAX tracker initialized on frame 0)."""
+    cfg = dataclasses.replace(j_syn.synthetic_rgbl_config(), lidar=dataclasses.replace(
+        j_syn.synthetic_rgbl_config().lidar, method=method))
+    cam = cfg.camera
+    n_feat = sum(j_fast.features_per_level(cfg.orb.n_features, cfg.orb.n_levels,
+                                           cfg.orb.scale_factor))
+    traj = j_syn.straight_trajectory(2, step=0.6, weave=0.4)
+    ident = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)
+    with jax.enable_x64(False):
+        world = j_syn.make_world(0, tex_size=256)
+        frames = []
+        for Twc in traj:
+            Twc = jnp.asarray(Twc)
+            frames.append((np.array(j_syn.render_image(world, Twc, cam.fx, cam.fy, cam.cx, cam.cy,
+                                                       cam.height, cam.width)),
+                           np.array(j_syn.lidar_scan(world, Twc, n_az=256, n_el=48))))
+        jt = JTracker(cfg, JMapState.create(64, 8192, n_feat))
+        jt.fast = JFastPath(cfg, n_feat)
+        img0, pts0 = frames[0]
+        jt.track_image_rgbl(jnp.asarray(img0), jnp.asarray(pts0), jnp.ones(len(pts0), bool), 0.0)
+        jfp = jt.fast
+        jfp.sync(jt.map, jt.ref_kf, jt.last_feats, jt.last_lm_idx, jt.last_lm_gen)
+        state = {k: np.asarray(getattr(jfp, k)) for k in convert.FAST_PATH_STATE}
+        img1, pts1 = frames[1]
+        mask1 = np.ones(len(pts1), bool)
+        out_j = jax.tree_util.tree_map(np.asarray, jfp.run(jnp.asarray(img1), jnp.asarray(pts1),
+                                                           jnp.asarray(mask1), ident))
+    tcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    assert tcfg.lidar.method == method
+    tfp = convert.fast_path_state_from_numpy(TFastPath(tcfg, n_feat, device="cpu"), state)
+    out_t = tfp.run(img1, pts1, mask1, ident)
+    fj, ft = out_j.feats, out_t.feats
+    same = (ft.uv.numpy() == fj.uv).all(1) & ft.valid.numpy() & fj.valid
+    assert same.mean() > 0.9 and (fj.depth[same] > 0).mean() > 0.3
+    np.testing.assert_allclose(ft.depth.numpy()[same], fj.depth[same], rtol=1e-6)
+    np.testing.assert_allclose(ft.u_right.numpy()[same], fj.u_right[same], rtol=1e-6, atol=1e-4)
+    assert abs(int(out_t.n_inliers) - int(out_j.n_inliers)) <= 0.05 * int(out_j.n_inliers)
+    assert int(out_j.n_inliers) > 100
+    np.testing.assert_allclose(out_t.Tcw.numpy(), out_j.Tcw, atol=1e-3)
 
 
 def _descs(rng, n):

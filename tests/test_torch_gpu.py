@@ -500,3 +500,118 @@ def test_tree_vocabulary_on_the_card(cuda):
     db.grow(5)
     assert db.vectors.shape == (5, 512) and db.vectors.device.type == "cuda"
     assert torch.equal(db.vectors[1], b_g) and db.present.tolist() == [False, True] + [False] * 3
+
+
+def test_async_drive_runs_each_plane_on_its_own_stream(cuda):
+    """``async_mapping = True`` on the card (the 320×192 canyon, mapping and
+    loop closing on): mapping jobs and detections run on their threads and
+    on streams other than the tracking thread's, every frame is OK, and what
+    the workers wrote on their streams is what the tracking thread reads: the
+    database rows against a recomputation, the keyframe mirror against the
+    host map."""
+    import threading
+    from orb_slam3_rgbl_tpu_torch import synthetic as syn
+    from orb_slam3_rgbl_tpu_torch.slam import map_state as map_mod, tracking as trk
+    from orb_slam3_rgbl_tpu_torch.slam.local_mapping import LocalMapper
+    from orb_slam3_rgbl_tpu_torch.slam.loop_closing import LoopCloser
+    from orb_slam3_rgbl_tpu_torch.slam.system import System
+
+    cfg = syn.synthetic_rgbl_config()
+    cam = cfg.camera
+    world = syn.make_world(0, tex_size=256, device=cuda)
+    traj = syn.straight_trajectory(16, step=0.6, weave=0.4)
+    seen = {"mapping": [], "loop": []}
+    process, detect = LocalMapper.process_keyframe, LoopCloser.detect_only
+
+    def on_mapping(self, *a, **k):
+        seen["mapping"].append((threading.current_thread().name, torch.cuda.current_stream()))
+        return process(self, *a, **k)
+
+    def on_loop(self, *a, **k):
+        seen["loop"].append((threading.current_thread().name, torch.cuda.current_stream()))
+        return detect(self, *a, **k)
+
+    sysm = System(cfg)
+    sysm.CLOUD_CAP = 16384
+    sysm.async_mapping = True
+    tracker_stream = torch.cuda.current_stream()
+    LocalMapper.process_keyframe, LoopCloser.detect_only = on_mapping, on_loop
+    try:
+        states = []
+        for i, Twc in enumerate(traj):
+            img = syn.render_image(world, Twc, cam.fx, cam.fy, cam.cx, cam.cy, cam.height,
+                                   cam.width)
+            pts = syn.lidar_scan(world, Twc, n_az=256, n_el=48)
+            states.append(sysm.track_rgbl(img, pts, i * 0.1).state)
+        sysm.shutdown()
+    finally:
+        LocalMapper.process_keyframe, LoopCloser.detect_only = process, detect
+    assert all(s == trk.OK for s in states), states
+    assert sysm.worker_errors == [] and map_mod.check_binding_consistency(sysm.map) == []
+    assert seen["mapping"] and seen["loop"]
+    for plane, calls in seen.items():
+        assert {name for name, _ in calls} == {f"{plane}_0"}, calls
+        assert all(s != tracker_stream for _, s in calls), plane
+    assert seen["mapping"][0][1] != seen["loop"][0][1]
+    m, db = sysm.map, sysm.loop_closer.db
+    live = m.valid_kf_ids()
+    assert db.present[live].all()
+    for k in live:
+        fresh = db._bow(m.kf_desc[k], m.kf_feat_valid[k])
+        assert (db.vectors[k] - fresh).abs().max().item() <= 1e-6, k
+    rows = sysm.mapper.dev_cache.ensure(m, live)
+    for k in live:
+        np.testing.assert_array_equal(rows.d_uv[k].cpu().numpy(), m.kf_uv[k])
+        np.testing.assert_array_equal(rows.d_desc[k].cpu().numpy().view(np.uint32), m.kf_desc[k])
+
+
+def test_kf_cache_grows_while_a_worker_gathers(cuda):
+    """``DeviceKfCache`` grows (2 → 128 rows) on the tracking thread while a
+    worker gathers rows on its own stream, and freed blocks are handed out
+    again at once: no gathered row and no final row differs from the CPU
+    copy."""
+    import threading
+    from orb_slam3_rgbl_tpu_torch.slam.local_mapping import DeviceKfCache
+
+    rng = np.random.default_rng(7)
+    n, N = 128, 512
+    uv = rng.uniform(0, 1000, (n, N, 2)).astype(np.float32)
+    desc = rng.integers(0, 2 ** 32, (n, N, 8), dtype=np.uint32)
+    feats = [type("F", (), dict(uv=uv[k], desc=desc[k], octave=np.full(N, k % 8, np.int32),
+                                angle=np.zeros(N, np.float32), valid=np.ones(N, bool),
+                                u_right=np.full(N, -1.0, np.float32))) for k in range(n)]
+    expect = torch.as_tensor(desc.view(np.int32), device=cuda)
+    cache = DeviceKfCache(N, cap=2, device=cuda)
+    for k in range(2):
+        cache.add(k, feats[k])
+    added, stop = [2], threading.Event()
+    bad = torch.zeros((), dtype=torch.int64, device=cuda)
+    gathers = [0]
+
+    def worker():
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            while not stop.is_set():
+                ids = torch.arange(max(0, added[0] - 8), added[0], device=cuda)
+                rows = cache.ensure(None, ids.tolist())
+                bad.add_((rows.d_desc[ids] != expect[ids]).sum())
+                gathers[0] += 1
+            stream.synchronize()
+
+    thread = threading.Thread(target=worker)
+    thread.start()
+    try:
+        for k in range(2, n):
+            cache.add(k, feats[k])
+            added[0] = k + 1
+            # recycle whatever the growth freed, with garbage
+            torch.full((cache.cap, N, 8), -1, dtype=torch.int32, device=cuda)
+    finally:
+        stop.set()
+        thread.join(60.0)
+    assert not thread.is_alive()
+    torch.cuda.synchronize()
+    assert cache.cap == n and gathers[0] > 0
+    assert int(bad) == 0
+    assert torch.equal(cache.d_desc.cpu(), torch.from_numpy(desc.view(np.int32)))
+    assert torch.equal(cache.d_uv.cpu(), torch.from_numpy(uv))

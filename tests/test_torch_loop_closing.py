@@ -25,6 +25,7 @@ JAX runs with x64 off, as outside the test suite."""
 
 import copy
 import dataclasses
+import threading
 
 import numpy as np
 import jax
@@ -36,9 +37,11 @@ from orb_slam3_rgbl_tpu.slam import loop_closing as j_lc
 from orb_slam3_rgbl_tpu.slam.system import System as JSystem
 from orb_slam3_rgbl_tpu_torch import convert
 from orb_slam3_rgbl_tpu_torch.geometry import lie as t_lie
+from orb_slam3_rgbl_tpu_torch.optim import global_ba as t_global_ba
 from orb_slam3_rgbl_tpu_torch.retrieval import tree_vocab as t_tv
 from orb_slam3_rgbl_tpu_torch.slam import loop_closing as t_lc
 from orb_slam3_rgbl_tpu_torch.slam import map_state as t_ms
+from orb_slam3_rgbl_tpu_torch.slam import system as t_system
 
 from test_loop_closing import CircularWorld, circle_trajectory
 
@@ -300,3 +303,124 @@ def test_closer_refuses_unported_branches(state, tmp_path):
             t_lc.LoopCloser(tcfg, tm)
     assert t_lc.LOOP_SPANS == ("loop.index", "loop.detect", "loop.verify", "loop.fuse",
                                "loop.pose_graph", "loop.gba")
+
+
+# ---------------------------------------------------------------------------
+# the global BA of the asynchronous plane (tests/test_gba_async.py's checks),
+# on the corrected state
+
+
+def test_gba_abort_leaves_the_map_and_stops_between_chunks(corrected):
+    jc, tc = corrected
+    kept_t, kept_j = tc.map.kf_pose.copy(), jc.map.kf_pose.copy()
+    preset = threading.Event()
+    preset.set()
+    with jax.enable_x64(False):
+        assert jc._global_ba_solve(iterations=6, abort_event=preset) is None
+    assert tc._gba_iterate(tc._gba_assemble(), 6, preset) is None
+    np.testing.assert_array_equal(tc.map.kf_pose, kept_t)
+    np.testing.assert_array_equal(jc.map.kf_pose, kept_j)
+
+    chunks = []
+    solve = t_global_ba.global_bundle_adjust
+
+    class Tripwire:                  # passes the first check, then aborts
+        def __init__(self):
+            self.n = 0
+
+        def is_set(self):
+            self.n += 1
+            return self.n > 1
+
+    def counted(*a, **k):
+        chunks.append(k.get("iterations"))
+        return solve(*a, **k)
+
+    wire = Tripwire()
+    t_global_ba.global_bundle_adjust = counted
+    try:
+        assert tc._gba_iterate(tc._gba_assemble(), 6, wire) is None
+    finally:
+        t_global_ba.global_bundle_adjust = solve
+    assert wire.n == 2 and chunks == [t_lc.GBA_CHUNK]      # exactly one chunk ran
+    np.testing.assert_array_equal(tc.map.kf_pose, kept_t)
+
+
+def test_gba_writeback_propagates_to_keyframes_made_during_the_solve(corrected):
+    """A keyframe and a landmark created between the snapshot and the
+    writeback move rigidly with their anchor (1e-4) and reference keyframe
+    (1e-3), as tests/test_gba_async.py holds JAX; the two packages' results
+    agree as in test_global_ba_and_writeback_match_jax (centres 5e-3 m)."""
+    jc, tc = corrected
+    with jax.enable_x64(False):
+        out_j = jc._global_ba_solve(iterations=4)
+    out_t = tc._gba_iterate(tc._gba_assemble(), 4)
+    window = out_t[0]
+    np.testing.assert_array_equal(window, np.asarray(out_j[0])[: len(window)])
+    anchor = int(window[-1])
+    T_rel = np.array([0.99875, 0.03, 0.04, -0.01, 0.1, 0.02, -0.05], np.float32)
+    T_rel[:4] /= np.linalg.norm(T_rel[:4])
+    X_new = np.array([[1.0, 2.0, 25.0]], np.float32)
+    fresh = []
+    for m in (jc.map, tc.map):
+        kf_new = m.add_keyframe(
+            t_lie.np_se3_mul(T_rel, m.kf_pose[anchor]), m.kf_uv[anchor], m.kf_octave[anchor],
+            m.kf_desc[anchor], m.kf_depth[anchor], m.kf_ur[anchor], m.kf_feat_valid[anchor],
+            m.kf_lm_idx[anchor].copy(), 99.9, 999, angle=m.kf_angle[anchor])
+        lm_new = m.add_landmarks(X_new, m.kf_desc[kf_new][:1], kf_new, np.array([0]),
+                                 np.array([[0, 0, 1.0]], np.float32),
+                                 np.array([30.0], np.float32), np.array([3.0], np.float32))[0]
+        fresh.append((kf_new, lm_new, t_lie.np_se3_mul(m.kf_pose[kf_new],
+                                                        t_lie.np_se3_inv(m.kf_pose[anchor])),
+                      t_lie.np_se3_apply(m.kf_pose[kf_new], X_new[0])))
+    assert fresh[0][:2] == fresh[1][:2]
+    with jax.enable_x64(False):
+        jc._apply_gba(out_j)
+    assert tc._apply_gba(out_t) is True
+    for m, (kf_new, lm_new, rel_before, xc_before) in zip((jc.map, tc.map), fresh):
+        rel = t_lie.np_se3_mul(m.kf_pose[kf_new], t_lie.np_se3_inv(m.kf_pose[anchor]))
+        np.testing.assert_allclose(rel, rel_before, atol=1e-4)
+        np.testing.assert_allclose(t_lie.np_se3_apply(m.kf_pose[kf_new], m.lm_pos[lm_new]),
+                                   xc_before, atol=1e-3)
+    live = tc.map.valid_kf_ids()
+    np.testing.assert_array_equal(live, jc.map.valid_kf_ids())
+    c_t = t_lie.np_se3_centers(tc.map.kf_pose[live])
+    c_j = t_lie.np_se3_centers(jc.map.kf_pose[live])
+    assert np.abs(c_t - c_j).max() < 5e-3, np.abs(c_t - c_j).max()
+    assert t_ms.check_binding_consistency(tc.map) == []
+
+
+def test_a_second_dispatch_supersedes_the_running_solve(corrected, monkeypatch):
+    """``_dispatch_gba`` twice on the asynchronous plane: the first solve
+    is aborted before its first chunk, the second lands at
+    ``_poll_gba(wait=True)``, both on the ``gba`` thread."""
+    tc = corrected[1]
+    monkeypatch.setattr(t_system, "GBA_ITERATIONS", 2)   # supersession, not convergence
+    ts = t_system.System(tc.cfg, device="cpu")
+    ts.async_mapping = True
+    ts.map, ts.loop_closer = tc.map, tc
+    calls, results = [], []
+    iterate = tc._gba_iterate
+
+    def held(snapshot, iterations, abort_event=None):
+        calls.append((iterations, threading.current_thread().name))
+        if len(calls) == 1:       # held until the next dispatch aborts it
+            assert abort_event.wait(60.0)
+        out = iterate(snapshot, iterations, abort_event)
+        results.append(out)
+        return out
+
+    tc._gba_iterate = held
+    try:
+        ts._dispatch_gba()
+        ts._dispatch_gba()
+        n_events = len(tc.stats["events"])
+        ts._poll_gba(wait=True)
+    finally:
+        del tc._gba_iterate
+        ts.shutdown()
+    assert [c[0] for c in calls] == [2, 2] and {c[1] for c in calls} == {"gba_0"}
+    assert results[0] is None and results[1] is not None
+    assert ts._gba_future is None and ts._gba_exec is None
+    assert tc.stats["events"][n_events - 1]["gba"] == "applied"
+    assert t_ms.check_binding_consistency(tc.map) == []

@@ -24,12 +24,17 @@ rebind_after_merge``, ``System._try_merge`` / ``_do_merge``).
   within 5e-3 m (observed 1.7e-3 m: three keyframes 15 m apart on a
   straight line hold the f32 solve weakly along the view), the same atlas,
   trajectory log, database and closer state; the fused step's device
-  window re-syncs on the welded map.
+  window re-syncs on the welded map; with ``async_mapping`` on, a solve in
+  flight is discarded and the queued keyframes take their welded ids by the
+  JAX ``System``'s rule.
 
 JAX runs with x64 off, as outside the test suite."""
 
+import collections
+import concurrent.futures
 import copy
 import dataclasses
+import threading
 import types
 
 import numpy as np
@@ -545,3 +550,36 @@ def test_do_merge_without_the_mapping_plane(drive):
     assert ts.atlas.n_maps() == 1 and ts.loop_closer.map is ts.map
     assert not cache.have and cache.cap >= ts.map.capacity_kf
     assert t_ms.check_binding_consistency(ts.map) == []
+
+
+def test_do_merge_remaps_the_asynchronous_queues(drive):
+    """The weld's asynchronous half on the JAX state before the weld: a solve
+    in flight is aborted and discarded, queued mapping keyframes take their
+    welded ids by JAX's rule (``_do_merge``: ``kf_remap[k]`` for every
+    in-range keyframe that survives, the rest dropped, order kept), and the
+    queued detections and events, the merge candidate and the shed
+    keyframe, all carrying old ids, are dropped."""
+    b, r = drive["rec"]["before"], drive["rec"]["rebind"]
+    ts = port_system_before_weld(drive)
+    ts.async_mapping = True
+    kf_remap = r["kf_remap"]
+    queue = [int(b["kf_cur"]), len(kf_remap) - 1, len(kf_remap) + 3, -1]
+    expect = [int(kf_remap[k]) for k in queue
+              if 0 <= k < len(kf_remap) and kf_remap[k] >= 0]     # JAX system.py:1003-1005
+    assert expect and expect[0] >= 0
+    ts._map_queue = collections.deque(queue)
+    ts._loop_queue.extend([1, 2])
+    ts._loop_inbox.append((ts.map, None))
+    ts._merge_candidate, ts._last_shed_kf = (ts.map, 0), 0
+    abort, running = threading.Event(), concurrent.futures.Future()
+    running.set_result(None)
+    ts._gba_abort, ts._gba_future = abort, running
+    ts._do_merge(t_merging.MergeEvent(kf_cur=b["kf_cur"], kf_matched=b["kf_cand"],
+                                      entry_idx=b["ei"], n_inliers=0, S12=b["S12"],
+                                      fusion=b["fusion"]))
+    np.testing.assert_array_equal(ts.tracker.ref_kf, drive["rec"]["after"]["tracker"]["ref_kf"])
+    assert list(ts._map_queue) == expect
+    assert abort.is_set() and ts._gba_future is None
+    assert not ts._loop_queue and not ts._loop_inbox
+    assert ts._merge_candidate is None and ts._last_shed_kf is None
+    assert ts.atlas.n_maps() == 1 and t_ms.check_binding_consistency(ts.map) == []

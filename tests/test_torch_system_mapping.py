@@ -87,23 +87,59 @@ def test_mapping_plane_worked_as_in_jax(drive):
     tr_t, tr_j = ts.trajectory(), js.trajectory()
     assert tr_t.shape == tr_j.shape == (N_FRAMES, 7)
     assert np.abs(tr_t[:, 4:] - tr_j[:, 4:]).max() < POSE_TOL_M
-    # the keyframe mirror is fed by the tracker; the hooks of the
-    # asynchronous worker stay unset on the synchronous plane
+    # the keyframe mirror is fed by the tracker; the asynchronous plane's
+    # hooks are wired, as in the JAX System, and idle on the synchronous plane
     t = ts.tracker
     assert t.kf_feats_hook == ts.mapper.dev_cache.add and t.join_mapping_fn == ts._join_mapping
-    assert t.mapping_busy_fn is None and t.mapping_inflight_fn is None and t.kf_guard is None
-    assert ts.mapper.backlog_fn is None
+    assert t.mapping_busy_fn() is False and t.mapping_inflight_fn() is False
+    assert t.kf_guard is ts._kf_lock and t.deferred_kf == js.tracker.deferred_kf == 0
+    assert ts.mapper.backlog_fn() == 0 and ts._map_exec is None and ts._map_future is None
     assert ts.mapper.dev_cache.have == set(range(ts.map.n_kf))
 
 
-def test_async_mapping_is_refused():
-    cfg = dataclasses.replace(t_syn.synthetic_rgbl_config(), loop_closing=False)
-    sysm = TSystem(cfg, enable_mapping=True, device="cpu")
-    assert sysm.async_mapping is False
-    sysm.async_mapping = False
-    with pytest.raises(NotImplementedError, match="item 18"):
-        sysm.async_mapping = True
-    assert sysm.async_mapping is False
+def test_async_mapping_is_accepted_and_wired_as_in_jax():
+    """The setter takes True (the JAX default is False, as here), and
+    ``_spawn_components`` wires the tracker's and the mapper's hooks as the
+    JAX ``System`` does: the same answers from the busy gate, the in-flight
+    test and the backlog for the same queue, job and freeze."""
+    jcfg = j_syn.synthetic_rgbl_config()
+    js = JSystem(jcfg, enable_mapping=True)
+    ts = TSystem(convert.config_from_dict(dataclasses.asdict(jcfg)), enable_mapping=True,
+                 device="cpu")
+    assert js.async_mapping is ts.async_mapping is False
+    ts.async_mapping = True
+    assert ts.async_mapping is True
+    with jax.enable_x64(False):
+        js._spawn_components(64)
+    ts._spawn_components(64)
+    for s in (js, ts):
+        t = s.tracker
+        assert t.pre_kf_hook == s._poll_mapping and t.join_mapping_fn == s._join_mapping
+        assert t.kf_guard is s._kf_lock and t.kf_feats_hook == s.mapper.dev_cache.add
+        assert s.loop_closer.gba_dispatch == s._dispatch_gba
+    assert ts.loop_closer.rng_lock is ts._rng_lock and ts.tracker.reloc_generator is ts._reloc_rng
+
+    class Running:                    # a job in flight
+        def done(self):
+            return False
+
+    for queued, running, frozen in [(0, False, False), (2, False, False), (3, False, False),
+                                    (2, True, False), (1, True, False), (0, True, False),
+                                    (0, False, True)]:
+        answers = []
+        for s in (js, ts):
+            s._map_queue.clear()
+            s._map_queue.extend(range(queued))
+            s._map_future = Running() if running else None
+            s._freeze_kf = frozen
+            answers.append((s.tracker.mapping_busy_fn(), s.tracker.mapping_inflight_fn(),
+                            s.mapper.backlog_fn()))
+        assert answers[0] == answers[1], (queued, running, frozen, answers)
+        assert answers[1][0] == (frozen or queued + running >= 3)
+    for s in (js, ts):
+        s._map_queue.clear()
+        s._map_future = None
+        s._freeze_kf = False
 
 
 def test_reset_drops_the_mapper():
