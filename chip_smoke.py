@@ -41,7 +41,7 @@ tracking host ms with mapping on. For the natural policy it prints, frame
 by frame, what the keyframe decision saw and which clause fired, here and
 on a 320×192 drive of 600 features (the size of the CPU tests).
 Phase 6 drives ``System(cfg)`` with nothing switched off — mapping and loop
-closing on — over 132 frames of a circle of 6 m radius inside a closed
+closing on — over 132 frames (100 under the natural policy) of a circle of 6 m radius inside a closed
 square room (one lap of 84 frames, then 48 frames over the start): every
 keyframe is indexed in the keyframe database, a loop is detected, verified
 by Sim3, corrected (fusion, essential graph, landmark re-anchoring) and
@@ -69,8 +69,20 @@ weld's counts and host ms by ``merge.*`` span, then drives the same frames
 again with the revisit under the profiler.
 Phase 8 trains a tree vocabulary (k=8, depth=3) on phase 6's map, holds its
 recall@3 against the LSH words' on that frozen map, times one ``bow`` of a
-frame, and drives phase 6's forced pass again with ``vocab_path`` set: it
-must close the loop.
+frame, and drives the first 100 frames of phase 6's forced pass again with
+``vocab_path`` set: it must close the loop.
+Phase 9 drives phase 6's forced pass with ``async_mapping = True``; phase 10
+drives phase 2's first 21 frames with the two other LiDAR upsamplers.
+Phase 11 writes phase 2's 41 frames to disk as a KITTI odometry sequence
+(8-bit RGB PNGs, 16-bit depth PNGs, ``.bin`` clouds, a flat-key settings
+file) and runs the two KITTI drivers of ``orb_slam3_rgbl_tpu_torch/examples``
+on it as users run them: RGB-L with ``--stats``, RGB-D with
+``--save-atlas``, a fresh RGB-D driver with ``--load-atlas`` over frames
+20–40 (relocalized on the first frame, then in localization mode), and 11
+frames of a distorted camera (per-stage path). It checks every frame, the
+launches, the decoded images bit for bit, the frozen map and the
+trajectories, and prints the drivers' host ms per frame, the stage table,
+decode ms per PNG and the atlas's save and load ms and bytes.
 
 ``--mapping-drive N`` runs, instead of the phases, N frames tracking only
 and then with the mapping plane on (a keyframe every 4 in both): the
@@ -93,10 +105,13 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -136,6 +151,10 @@ PROFILED_JOB = 4        # phase 5: the mapping job (0-based) run under torch.pro
 CLOUD_AZ, CLOUD_EL = 2048, 64   # 131,072 points (System.CLOUD_CAP)
 # phase 6: frames of the loop drive, frames a lap, the circle's radius (m)
 N_LOOP, LOOP_PERIOD, LOOP_RADIUS = 132, 84, 6.0
+# frames of the two loop drives that need not see the whole drive: the
+# natural-policy pass of phase 6 (no loop event at this width in any run
+# since PR 5) and phase 8's vocab_path drive (its loop closed at frame 76)
+N_LOOP_SHORT = 100
 MIN_LOOP_FRAME_GAP = 30     # frames between the loop's two keyframes
 MAX_CLASSIC_AFTER_LOOP = 3  # frames right after the event that may leave the fused step
 PROFILED_ITERATIONS = 2     # iterations of the pose graph and of the global BA under the profiler
@@ -315,6 +334,43 @@ def brief_blocks_bytes(comp, corners, block_bins) -> float:
     idx = brief_cuda._tables(comp.device)[brief_cuda._slot_bins(block_bins, S)]
     return (4.0 * sampled_pixels(comp, corners, idx) + brief_cuda.binned_pattern_tables().nbytes
             + corners.numel() * 4.0 + block_bins.numel() * 4.0 + 32.0 * S)
+
+
+def write_png(path: str, arr: np.ndarray, filters=(1,)):
+    """A non-interlaced PNG of ``arr`` — (H, W) gray, (H, W, 2) gray-alpha,
+    (H, W, 3) RGB or (H, W, 4) RGBA; uint8 or uint16 — with the standard
+    library: row r filtered by ``filters[r % len(filters)]`` (0 None, 1
+    Sub, 2 Up, 3 Average, 4 Paeth), zlib-compressed."""
+    arr = np.asarray(arr)
+    h, w = arr.shape[:2]
+    ch = 1 if arr.ndim == 2 else arr.shape[2]
+    depth = 16 if arr.dtype == np.uint16 else 8
+    raw = (arr.astype(">u2") if depth == 16 else arr.astype(np.uint8)).tobytes()
+    bpp = ch * depth // 8
+    x = np.frombuffer(raw, np.uint8).reshape(h, w * bpp).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    ft = np.array([filters[r % len(filters)] for r in range(h)], np.uint8)
+    body = np.concatenate([ft[:, None], ((x - preds[ft, np.arange(h)]) & 255).astype(np.uint8)],
+                          axis=1).tobytes()
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(body, 6)) + chunk(b"IEND", b""))
 
 
 def kitti_synthetic_config():
@@ -1862,6 +1918,351 @@ def phase10_upsamplers(cfg, traj, frames, device, id_depth_span):
             log(f"  {method}: profiler recorded no device events (track.depth not measured)")
 
 
+# phase 11: the KITTI drivers on a sequence written to disk
+N_KITTI = 41              # frames of the sequence (phase 2's canyon)
+RESUME_FROM = 20          # the atlas-loading run drives frames RESUME_FROM.. again
+N_DISTORTED = 11          # frames through the distorted camera
+DEPTH_FACTOR = 256.0      # RGBD.DepthMapFactor of the settings (KITTI's depth PNG scale)
+DISTORTION = dict(k1=-0.02, k2=0.005, p1=2e-4, p2=-1e-4)   # ~11 px at the image corners
+RGB_FILTERS = (0, 1, 2, 3, 4)   # the image PNGs' row filters, in turn: every kind decoded
+VISIBILITY = ("lm_visible", "lm_found")   # bumped by tracking in localization mode too
+
+
+def settings_yaml(cfg, path: str, distortion=None):
+    """A legacy flat-key settings file (``Examples/RGB-L/KITTI00-02.yaml``'s
+    key set) with ``cfg``'s constants, ``DEPTH_FACTOR`` and ``distortion``."""
+    cam, o, lc = cfg.camera, cfg.orb, cfg.lidar
+    d = {**dict(k1=0.0, k2=0.0, p1=0.0, p2=0.0), **(distortion or {})}
+    lines = ["%YAML:1.0", "---", 'Camera.type: "PinHole"',
+             f"Camera.fx: {cam.fx}", f"Camera.fy: {cam.fy}", f"Camera.cx: {cam.cx}",
+             f"Camera.cy: {cam.cy}"] + [f"Camera.{k}: {v}" for k, v in d.items()] + [
+        f"Camera.width: {cam.width}", f"Camera.height: {cam.height}", f"Camera.fps: {cfg.fps}",
+        f"Camera.bf: {cam.bf}", "Camera.RGB: 1", f"ThDepth: {cam.th_depth}",
+        f"RGBD.DepthMapFactor: {DEPTH_FACTOR}", f'LiDAR.Method: "{lc.method}"',
+        f"LiDAR.min_dist: {lc.min_dist}", f"LiDAR.max_dist: {lc.max_dist}",
+        f'LiDAR.MethodInverseDilation.KernelType: "{lc.dil_kernel_type}"',
+        f"LiDAR.MethodInverseDilation.KernelSize_u: {lc.dil_kernel_size_u}",
+        f"LiDAR.MethodInverseDilation.KernelSize_v: {lc.dil_kernel_size_v}",
+        f"ORBextractor.nFeatures: {o.n_features}", f"ORBextractor.scaleFactor: {o.scale_factor}",
+        f"ORBextractor.nLevels: {o.n_levels}", f"ORBextractor.iniThFAST: {o.ini_th_fast}",
+        f"ORBextractor.minThFAST: {o.min_th_fast}"]
+    tr = np.asarray(lc.T_velo_cam).reshape(3, 4)
+    lines += [f"LiDAR.Tr{r + 1}{c + 1}: {float(tr[r, c])!r}" for r in range(3) for c in range(4)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def rgb_of(gray: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """8-bit RGB of a rendered gray image: the gray with small per-channel
+    offsets, so that the decoder's RGB → gray weights matter."""
+    g = np.clip(np.round(gray), 0, 255).astype(np.int16)
+    off = rng.integers(-3, 4, g.shape + (3,), dtype=np.int16)
+    return np.clip(g[..., None] + off, 0, 255).astype(np.uint8)
+
+
+def gray_of(rgb: np.ndarray) -> np.ndarray:
+    """libpng's RGB → gray, as ``cv2.IMREAD_GRAYSCALE`` gives it."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    return ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.float32)
+
+
+def write_sequence(root: str, cfg, frames, depths, times):
+    """A KITTI odometry sequence directory: ``image_2`` (8-bit RGB PNG),
+    ``depth`` (16-bit PNG, metres × ``DEPTH_FACTOR``), ``velodyne`` (float32
+    .bin), ``times.txt``, ``calib.txt``. Returns the gray each image must
+    decode to."""
+    rng = np.random.default_rng(SEED)
+    for sub in ("image_2", "depth", "velodyne"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    expect = []
+    for i, ((img, pts, _), dep) in enumerate(zip(frames, depths)):
+        rgb = rgb_of(img.cpu().numpy(), rng)
+        expect.append(gray_of(rgb))
+        write_png(os.path.join(root, "image_2", f"{i:06d}.png"), rgb, RGB_FILTERS)
+        d16 = np.clip(np.round(dep.cpu().numpy() * DEPTH_FACTOR), 0, 65535).astype(np.uint16)
+        write_png(os.path.join(root, "depth", f"{i:06d}.png"), d16)
+        if pts is not None:
+            pts.cpu().numpy().astype(np.float32).tofile(
+                os.path.join(root, "velodyne", f"{i:06d}.bin"))
+    np.savetxt(os.path.join(root, "times.txt"), np.asarray(times))
+    cam = cfg.camera
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write(f"P2: {cam.fx} 0 {cam.cx} 0 0 {cam.fy} {cam.cy} 0 0 0 1 0\n")
+        f.write("Tr: " + " ".join(repr(float(v)) for v in cfg.lidar.T_velo_cam) + "\n")
+    return expect
+
+
+def dense_depths(cfg, frames, device):
+    """Each frame's dense depth image (metres): the port's
+    ``compute_depth_from_pointcloud`` of its LiDAR sweep."""
+    cam, lc = cfg.camera, cfg.lidar
+    P = lidar_projection(cfg, device)
+    kp = torch.zeros((1, 2), device=device)
+    out = []
+    for _, pts, mask in frames:
+        _, _, dense = depth_ops.compute_depth_from_pointcloud(
+            pts, P, kp, kp, height=cam.height, width=cam.width, bf=cam.bf, method=lc.method,
+            min_dist=lc.min_dist, max_dist=lc.max_dist, dil_kind=lc.dil_kernel_type,
+            dil_ku=lc.dil_kernel_size_u, dil_kv=lc.dil_kernel_size_v, valid_mask=mask)
+        out.append(dense)
+    return out
+
+
+def distort(cfg, images, depths):
+    """The frames as a camera with ``DISTORTION`` sees them: each of its
+    pixels samples the pinhole frame where its undistorted coordinate lands
+    (``grid_sample`` on the frames' device; bilinear for the image, nearest
+    for depth)."""
+    from orb_slam3_rgbl_tpu_torch.geometry.camera import undistort_points
+
+    cam = dataclasses.replace(cfg.camera, **DISTORTION)
+    dev = images[0].device
+    v, u = torch.meshgrid(torch.arange(cam.height, dtype=torch.float32, device=dev),
+                          torch.arange(cam.width, dtype=torch.float32, device=dev), indexing="ij")
+    src = undistort_points(cam, torch.stack([u, v], dim=-1))
+    grid = torch.stack([src[..., 0] / (cam.width - 1) * 2 - 1,
+                        src[..., 1] / (cam.height - 1) * 2 - 1], dim=-1)[None]
+
+    def warp(x, mode):
+        return torch.nn.functional.grid_sample(x[None, None], grid, mode=mode,
+                                               padding_mode="border", align_corners=True)[0, 0]
+
+    return [warp(i, "bilinear") for i in images], [warp(d, "nearest") for d in depths]
+
+
+@contextlib.contextmanager
+def spy_drivers(rec: dict):
+    """Per frame of a driver run: the tracking stages it ran, the images it
+    decoded (gray, with ms), the depth PNGs it read (ms); ``on_first``
+    (called once with the System after its first frame)."""
+    from orb_slam3_rgbl_tpu_torch.io import kitti as kitti_mod, png as png_mod
+
+    calls = []
+    t_rgbl, t_rgbd = System.track_rgbl, System.track_rgbd
+    load_gray, read_png = kitti_mod.load_image_gray, png_mod.read_png
+
+    def tracked(fn):
+        def wrapper(self, *a, **k):
+            calls.clear()
+            res = fn(self, *a, **k)
+            rec["frame_calls"].append(list(calls))
+            if len(rec["frame_calls"]) == 1 and rec.get("on_first") is not None:
+                rec["on_first"](self, res)
+            return res
+        return wrapper
+
+    def timed_gray(path):
+        t = time.perf_counter()
+        img = load_gray(path)
+        rec["gray"].append((img, (time.perf_counter() - t) * 1e3))
+        return img
+
+    def timed_png(path):
+        t = time.perf_counter()
+        out = read_png(path)
+        if os.sep + "depth" + os.sep in path:
+            rec["depth_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    System.track_rgbl, System.track_rgbd = tracked(t_rgbl), tracked(t_rgbd)
+    kitti_mod.load_image_gray, png_mod.read_png = timed_gray, timed_png
+    try:
+        with spy(calls, []):
+            yield
+    finally:
+        System.track_rgbl, System.track_rgbd = t_rgbl, t_rgbd
+        kitti_mod.load_image_gray, png_mod.read_png = load_gray, read_png
+
+
+def run_driver(module, argv, device, on_first=None):
+    """One driver run under ``spy_drivers``, the launch counts set to 0 just
+    before it: (System, TrackResults, host s, record, launch counts)."""
+    rec = {"frame_calls": [], "gray": [], "depth_ms": [], "on_first": on_first}
+    cuda_build.reset_launch_counts()
+    with spy_drivers(rec):
+        slam, results, times = module.run(module.parse_args(argv + ["--device", device.type]))
+    return slam, results, times, rec, dict(cuda_build.launch_counts)
+
+
+def check_run(what: str, results, rec, counts, expect_gray, traj, first: int,
+              fused_from, check_fused: bool = True):
+    """Phase 11's hard checks of one driver run: every frame OK with at
+    least ``MIN_INLIERS``, fused from frame ``fused_from`` on (never with
+    None; unchecked without ``check_fused``), 1 K1 + 1 K2 a frame, decoded
+    images equal to ``expect_gray``,
+    the error against ground truth (frames ``first``..) under the bound, one
+    finite pose a line in ``CameraTrajectory.txt``."""
+    n = len(results)
+    states = [r.state for r in results]
+    inliers = [r.n_inliers for r in results]
+    if any(s != trk.OK for s in states) or min(inliers) < MIN_INLIERS:
+        fail(f"{what}: states {[trk.STATE_NAMES[s] for s in states]}, inliers {inliers}; every "
+             f"frame must be OK with >= {MIN_INLIERS}")
+    fused = ["_accept_fused" in c for c in rec["frame_calls"]]
+    if check_fused and fused_from is None and any(fused):
+        fail(f"{what}: fused frames {[i for i, f in enumerate(fused) if f]}; expected none")
+    if check_fused and fused_from is not None and not all(fused[fused_from:]):
+        fail(f"{what}: fused frames {[i for i, f in enumerate(fused) if f]}; expected "
+             f"{fused_from}..{n - 1}")
+    if counts.get("fast_and_blur") != n or counts.get("brief_continuous") != n:
+        fail(f"{what}: launch counts {counts} over {n} frames; expected 1 K1 and 1 K2 a frame")
+    if len(rec["gray"]) != n or any(not np.array_equal(g, e) for (g, _), e in
+                                    zip(rec["gray"], expect_gray)):
+        fail(f"{what}: a decoded image differs from the numpy RGB -> gray of its PNG")
+    est = np.stack([lie.np_se3_centers(r.pose) for r in results])
+    errs = np.linalg.norm(est - (traj[first:first + n, 4:7] - traj[0, 4:7]), axis=1)
+    bound = MAX_TRANS_ERR_M * max(1.0, (first + n) / N_DRIVE)
+    if not float(errs.max()) < bound:
+        fail(f"{what}: translation error {errs.max():.3f} m >= {bound:.3f} m")
+    return errs, fused
+
+
+def phase11_kitti(cfg, traj, frames, device, workdir: str):
+    """The two KITTI drivers as users run them, on the canyon written to
+    disk as a KITTI sequence (``write_sequence``): the RGB-L driver with
+    ``--stats``; the RGB-D driver with ``--save-atlas``; a fresh RGB-D driver
+    with ``--load-atlas`` over frames ``RESUME_FROM``.. again (relocalized on
+    the first, then in localization mode); the RGB-D driver over
+    ``N_DISTORTED`` frames of a distorted camera (per-stage path)."""
+    from orb_slam3_rgbl_tpu_torch.examples import run_kitti_rgbd, run_kitti_rgbl
+
+    n = len(frames)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    depths = dense_depths(cfg, frames, device)
+    seq = os.path.join(workdir, "seq")
+    expect = write_sequence(seq, cfg, frames, depths, [i * 0.1 for i in range(n)])
+    settings = os.path.join(workdir, "settings.yaml")
+    settings_yaml(cfg, settings)
+    # the revisit: frames RESUME_FROM.. again, later in time
+    revisit = os.path.join(workdir, "revisit")
+    for sub in ("image_2", "depth"):
+        os.makedirs(os.path.join(revisit, sub))
+        for k, i in enumerate(range(RESUME_FROM, n)):
+            os.symlink(os.path.join(seq, sub, f"{i:06d}.png"),
+                       os.path.join(revisit, sub, f"{k:06d}.png"))
+    np.savetxt(os.path.join(revisit, "times.txt"),
+               n * 0.1 + 0.1 * np.arange(n - RESUME_FROM))
+    # the distorted camera's frames and settings
+    dimg, ddep = distort(cfg, [f[0] for f in frames[:N_DISTORTED]], depths[:N_DISTORTED])
+    dist_seq = os.path.join(workdir, "distorted")
+    expect_d = write_sequence(dist_seq, cfg, [(i, None, None) for i in dimg], ddep,
+                              [i * 0.1 for i in range(N_DISTORTED)])
+    dist_settings = os.path.join(workdir, "distorted.yaml")
+    settings_yaml(cfg, dist_settings, DISTORTION)
+    log(f"phase 11: wrote a {n}-frame KITTI sequence ({cfg.camera.width}x{cfg.camera.height} RGB "
+        f"PNGs with row filters {RGB_FILTERS}, 16-bit depth PNGs, {frames[0][1].shape[0]}-point "
+        f".bin clouds) and {N_DISTORTED} distorted frames in {time.perf_counter() - t0:.1f} s")
+
+    # ---- the RGB-L driver ---------------------------------------------------
+    out = os.path.join(workdir, "rgbl_traj.txt")
+    stats = os.path.join(workdir, "rgbl_stats.txt")
+    slam, results, times, rec, counts = run_driver(
+        run_kitti_rgbl, [settings, seq, "--out", out, "--stats", stats], device)
+    errs, _ = check_run("RGB-L driver", results, rec, counts, expect, traj, 0, 2)
+    rows = np.loadtxt(out)
+    if rows.shape != (n, 12) or not np.isfinite(rows).all():
+        fail(f"RGB-L driver: CameraTrajectory.txt holds {rows.shape}, expected ({n}, 12) finite")
+    ms = np.asarray(times) * 1e3
+    log(f"RGB-L driver: {n} frames, all OK, fused from frame 2, {slam.map.n_kf} keyframes, "
+        f"launches {counts}; host ms/frame median {np.median(ms):.2f} mean {ms.mean():.2f}; max "
+        f"trans err {errs.max():.3f} m; decode ms/PNG (RGB, filters {RGB_FILTERS}) median "
+        f"{statistics.median([m for _, m in rec['gray']]):.2f}")
+    log("  StageTimer (--stats):")
+    for line in open(stats).read().splitlines():
+        log("    " + line)
+    del slam
+
+    # ---- the RGB-D driver, saving the atlas ----------------------------------
+    atlas = os.path.join(workdir, "atlas.npz")
+    io_ms = {}
+    save, load = System.save_atlas, System.load_atlas
+
+    def timed(fn, key):
+        def wrapper(self, *a, **k):
+            t = time.perf_counter()
+            fn(self, *a, **k)
+            io_ms[key] = (time.perf_counter() - t) * 1e3
+        return wrapper
+
+    System.save_atlas, System.load_atlas = timed(save, "save"), timed(load, "load")
+    try:
+        slam, results, times, rec, counts = run_driver(
+            run_kitti_rgbd, [settings, seq, "--out", os.path.join(workdir, "rgbd_traj.txt"),
+                             "--save-atlas", atlas], device)
+        errs, _ = check_run("RGB-D driver", results, rec, counts, expect, traj, 0, 2)
+        n_kf_saved = slam.map.n_kf
+        ms = np.asarray(times) * 1e3
+        log(f"RGB-D driver: {n} frames, all OK, fused from frame 2, {n_kf_saved} keyframes, "
+            f"launches {counts}; host ms/frame median {np.median(ms):.2f} mean {ms.mean():.2f}; "
+            f"max trans err {errs.max():.3f} m; decode ms/PNG RGB median "
+            f"{statistics.median([m for _, m in rec['gray']]):.2f}, 16-bit depth median "
+            f"{statistics.median(rec['depth_ms']):.2f}; save_atlas {io_ms['save']:.1f} ms, "
+            f"{os.path.getsize(atlas)} bytes")
+        del slam
+
+        # ---- a fresh RGB-D driver loading it: relocalization, then localization
+        frozen = {}
+
+        def on_first(sysm, res):
+            if res.state != trk.OK:
+                fail(f"load_atlas: the first frame of the revisit is {trk.STATE_NAMES[res.state]}; "
+                     "expected OK through relocalization")
+            frozen["reloc_frame"] = sysm.tracker.last_reloc_frame
+            frozen["maps"] = sysm.atlas.n_maps()
+            sysm.activate_localization_mode()
+            m = sysm.map
+            frozen["arrays"] = {f.name: getattr(m, f.name).copy()
+                                for f in dataclasses.fields(m)
+                                if isinstance(getattr(m, f.name), np.ndarray)}
+            frozen["counters"] = (m.n_kf, m.n_lm, m.version)
+
+        slam, results, times, rec, counts = run_driver(
+            run_kitti_rgbd, [settings, revisit, "--out", os.path.join(workdir, "resume.txt"),
+                             "--load-atlas", atlas], device, on_first=on_first)
+    finally:
+        System.save_atlas, System.load_atlas = save, load
+    errs, fused = check_run("load_atlas + localization", results, rec, counts,
+                            expect[RESUME_FROM:], traj, RESUME_FROM, None, check_fused=False)
+    m = slam.map
+    if frozen.get("maps") != 1 or slam.atlas.n_maps() != 1:
+        fail(f"load_atlas: {frozen.get('maps')} / {slam.atlas.n_maps()} atlas maps, expected 1")
+    if frozen.get("reloc_frame") != n:
+        fail(f"load_atlas: relocalized at frame {frozen.get('reloc_frame')}, expected frame {n}")
+    if any(r.created_kf for r in results[1:]) or (m.n_kf, m.n_lm, m.version) != frozen["counters"]:
+        fail(f"localization mode made a keyframe or moved the map: {(m.n_kf, m.n_lm, m.version)} "
+             f"against {frozen['counters']}")
+    moved = [k for k, v in frozen["arrays"].items()
+             if k not in VISIBILITY and not np.array_equal(getattr(m, k), v)]
+    if moved:
+        fail(f"localization mode changed the map's arrays {moved}")
+    ms = np.asarray(times) * 1e3
+    log(f"load_atlas + localization mode: {len(results)} frames of the revisit, all OK, "
+        f"relocalized on the first (frame {n}) into 1 atlas map, then no keyframe and every map "
+        f"array but {VISIBILITY} unchanged to the bit; fused frames "
+        f"{[i for i, f in enumerate(fused) if f]}; launches {counts}; load_atlas "
+        f"{io_ms['load']:.1f} ms; host ms/frame median {np.median(ms):.2f} mean {ms.mean():.2f}; "
+        f"max trans err {errs.max():.3f} m")
+    del slam
+
+    # ---- the distorted camera: the per-stage path ------------------------------
+    slam, results, times, rec, counts = run_driver(
+        run_kitti_rgbd, [dist_settings, dist_seq, "--out", os.path.join(workdir, "dist.txt")],
+        device)
+    errs, _ = check_run("distorted camera", results, rec, counts, expect_d, traj, 0, None)
+    if slam._undistort_cam is None or slam._fast is not None:
+        fail("distorted camera: the System did not undistort, or it built the fused step")
+    ms = np.asarray(times) * 1e3
+    log(f"distorted camera ({DISTORTION}): {len(results)} frames, all OK, none fused, launches "
+        f"{counts}; host ms/frame median {np.median(ms):.2f} mean {ms.mean():.2f}; max trans err "
+        f"{errs.max():.3f} m")
+    del slam
+    if device.type == "cuda":
+        log(f"phase 11 peak memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+
 def long_mapping_drive(cfg, device, n_frames: int):
     """``--mapping-drive N``: N frames of the canyon (the far wall stands
     120 m ahead: N ≤ 161), tracking only and then with the mapping plane
@@ -2112,7 +2513,7 @@ def main():
     loop_traj, loop_frames = render_loop_drive(loop_cfg, device)
     torch.cuda.synchronize()
     log(f"rendered {N_LOOP} frames of the loop drive in {time.perf_counter() - t0:.1f} s")
-    loop_run = phase6_loop(loop_cfg, loop_traj, loop_frames, device, 0)
+    loop_run = phase6_loop(loop_cfg, loop_traj, loop_frames[:N_LOOP_SHORT], device, 0)
     if loop_run is None:
         loop_run = phase6_loop(loop_cfg, loop_traj, loop_frames, device, KF_EVERY)
     if loop_run is None:
@@ -2132,11 +2533,19 @@ def main():
     # ---- phase 10: the two other LiDAR upsamplers on the fused step ----------
     id_depth = prof_stats[0][3].get("track.depth", (0.0, 0.0, 0)) if prof_stats else (0.0, 0.0, 0)
     phase10_upsamplers(cfg, traj, frames, device, id_depth)
+    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
+
+    # ---- phase 11: the KITTI drivers on a sequence written to disk ------------
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
+    try:
+        phase11_kitti(cfg, traj, frames[:N_KITTI], device, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     del frames
     log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
 
     # ---- phase 8, second half: the loop drive with vocab_path set ------------
-    phase8_vocab_drive(loop_cfg, loop_traj, loop_frames, vocab_path, device)
+    phase8_vocab_drive(loop_cfg, loop_traj, loop_frames[:N_LOOP_SHORT], vocab_path, device)
     log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
 
     # ---- phase 9: the asynchronous planes on phase 6's frames ----------------

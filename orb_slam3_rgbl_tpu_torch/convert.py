@@ -205,11 +205,9 @@ def atlas_entry_from_numpy(jax_entry, device=None) -> AtlasEntry:
     if jax_entry.db is not None:
         src = jax_entry.db
         voc = getattr(src, "vocabulary", None)
-        db = KeyFrameDatabase(
-            src.vectors.shape[0], device=device,
+        db = KeyFrameDatabase.from_numpy(
+            np.asarray(src.vectors, np.float32), src.present, device=device,
             vocabulary=None if voc is None else tree_vocabulary_from_numpy(voc, device))
-        db.vectors.copy_(torch.as_tensor(np.asarray(src.vectors, np.float32)))
-        db.present = np.array(src.present, bool)
     return AtlasEntry(
         map=map_state_from_numpy(jax_entry.map), db=db,
         traj_rel=[np.array(t, np.float32) for t in jax_entry.traj_rel],

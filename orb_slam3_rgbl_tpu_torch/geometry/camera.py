@@ -71,6 +71,25 @@ def unproject(cam: PinholeCamera, uv: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)
 
 
+def undistort_points(cam: PinholeCamera, uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """Distorted pixels (..., 2) → undistorted pixels (..., 2) under the same
+    K (``Frame::UndistortKeyPoints``, ``cv::undistortPoints``): a fixed
+    number of compensation steps of the radial-tangential model, on the
+    tensor's device; the identity without distortion."""
+    if not cam.has_distortion:
+        return uv
+    xd = (uv[..., 0] - cam.cx) / cam.fx
+    yd = (uv[..., 1] - cam.cy) / cam.fy
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+        dx = 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+        dy = cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+        x, y = (xd - dx) / radial, (yd - dy) / radial
+    return torch.stack([cam.fx * x + cam.cx, cam.fy * y + cam.cy], dim=-1)
+
+
 def intrinsics(cam: PinholeCamera, dtype=torch.float32, device=None) -> torch.Tensor:
     """The 3×3 matrix K on ``device`` (default ``cuda``)."""
     return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],

@@ -44,6 +44,29 @@ class KeyFrameDatabase:
         self._lock = threading.Lock()
         self._order = StreamOrder(self.device)
 
+    @classmethod
+    def from_numpy(cls, vectors: np.ndarray, present: np.ndarray, vocabulary=None,
+                   device=None) -> "KeyFrameDatabase":
+        """A database holding saved signature rows (uploaded to ``device``,
+        default ``cuda``) and presence flags."""
+        db = cls(vectors.shape[0], vocabulary=vocabulary, device=device)
+        if tuple(vectors.shape) != tuple(db.vectors.shape):
+            raise ValueError(f"database rows {tuple(vectors.shape)}, the vocabulary gives "
+                             f"{tuple(db.vectors.shape)}")
+        with db._lock:
+            db.vectors.copy_(torch.as_tensor(np.asarray(vectors, np.float32)))
+            db._order.wrote([db.vectors])
+            db.present = np.array(present, bool)
+        return db
+
+    def to_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(signature rows, presence flags) on the host, after every
+        stream's last write."""
+        with self._lock:
+            self._order.before_read([self.vectors])
+            vectors, present = self.vectors, self.present.copy()
+        return vectors.cpu().numpy(), present
+
     def _bow(self, desc, valid) -> torch.Tensor:
         """Signature of one frame; ``desc`` (N, 8) as uint32 numpy words or
         an int32 tensor with the same bits."""

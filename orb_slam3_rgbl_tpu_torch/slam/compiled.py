@@ -1,6 +1,7 @@
 """The fused per-frame tracking step (counterpart of
-``orb_slam3_rgbl_tpu.slam.compiled``): image + LiDAR cloud in → features,
-bindings and pose out, with no host round-trip inside the step.
+``orb_slam3_rgbl_tpu.slam.compiled``): image + LiDAR cloud (or depth image)
+in → features, bindings and pose out, with no host round-trip inside the
+step.
 
 Covers reference ``Tracking::Track`` stages: Frame ctor (extraction +
 LiDAR depth), TrackWithMotionModel (SearchByProjection against the last
@@ -62,6 +63,15 @@ def attach_lidar(cfg: SlamConfig, feats, points, P, valid_mask):
         dil_kind=lc.dil_kernel_type, dil_ku=lc.dil_kernel_size_u,
         dil_kv=lc.dil_kernel_size_v, valid_mask=valid_mask)
     return feats
+
+
+def attach_depth(cfg: SlamConfig, mode: str, feats, depth_src, depth_valid, P):
+    """The frame's depth by ``mode``: the LiDAR cloud ``depth_src`` with its
+    mask ``depth_valid`` ('rgbl', through the projection ``P``) or the
+    metric (H, W) depth image ``depth_src`` ('rgbd')."""
+    if mode == "rgbd":
+        return frame_mod.attach_depth_map(feats, depth_src, cfg.camera.bf)
+    return attach_lidar(cfg, feats, depth_src, P, depth_valid)
 
 
 def make_frame_step(cfg: SlamConfig, device=None):
@@ -160,10 +170,13 @@ def make_track_step(cfg: SlamConfig, window_cap: int = 8192, mm_th: float = 15.0
        win_pos, win_desc, win_maxdist, win_valid) -> TrackStepOut
 
     ``mode`` 'rgbl': ``depth_src`` is a fixed-capacity (Np, 4) LiDAR cloud
-    with ``depth_valid`` masking real returns. The 'rgbd' and 'mono' modes
-    are not ported yet."""
-    if mode != "rgbl":
-        raise NotImplementedError(f"track mode {mode!r} is not ported yet (rgbl only)")
+    with ``depth_valid`` masking real returns; 'rgbd': ``depth_src`` is the
+    (H, W) metric depth image (``Frame::ComputeStereoFromRGBD``) and
+    ``depth_valid`` is ignored. The 'mono' mode waits for ROADMAP Queue 1
+    item 14."""
+    if mode not in ("rgbl", "rgbd"):
+        raise NotImplementedError(
+            f"track mode {mode!r} is not ported yet (ROADMAP Queue 1 item 14)")
     dev = resolve(device)
     cam = cfg.camera
     H, W = cam.height, cam.width
@@ -199,7 +212,7 @@ def make_track_step(cfg: SlamConfig, window_cap: int = 8192, mm_th: float = 15.0
         with record_function("track.extract"):
             feats = extract(cfg, img, dev)
         with record_function("track.depth"):
-            feats = attach_lidar(cfg, feats, depth_src, P_lidar, depth_valid)
+            feats = attach_depth(cfg, mode, feats, depth_src, depth_valid, P_lidar)
         N = feats.uv.shape[0]
 
         # ---- TrackWithMotionModel --------------------------------------

@@ -122,7 +122,8 @@ class FastPath:
     def run(self, img, points, cloud_valid, Tcw_pred: np.ndarray) -> compiled.TrackStepOut:
         return self.step(
             self._dev(img, torch.float32), self._dev(points, torch.float32),
-            self._dev(cloud_valid, torch.bool), self._dev(Tcw_pred, torch.float32),
+            None if cloud_valid is None else self._dev(cloud_valid, torch.bool),
+            self._dev(Tcw_pred, torch.float32),
             self.prev_uv, self.prev_desc, self.prev_oct, self.prev_angle,
             self.prev_Xw, self.prev_bound,
             self.win_pos, self.win_desc, self.win_maxdist, self.win_valid)

@@ -2,7 +2,8 @@
 ``orb_slam3_rgbl_tpu.slam.frame``): pyramid → FAST + blur + BRIEF
 composite (kernel K1, one launch over all levels) → balanced selection →
 orientation → steered BRIEF over all levels (kernel K2, or K3 in the
-binned mode; one launch), then the RGB-L depth association. The output
+binned mode; one launch), then the depth association: LiDAR (RGB-L) or a
+depth image (RGB-D). The output
 is a fixed-capacity ``FrameFeatures`` (padded + masked).
 """
 
@@ -117,3 +118,13 @@ def attach_lidar_depth(feats: FrameFeatures, points, P, height: int, width: int,
     d = torch.where(feats.valid, d, -1.0)
     ur = torch.where(feats.valid, ur, -1.0)
     return feats._replace(depth=d, u_right=ur), dense
+
+
+def attach_depth_map(feats: FrameFeatures, depth_map, bf: float,
+                     depth_factor: float = 1.0) -> FrameFeatures:
+    """RGB-D: sample a depth image (``depth_map / depth_factor``, metres) at
+    the keypoints (reference ``Frame::ComputeStereoFromRGBD``)."""
+    d, ur = depth_ops.feature_depth(depth_map / depth_factor, feats.uv, feats.uv, bf)
+    d = torch.where(feats.valid, d, -1.0)
+    ur = torch.where(feats.valid, ur, -1.0)
+    return feats._replace(depth=d, u_right=ur)

@@ -26,6 +26,7 @@ which exists for XLA's compile tiers and has nothing to warm here.
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import threading
 from typing import NamedTuple
@@ -43,6 +44,7 @@ from orb_slam3_rgbl_tpu_torch.ops import matching
 from orb_slam3_rgbl_tpu_torch.optim import local_ba
 from orb_slam3_rgbl_tpu_torch.slam.frame import inv_scale_sigma2
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState, dedup_kf_bindings
+from orb_slam3_rgbl_tpu_torch.utils.profiling import stage
 
 log = logging.getLogger(__name__)
 
@@ -319,12 +321,16 @@ class LocalMapper:
         self._lba_skipped = 0       # consecutive skips under backlog
         # what the plane did, summed over its jobs (read by callers)
         self.counts = collections.Counter()
+        self.timer = None           # StageTimer, wired by System (its stage times)
 
     def _dev(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
+    @contextlib.contextmanager
     def _stage(self, name):
-        return record_function("map." + name)
+        """The ``map.<name>`` profiler span and, with a timer, its stage."""
+        with record_function("map." + name), stage(self.timer, name):
+            yield
 
     # ------------------------------------------------------------------
     def process_keyframe(self, kf_id: int, run_ba: bool = True):

@@ -1,7 +1,8 @@
 """System facade, the port's public entry point (counterpart of
 ``orb_slam3_rgbl_tpu.slam.system``; reference ``System.cc``).
 
-Ported: ``System(cfg).track_rgbl`` with the default configuration (local
+Ported: ``System(cfg).track_rgbl`` and ``track_rgbd`` (sensor RGBD: a metric
+depth image in place of the cloud) with the default configuration (local
 mapping on, loop closing on) — the fused steady-state loop and the classic
 ladder, the atlas's new-map recovery after a lost streak or a backward
 timestamp, trajectory export, and the planes behind every frame that
@@ -43,13 +44,23 @@ depth, so a drive tracks over any distance, but nothing is culled or
 refined; with ``loop_closing=False`` there is no database, so
 relocalization fails at once and no map is ever welded.
 
-The other sensors raise ``NotImplementedError`` naming the ROADMAP Queue 1
-item that ports them.
+A PinHole camera with distortion coefficients works on undistorted
+keypoints (``_undistort_feats``, after the depth is sampled at the raw
+pixel) against a working camera with its distortion zeroed; its frames
+never take the fused step. ``activate_localization_mode`` freezes the map:
+no keyframe, no mapping job. ``save_atlas`` / ``load_atlas`` write and read
+the JAX package's archive format (``utils/serialization.py``); a loaded
+atlas resumes in relocalization. ``timer`` (a ``utils.profiling.StageTimer``)
+collects the reference's stage times beside the profiler spans.
+
+Stereo, monocular, the KannalaBrandt8 camera and the inertial sensors raise
+``NotImplementedError`` naming the ROADMAP Queue 1 item that ports them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 import threading
 import traceback
@@ -61,12 +72,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from orb_slam3_rgbl_tpu_torch.config import RGBL, SlamConfig
+from orb_slam3_rgbl_tpu_torch.config import RGBD, RGBL, SENSOR_NAMES, SlamConfig
 from orb_slam3_rgbl_tpu_torch.device import resolve
+from orb_slam3_rgbl_tpu_torch.geometry import camera as cam_mod
 from orb_slam3_rgbl_tpu_torch.geometry import lie
 from orb_slam3_rgbl_tpu_torch.io import trajectory as traj_io
 from orb_slam3_rgbl_tpu_torch.ops import fast as fast_ops
 from orb_slam3_rgbl_tpu_torch.slam import compiled, merging
+from orb_slam3_rgbl_tpu_torch.slam import frame as frame_mod
 from orb_slam3_rgbl_tpu_torch.slam import tracking as trk
 from orb_slam3_rgbl_tpu_torch.slam.atlas import Atlas
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
@@ -74,6 +87,8 @@ from orb_slam3_rgbl_tpu_torch.slam.local_mapping import LocalMapper
 from orb_slam3_rgbl_tpu_torch.slam.loop_closing import LoopCloser
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker, TrackResult
+from orb_slam3_rgbl_tpu_torch.utils import serialization
+from orb_slam3_rgbl_tpu_torch.utils.profiling import stage
 
 log = logging.getLogger(__name__)
 
@@ -100,14 +115,25 @@ class System:
         if config.inertial:
             raise NotImplementedError(
                 "inertial sensors are not ported yet (ROADMAP Queue 1 item 15)")
-        if config.sensor != RGBL:
+        if config.sensor not in (RGBL, RGBD):
             raise NotImplementedError(
-                f"sensor {config.sensor} is not ported yet, only RGBL "
-                "(ROADMAP Queue 1 items 14 and 17)")
+                f"sensor {SENSOR_NAMES.get(config.sensor, config.sensor)} is not ported yet, "
+                "only RGBL and RGBD (ROADMAP Queue 1 item 14)")
+        if config.camera_type == "KannalaBrandt8":
+            raise NotImplementedError(
+                "the KannalaBrandt8 camera is not ported yet (ROADMAP Queue 1 item 14)")
+        # a distorted pinhole works on undistorted keypoints
+        # (Frame::UndistortKeyPoints) against a working camera without
+        # distortion
+        self._undistort_cam = None
         if config.camera_type == "PinHole" and config.camera.has_distortion:
-            raise NotImplementedError(
-                "keypoint undistortion for a distorted PinHole camera is not ported yet "
-                "(ROADMAP Queue 1 item 17)")
+            self._undistort_cam = config.camera
+            config = dataclasses.replace(config, camera=dataclasses.replace(
+                config.camera, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0))
+            if config.sensor == RGBL:
+                log.warning("distorted PinHole configuration with the RGBL sensor: keypoints "
+                            "are undistorted per frame, but the LiDAR projection assumes "
+                            "rectified images")
         self.cfg = config
         self.cam = config.camera
         self.device = resolve(device)
@@ -125,6 +151,7 @@ class System:
         self._lost_streak = 0
         self._fast: Optional[FastPath] = None   # shared across atlas maps
         self.use_fused = True       # the fused steady-state loop
+        self.timer = None           # optional StageTimer (the reference's REGISTER_TIMES)
         self.P_lidar = compiled.lidar_projection(config, self.device)
         self._cloud_mask_ones = None
         # the asynchronous planes (off by default, as in the JAX package;
@@ -206,24 +233,58 @@ class System:
         (``System::TrackRGBL``). Numpy arrays or tensors; a cloud already
         on the device at (CLOUD_CAP, 4) is used in place.
 
-        Steady-state frames run the fused step; with ``use_fused`` off
-        every frame takes the classic ladder on the raw cloud."""
+        Steady-state frames run the fused step; with ``use_fused`` off, a
+        distorted camera or another sensor than RGBL every frame takes the
+        classic ladder on the raw cloud."""
         self._check_timestamp_jump(timestamp)
-        if self.use_fused:
-            if self.map is None:
-                self._spawn_components(self._frame_capacity())
-            if self._fast is None:
-                self._fast = FastPath(self.cfg, self._frame_capacity(), device=self.device)
-                self.tracker.fast = self._fast
+        if self.use_fused and self._undistort_cam is None and self.cfg.sensor == RGBL:
+            self._ensure_fast("rgbl")
             img = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
             pts, mask = self._pad_cloud(pointcloud, cloud_mask)
-            return self._post_track(self.tracker.track_image_rgbl(img, pts, mask, timestamp))
+            return self._post_track(self.tracker.track_image_rgbl(img, pts, mask, timestamp,
+                                                                  timer=self.timer))
         feats = compiled.attach_lidar(
             self.cfg, self._extract(gray),
             torch.as_tensor(pointcloud, dtype=torch.float32, device=self.device), self.P_lidar,
             None if cloud_mask is None
             else torch.as_tensor(cloud_mask, dtype=torch.bool, device=self.device))
-        return self._track(feats, timestamp)
+        return self._track(self._undistort_feats(feats), timestamp)
+
+    def track_rgbd(self, gray, depth_img, timestamp: float) -> TrackResult:
+        """Gray image (H, W) + metric depth image (H, W) → ``TrackResult``
+        (``System::TrackRGBD``). Depth is sampled at the raw (distorted)
+        pixel; geometry uses undistorted coordinates. Steady-state frames
+        run the fused step, as ``track_rgbl`` does, with the depth image in
+        place of the cloud."""
+        self._check_timestamp_jump(timestamp)
+        depth = torch.as_tensor(depth_img, dtype=torch.float32, device=self.device)
+        if self.use_fused and self._undistort_cam is None and self.cfg.sensor == RGBD:
+            self._ensure_fast("rgbd")
+            img = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
+            return self._post_track(self.tracker.track_image_rgbd(img, depth, timestamp,
+                                                                  timer=self.timer))
+        feats = frame_mod.attach_depth_map(self._extract(gray), depth, self.cam.bf)
+        return self._track(self._undistort_feats(feats), timestamp)
+
+    def _ensure_fast(self, mode: str):
+        """Components and the shared ``FastPath`` of the fused loop."""
+        if self.map is None:
+            self._spawn_components(self._frame_capacity())
+        if self._fast is None:
+            self._fast = FastPath(self.cfg, self._frame_capacity(), mode=mode, device=self.device)
+            self.tracker.fast = self._fast
+
+    def _undistort_feats(self, feats):
+        """Undistorted keypoint coordinates (``Frame::UndistortKeyPoints``)
+        and the pseudo-stereo column re-derived from them; the features as
+        they are for an undistorted camera."""
+        if self._undistort_cam is None:
+            return feats
+        uvu = cam_mod.undistort_points(self._undistort_cam, feats.uv)
+        has_d = feats.depth > 0
+        u_right = torch.where(
+            has_d, uvu[..., 0] - self.cam.bf / torch.where(has_d, feats.depth, 1.0), -1.0)
+        return feats._replace(uv=uvu, u_right=u_right)
 
     def track_features(self, feats, timestamp: float) -> TrackResult:
         """Feature-level entry point: extracted ``FrameFeatures`` on the
@@ -236,6 +297,19 @@ class System:
         """A new active map and its tracker and planes. Frame ids continue
         across maps; the shared ``FastPath`` re-syncs on the new map. What
         the planes held for the old map is dropped."""
+        self._drop_plane_work()
+        if self.atlas is None:
+            self.atlas = Atlas(self.cfg, n_feat)
+        next_frame = self.tracker.frame_id + 1 if self.tracker is not None else 0
+        self.map = self.atlas.create_new_map()
+        self._build_components(next_frame)
+        if self.loop_closer is not None:
+            # the entry keeps its database alive for later merge detection
+            self.atlas.entries[self.atlas.active_idx].db = self.loop_closer.db
+
+    def _drop_plane_work(self):
+        """Discard what the planes hold for the active map: a global BA in
+        flight, queued keyframes, detections and events."""
         self._cancel_gba()
         self._map_queue.clear()
         with self._loop_lock:
@@ -243,15 +317,17 @@ class System:
         self._loop_inbox.clear()
         self._merge_candidate = None
         self._last_shed_kf = None
-        if self.atlas is None:
-            self.atlas = Atlas(self.cfg, n_feat)
-        next_frame = self.tracker.frame_id + 1 if self.tracker is not None else 0
-        self.map = self.atlas.create_new_map()
+
+    def _build_components(self, next_frame: int, db=None, loop_closing: bool = True):
+        """The tracker and both planes around the active map, wired; the
+        loop-closing plane (when the configuration and ``loop_closing``
+        have it) around ``db`` or a new keyframe database."""
         self.tracker = Tracker(self.cfg, self.map, start_frame_id=next_frame, device=self.device)
         self.mapper = (LocalMapper(self.cfg, self.map, device=self.device)
                        if self._enable_mapping else None)
         t = self.tracker
         if self.mapper is not None:
+            self.mapper.timer = self.timer
             t.kf_feats_hook = self.mapper.dev_cache.add
             # keyframes queued behind the running job (the reference's
             # mbAbortBA pressure: the local BA shortens or skips)
@@ -268,16 +344,16 @@ class System:
         t.mapping_inflight_fn = lambda: bool(self._map_queue) or self._map_busy()
         t.fast = self._fast
         self.loop_closer = None
-        if self.cfg.loop_closing:
+        if self.cfg.loop_closing and loop_closing:
             self.loop_closer = LoopCloser(
                 self.cfg, self.map, device=self.device, generator=self._loop_rng,
                 dev_cache=self.mapper.dev_cache if self.mapper is not None else None)
+            if db is not None:
+                self.loop_closer.db = db
             self.loop_closer.rng_lock = self._rng_lock
             self.loop_closer.gba_dispatch = self._dispatch_gba
             t.kf_db = self.loop_closer.db
             t.reloc_generator = self._reloc_rng
-            # the entry keeps its database alive for later merge detection
-            self.atlas.entries[self.atlas.active_idx].db = self.loop_closer.db
         self._lost_streak = 0
 
     def _map_busy(self) -> bool:
@@ -367,7 +443,10 @@ class System:
             return
         if defer_merge:
             self._enqueue_loop_detect(kf_id)
-        elif self.loop_closer.on_keyframe(kf_id) is None:
+            return
+        with stage(self.timer, "pr"):
+            ev = self.loop_closer.on_keyframe(kf_id)
+        if ev is None:
             self._try_merge(kf_id)
 
     def _land_mapping_job(self):
@@ -471,7 +550,7 @@ class System:
             if lc is None:
                 continue
             try:
-                with self._on_plane("loop"):
+                with self._on_plane("loop"), stage(self.timer, "pr"):
                     ev = lc.detect_only(kf_id, index_only=index_only)
             except Exception:
                 log.exception("loop detection of keyframe %d failed", kf_id)
@@ -504,7 +583,7 @@ class System:
                 continue               # a side was culled since detection
             self._freeze_kf = True
             try:
-                with self._kf_lock:
+                with self._kf_lock, stage(self.timer, "opt_essential"):
                     self.loop_closer.apply_event(ev)
             finally:
                 self._freeze_kf = False
@@ -775,6 +854,50 @@ class System:
 
     def save_keyframe_trajectory_euroc(self, path: str):
         traj_io.save_euroc(path, *self._keyframe_poses())
+
+    # -- lifecycle ---------------------------------------------------------
+    def activate_localization_mode(self):
+        """``ActivateLocalizationMode``: track against the existing map and
+        leave it frozen — no keyframe, so no mapping job and no loop
+        closing."""
+        if self.tracker is not None:
+            self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        if self.tracker is not None:
+            self.tracker.only_tracking = False
+
+    # -- persistence (SaveAtlas / LoadAtlas) ------------------------------
+    def save_map(self, path: str):
+        """The active map alone (``serialization.save_map``)."""
+        self._join_mapping()
+        serialization.save_map(path, self.map)
+
+    def save_atlas(self, path: str):
+        """Every atlas map with its database and trajectory segment, after
+        the planes have drained."""
+        self._join_mapping()
+        serialization.save_atlas(path, self.atlas, tracker=self.tracker)
+
+    def load_atlas(self, path: str, strict_vocab: bool = True):
+        """Rebuild the components around a saved atlas (either package's):
+        the planes drain first, the active map's trajectory segment goes
+        back to a new tracker, frame ids go on after every saved frame, and
+        the tracker starts LOST, so the next frame relocalizes against the
+        restored database."""
+        self._join_mapping()
+        self._drop_plane_work()
+        self.atlas = serialization.load_atlas(path, self.cfg, strict_vocab=strict_vocab,
+                                              device=self.device)
+        entry = self.atlas.entries[self.atlas.active_idx]
+        self.map = entry.map
+        next_frame = sum(len(e.traj_time) for e in self.atlas.entries)
+        self._build_components(next_frame, db=entry.db, loop_closing=entry.db is not None)
+        t = self.tracker
+        t.state = trk.LOST
+        t.traj_rel, t.traj_ref_kf = list(entry.traj_rel), list(entry.traj_ref_kf)
+        t.traj_time, t.traj_lost = list(entry.traj_time), list(entry.traj_lost)
+        entry.traj_rel, entry.traj_ref_kf, entry.traj_time, entry.traj_lost = [], [], [], []
 
     def reset(self):
         """Full reset (``System::Reset``): drop the whole atlas; fresh

@@ -12,12 +12,15 @@ CreateNewKeyFrame. Control flow and tie rules are host numpy, exactly as
 in the JAX package; matching and pose solves run the port's PyTorch
 functions on the tracker's device.
 
-Ported for the non-inertial RGB-L (stereo-like) sensor. Not ported:
-monocular initialization and relocalization's DLT solver (Queue 1 item
-14), the inertial parts (item 15) and localization mode with its
-visual-odometry branch (item 17). Relocalization runs against the keyframe
-database that the loop-closing plane wires (``kf_db``). The hooks of the
-asynchronous mapping worker stay ``None`` (item 18).
+Ported for the non-inertial depth sensors: RGB-L (``track_image_rgbl``)
+and RGB-D (``track_image_rgbd``, the same step with a depth image for the
+cloud). Localization mode (``only_tracking``) tracks against a frozen map:
+no keyframe, acceptance on visual-odometry evidence, and the last frame's
+close unbound points as temporary structure for the motion model. Not
+ported: monocular initialization and relocalization's DLT solver (ROADMAP
+Queue 1 item 14) and the inertial parts (item 15). Relocalization runs
+against the keyframe database that the loop-closing plane wires
+(``kf_db``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from orb_slam3_rgbl_tpu_torch.optim import pnp, pose_opt
 from orb_slam3_rgbl_tpu_torch.slam import compiled
 from orb_slam3_rgbl_tpu_torch.slam.frame import FrameFeatures, inv_scale_sigma2
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
+from orb_slam3_rgbl_tpu_torch.utils.profiling import stage
 
 NO_IMAGES_YET = 0
 NOT_INITIALIZED = 1
@@ -50,6 +54,8 @@ STATE_NAMES = {0: "NO_IMAGES_YET", 1: "NOT_INITIALIZED", 2: "OK", 3: "RECENTLY_L
 LOCAL_LM_CAP = 8192   # local-map landmark budget per frame
 LOCAL_KF_CAP = 80     # reference caps local keyframes at 80 (Tracking.cc:3543)
 MIN_FUSED_INLIERS = 30   # below this a fused frame goes to the classic ladder
+MIN_VO_MATCHES = 20      # localization mode accepts on this many total inliers
+VO_SENTINEL = -2         # binding of a temporary visual-odometry point
 RELOC_HYPOTHESES = 256   # PnP RANSAC budget of one relocalization candidate
 
 
@@ -130,6 +136,10 @@ class Tracker:
         # deferred_kf counts insertions the mapping busy-gate declined
         self.force_kf_every = 0
         self.deferred_kf = 0
+        # localization mode (the reference's mbOnlyTracking): track against
+        # the frozen map, never insert keyframes
+        self.only_tracking = False
+        self._loc_total_inliers = 0   # the pose solve's inliers, VO points included
         self.P_lidar = compiled.lidar_projection(config, self.device)
 
     # ------------------------------------------------------------------
@@ -217,6 +227,7 @@ class Tracker:
         """Motion-model (or reference-KF) tracking then local-map
         refinement. Returns (ok, n_inliers)."""
         lm_idx = None
+        self._loc_total_inliers = 0
         if self.state in (RECENTLY_LOST, LOST):
             # RECENTLY_LOST / LOST attempt relocalization (Tracking.cc:2036-2053)
             lm_idx, n = self._relocalization(feats)
@@ -240,6 +251,10 @@ class Tracker:
         # acceptance (Tracking.cc:3064-3096): ≥ 30 inliers, 50 right after
         # relocalization
         need = 50 if self.frame_id < self.last_reloc_frame + self.max_frames else 30
+        if self.only_tracking and n_inl < need and self._loc_total_inliers >= MIN_VO_MATCHES:
+            # localization mode goes on on visual-odometry evidence (the
+            # reference's mbVO, Tracking.cc:2106)
+            return True, n_inl
         return n_inl >= need, n_inl
 
     def _predict_pose(self) -> np.ndarray:
@@ -277,8 +292,36 @@ class Tracker:
         Pvalid[:m] = True
         ids_global = np.full(cap, -1, np.int64)
         ids_global[:m] = ids[:m]
-        lm_idx, n, _ = self._match_and_bind(feats, pred, P, Pdesc, Poct, Pvalid,
-                                            ids_global=ids_global, th=th, Pangle=Pangle)
+        if self.only_tracking and m < cap:
+            # localization mode: temporary visual-odometry points from the
+            # last frame's close unbound depth (the reference's
+            # UpdateLastFrame), so tracking goes on where the map ends
+            vo = np.nonzero(last.valid & (last.depth > 0) & (self.last_lm_idx < 0))[0]
+            order = vo[np.argsort(last.depth[vo])]
+            keep = order[(last.depth[order] < self.th_depth_m) | (np.arange(order.size) < 100)]
+            keep = keep[: cap - m]
+            if keep.size:
+                e = m + keep.size
+                P[m:e] = self._unproject(last.uv[keep], last.depth[keep], self.last_pose)
+                Pdesc[m:e] = last.desc[keep]
+                Poct[m:e] = last.octave[keep]
+                Pangle[m:e] = last.angle[keep]
+                Pvalid[m:e] = True
+                ids_global[m:e] = VO_SENTINEL
+        lm_idx, n, feat_slot = self._match_and_bind(feats, pred, P, Pdesc, Poct, Pvalid,
+                                                    ids_global=ids_global, th=th, Pangle=Pangle)
+        if self.only_tracking and (ids_global == VO_SENTINEL).any():
+            if int((feat_slot >= 0).sum()) < 10:
+                return lm_idx, n
+            # one pose solve on map and VO structure; only map matches stay bound
+            bound = feat_slot >= 0
+            pose, n_inl, inliers = self._solve_pose(
+                feats, P[np.clip(feat_slot, 0, cap - 1)], bound, pred)
+            self.cur_pose = pose
+            self._loc_total_inliers = n_inl
+            lm_idx = np.where(inliers, lm_idx, -1)
+            lm_idx = np.where(lm_idx == VO_SENTINEL, -1, lm_idx)
+            return lm_idx, int((lm_idx >= 0).sum())
         if n < 10:
             return lm_idx, n
         pose, n_inl, inliers = self._optimize_pose(feats, lm_idx, pred)
@@ -420,6 +463,11 @@ class Tracker:
         bound = lm_idx >= 0
         Xw = np.zeros((self.n_feat, 3), np.float32)
         Xw[bound] = self.map.lm_pos[lm_idx[bound]]
+        return self._solve_pose(feats, Xw, bound, init_pose)
+
+    def _solve_pose(self, feats, Xw: np.ndarray, bound: np.ndarray, init_pose):
+        """Robust pose solve of the features ``bound`` to world points
+        ``Xw`` (N, 3)."""
         L = len(self.scale_factors)
         obs = pose_opt.PoseObs(
             Xw=self._dev(Xw, torch.float32), uv=feats.uv, u_right=feats.u_right,
@@ -527,7 +575,7 @@ class Tracker:
     def _maybe_insert_keyframe(self, feats, timestamp, n_inl) -> bool:
         """Keyframe policy (``NeedNewKeyFrame``) + creation
         (``CreateNewKeyFrame``)."""
-        if self.ref_kf < 0:
+        if self.ref_kf < 0 or self.only_tracking:
             return False
         hf = self._host(feats)
         close = hf.valid & (hf.depth > 0) & (hf.depth < self.th_depth_m)
@@ -613,37 +661,52 @@ class Tracker:
     # ==================================================================
     # Fused loop
     # ==================================================================
-    def track_image_rgbl(self, img, points, cloud_valid, timestamp: float) -> TrackResult:
+    def track_image_rgbd(self, img, depth_img, timestamp: float, timer=None) -> TrackResult:
+        """One RGB-D frame: ``track_image_rgbl`` with the metric depth image
+        in place of the cloud (the fused step in its 'rgbd' mode)."""
+        return self.track_image_rgbl(img, depth_img, None, timestamp, timer=timer)
+
+    def track_image_rgbl(self, img, points, cloud_valid, timestamp: float,
+                         timer=None) -> TrackResult:
         """One RGB-L frame. A steady OK frame runs the fused step; a frame
         it loses (< 30 inliers), initialization, the first frame after it
-        (no velocity yet) and the lost states take the classic ladder."""
+        (no velocity yet) and the lost states take the classic ladder.
+        ``timer`` (a ``StageTimer``) times the fused frame's stages
+        ``pose_pred``, ``lm_track`` and ``new_kf``."""
         fp = self.fast
         usable = (fp is not None and self.state == OK and self.velocity is not None
                   and self.ref_kf >= 0 and self.last_lm_idx is not None
                   and self.frame_id + 1 >= self.last_reloc_frame + self.max_frames)
         if usable:
             # prefetch gate: a forced-cadence keyframe is due, or (natural
-            # policy) ≥ 3 frames since the last one
+            # policy) ≥ 3 frames since the last one; none in localization mode
             gap = self.frame_id + 1 - self.last_kf_frame
-            kf_likely = gap >= (self.force_kf_every if self.force_kf_every > 0
-                                else max(3, self.min_frames))
-            fp.sync(self.map, self.ref_kf, self.last_feats, self.last_lm_idx, self.last_lm_gen)
-            out = fp.run(img, points, cloud_valid, self._predict_pose_fused())
-            if kf_likely:
-                self._prefetch_feats(out.feats)
-            host = self._download_fused(out)
+            kf_likely = not self.only_tracking and gap >= (
+                self.force_kf_every if self.force_kf_every > 0 else max(3, self.min_frames))
+            with stage(timer, "pose_pred"):
+                fp.sync(self.map, self.ref_kf, self.last_feats, self.last_lm_idx,
+                        self.last_lm_gen)
+                pred = self._predict_pose_fused()
+            with stage(timer, "lm_track"):
+                out = fp.run(img, points, cloud_valid, pred)
+                if kf_likely:
+                    self._prefetch_feats(out.feats)
+                host = self._download_fused(out)
             if host[0] >= MIN_FUSED_INLIERS:
-                return self._accept_fused(out, host, timestamp)
+                return self._accept_fused(out, host, timestamp, timer=timer)
             feats = out.feats  # reuse the extraction for the classic ladder
         else:
             feats = self._extract_rgbl(img, points, cloud_valid)
         return self.track(feats, timestamp)
 
     def _extract_rgbl(self, img, points, cloud_valid) -> FrameFeatures:
+        """Extraction and depth of a frame for the classic ladder, by the
+        fused step's mode (LiDAR without one)."""
         feats = compiled.extract(self.cfg, img, self.device)
-        return compiled.attach_lidar(
-            self.cfg, feats, self._dev(points, torch.float32), self.P_lidar,
-            None if cloud_valid is None else self._dev(cloud_valid, torch.bool))
+        mode = self.fast.mode if self.fast is not None else "rgbl"
+        return compiled.attach_depth(
+            self.cfg, mode, feats, self._dev(points, torch.float32),
+            None if cloud_valid is None else self._dev(cloud_valid, torch.bool), self.P_lidar)
 
     def _predict_pose_fused(self) -> np.ndarray:
         return lie.np_se3_mul(self.velocity, self.last_pose)
@@ -684,8 +747,9 @@ class Tracker:
     def _fast_kf_policy(self, n_inl: int, tracked_close: int, nontracked_close: int) -> bool:
         """The keyframe decision of ``NeedNewKeyFrame`` from the inlier
         count and the close-point counts (computed on the device by the
-        fused step, on the host by the classic ladder)."""
-        if self.ref_kf < 0:
+        fused step, on the host by the classic ladder). Never in
+        localization mode."""
+        if self.ref_kf < 0 or self.only_tracking:
             return False
         if (self.map.n_kf > self.max_frames
                 and self.frame_id < self.last_reloc_frame + self.max_frames):
@@ -708,7 +772,7 @@ class Tracker:
             return False
         return True
 
-    def _accept_fused(self, out, host, timestamp: float) -> TrackResult:
+    def _accept_fused(self, out, host, timestamp: float, timer=None) -> TrackResult:
         fp = self.fast
         self.frame_id += 1
         self.new_kf_ids = []
@@ -735,7 +799,8 @@ class Tracker:
         created = self._fast_kf_policy(n_inl, n_tc, n_ntc)
         if created:
             self._pending_device_feats = out.feats
-            self._create_keyframe(self._host(out.feats), timestamp)
+            with stage(timer, "new_kf"):
+                self._create_keyframe(self._host(out.feats), timestamp)
 
         self._log_trajectory(timestamp)
         self.velocity = lie.np_se3_mul(pose, lie.np_se3_inv(self.last_pose))

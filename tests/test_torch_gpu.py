@@ -1,6 +1,6 @@
 """The CUDA kernels K1, K2 and K3 against their plain versions, the loop-closing
-plane's solvers, the atlas weld and the tree vocabulary against their CPU runs,
-on the card. Marked
+plane's solvers, the atlas weld, the tree vocabulary, the RGB-D fused step and
+keypoint undistortion against their CPU runs, on the card. Marked
 ``gpu``; without a card each test skips from its fixture.
 
 The machine with the card has no JAX, so run this file without the
@@ -615,3 +615,73 @@ def test_kf_cache_grows_while_a_worker_gathers(cuda):
     assert int(bad) == 0
     assert torch.equal(cache.d_desc.cpu(), torch.from_numpy(desc.view(np.int32)))
     assert torch.equal(cache.d_uv.cpu(), torch.from_numpy(uv))
+
+
+def _rgbd_frames(n=2):
+    """The 320×192 canyon's first frames and their dense depth images
+    (InverseDilation of the LiDAR sweep), made on the CPU."""
+    from orb_slam3_rgbl_tpu_torch import synthetic as syn
+    from orb_slam3_rgbl_tpu_torch.ops import depth as depth_ops
+    from orb_slam3_rgbl_tpu_torch.slam.compiled import lidar_projection
+
+    cfg = syn.synthetic_rgbl_config()
+    cam, lc = cfg.camera, cfg.lidar
+    cpu = torch.device("cpu")
+    world = syn.make_world(0, tex_size=256, device=cpu)
+    P = lidar_projection(cfg, cpu)
+    out = []
+    for Twc in syn.straight_trajectory(n, step=0.6, weave=0.4):
+        img = syn.render_image(world, Twc, cam.fx, cam.fy, cam.cx, cam.cy, cam.height, cam.width)
+        pts = syn.lidar_scan(world, Twc, n_az=256, n_el=48)
+        kp = torch.zeros((1, 2))
+        _, _, dense = depth_ops.compute_depth_from_pointcloud(
+            pts, P, kp, kp, height=cam.height, width=cam.width, bf=cam.bf,
+            min_dist=lc.min_dist, max_dist=lc.max_dist)
+        out.append((img.numpy(), dense.numpy()))
+    return cfg, out
+
+
+def test_rgbd_fused_step_matches_its_cpu_run(cuda):
+    """The fused step in 'rgbd' mode (K1 and K2 on the card) against the
+    same step on the CPU, from the same tracker state: keypoints where both
+    put them get the same depth; inliers within 5%, pose within 1e-3."""
+    import dataclasses
+    from orb_slam3_rgbl_tpu_torch.config import RGBD
+    from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
+    from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
+    from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker
+
+    cfg, frames = _rgbd_frames()
+    cfg = dataclasses.replace(cfg, sensor=RGBD)
+    n_feat = 600
+    cuda_build.reset_launch_counts()
+    outs = {}
+    for dev in (torch.device("cpu"), cuda):
+        t = Tracker(cfg, MapState.create(16, 8192, n_feat), device=dev)
+        t.fast = FastPath(cfg, n_feat, mode="rgbd", device=dev)
+        t.track_image_rgbd(frames[0][0], frames[0][1], 0.0)
+        t.fast.sync(t.map, t.ref_kf, t.last_feats, t.last_lm_idx, t.last_lm_gen)
+        outs[dev.type] = t.fast.run(frames[1][0], frames[1][1], None,
+                                    np.array([1, 0, 0, 0, 0, 0, 0], np.float32))
+    assert cuda_build.launch_counts["fast_and_blur"] == 2       # frame 0 and the step
+    c, g = outs["cpu"], outs["cuda"]
+    same = (g.feats.uv.cpu() == c.feats.uv).all(1)
+    assert same.float().mean() >= 0.99
+    assert torch.equal(g.feats.depth.cpu()[same], c.feats.depth[same])
+    assert abs(int(g.n_inliers) - int(c.n_inliers)) <= 0.05 * int(c.n_inliers)
+    assert (g.Tcw.cpu() - c.Tcw).abs().max() < 1e-3
+
+
+def test_undistort_points_on_the_card(cuda):
+    from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera, undistort_points
+
+    cam = PinholeCamera(fx=458.654, fy=457.296, cx=367.215, cy=248.375, k1=-0.28340811,
+                        k2=0.07395907, p1=0.00019359, p2=1.76187114e-05, k3=0.01,
+                        width=752, height=480)
+    rng = np.random.default_rng(0)
+    uv = np.stack([rng.uniform(0, 752, 4000), rng.uniform(0, 480, 4000)], 1).astype(np.float32)
+    g = undistort_points(cam, torch.from_numpy(uv).to(cuda))
+    assert g.device.type == "cuda"
+    # the card may contract multiply-adds the CPU rounds apart: the CPU
+    # tests' bar against JAX (tests/test_torch_config.py)
+    assert (g.cpu() - undistort_points(cam, torch.from_numpy(uv))).abs().max() < 3e-4

@@ -34,6 +34,11 @@ PORT_MODULES = [
     "orb_slam3_rgbl_tpu_torch.optim.global_ba", "orb_slam3_rgbl_tpu_torch.slam.loop_closing",
     "orb_slam3_rgbl_tpu_torch.geometry.align", "orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab",
     "orb_slam3_rgbl_tpu_torch.slam.merging",
+    "orb_slam3_rgbl_tpu_torch.io.kitti", "orb_slam3_rgbl_tpu_torch.io.png",
+    "orb_slam3_rgbl_tpu_torch.utils", "orb_slam3_rgbl_tpu_torch.utils.serialization",
+    "orb_slam3_rgbl_tpu_torch.utils.profiling",
+    "orb_slam3_rgbl_tpu_torch.examples.run_kitti_rgbl",
+    "orb_slam3_rgbl_tpu_torch.examples.run_kitti_rgbd",
     "chip_smoke",
 ]
 
@@ -49,6 +54,26 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("CLEAN"), out.stdout
+
+
+def test_port_imports_no_opencv_or_pil():
+    """The machine with the card has no OpenCV and no PIL: no port module
+    imports either, at import time or inside a function."""
+    import re
+
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL'))\n"
+            "print('LEAKED', bad) if bad else print('CLEAN')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("CLEAN"), out.stdout
+    pattern = re.compile(r"^\s*(import|from)\s+(cv2|PIL)\b", re.M)
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(REPO, "orb_slam3_rgbl_tpu_torch"))
+               for f in fs if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
+    assert [p for p in sources if pattern.search(open(p).read())] == []
 
 
 def test_entry_points_never_fall_back_to_cpu():
@@ -75,7 +100,7 @@ def test_entry_points_never_fall_back_to_cpu():
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call()
     with pytest.raises(NotImplementedError):
-        compiled.make_track_step(cfg, mode="rgbd", device="cpu")
+        compiled.make_track_step(cfg, mode="mono", device="cpu")
 
 
 def _functions_with_device_default_none():
@@ -126,6 +151,7 @@ def test_device_none_never_answers_on_the_cpu():
     from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
     from orb_slam3_rgbl_tpu_torch.slam.system import System
     from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker
+    from orb_slam3_rgbl_tpu_torch.utils import serialization
 
     cfg = dataclasses.replace(synthetic.synthetic_rgbl_config(), loop_closing=False)
     feats = {k: np.zeros((4,) + s, d) for k, s, d in (
@@ -184,6 +210,8 @@ def test_device_none_never_answers_on_the_cpu():
             lambda: convert.tree_vocabulary_from_numpy(jax_vocab).idf,
         pre + "convert.atlas_entry_from_numpy":
             lambda: convert.atlas_entry_from_numpy(jax_entry).db.vectors,
+        pre + "utils.serialization.load_atlas":
+            lambda: serialization.load_atlas(_tiny_atlas(cfg, small_map), cfg).entries[0].db.vectors,
     }
     # follows the FastPath it is given: covered by tests/test_torch_step.py
     follows_an_object = {pre + "convert.fast_path_state_from_numpy"}
@@ -205,6 +233,23 @@ def test_device_none_never_answers_on_the_cpu():
         else:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call()
+
+
+def _tiny_atlas(cfg, m) -> str:
+    """An atlas archive of one map with its (CPU-built) database."""
+    import tempfile
+
+    from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
+    from orb_slam3_rgbl_tpu_torch.slam.atlas import Atlas
+    from orb_slam3_rgbl_tpu_torch.utils import serialization
+
+    atlas = Atlas(cfg, m.n_features)
+    atlas.create_new_map()
+    atlas.entries[0].map = m
+    atlas.entries[0].db = KeyFrameDatabase(m.capacity_kf, device="cpu")
+    path = os.path.join(tempfile.mkdtemp(), "atlas.npz")
+    serialization.save_atlas(path, atlas)
+    return path
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

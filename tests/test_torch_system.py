@@ -143,18 +143,19 @@ def test_classic_only_drive_matches_jax():
 
 
 @pytest.mark.parametrize("change, item", [
-    (dict(sensor=2), "items 14 and 17"),                   # RGBD
-    (dict(sensor=1), "items 14 and 17"),                   # STEREO
-    (dict(sensor=0), "items 14 and 17"),                   # MONOCULAR
+    (dict(sensor=1), "item 14"),                           # STEREO
+    (dict(sensor=0), "item 14"),                           # MONOCULAR
     (dict(sensor=5), "item 15"),                           # IMU_RGBD
-    (dict(distorted=True), "item 17"),
+    (dict(sensor=3), "item 15"),                           # IMU_MONOCULAR
+    (dict(camera_type="KannalaBrandt8"), "item 14"),
 ])
 def test_system_refuses_unported_configurations(change, item):
+    """Stereo, monocular, the inertial sensors and the KannalaBrandt8 camera
+    raise; RGBD and a distorted PinHole camera are ported
+    (tests/test_torch_rgbd.py, tests/test_torch_config.py)."""
     from orb_slam3_rgbl_tpu_torch import synthetic as t_syn
 
     cfg = dataclasses.replace(t_syn.synthetic_rgbl_config(), loop_closing=False)
-    if change.pop("distorted", False):
-        cfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, k1=0.1))
     cfg = dataclasses.replace(cfg, **change)
     # with the mapping plane on (the default) and with it off
     for enable_mapping in (True, False):
@@ -165,6 +166,9 @@ def test_system_refuses_unported_configurations(change, item):
     default = t_syn.synthetic_rgbl_config()
     assert default.loop_closing and not default.vocab_path
     assert TSystem(default, device="cpu").loop_closer is None     # built on the first frame
+    for ported in (dataclasses.replace(default, sensor=2),
+                   dataclasses.replace(default, camera=dataclasses.replace(default.camera, k1=0.1))):
+        assert TSystem(ported, device="cpu").map is None
 
 
 def test_map_state_queries_match_jax():
