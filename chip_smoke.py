@@ -84,6 +84,23 @@ launches, the decoded images bit for bit, the frozen map and the
 trajectories, and prints the drivers' host ms per frame, the stage table,
 decode ms per PNG and the atlas's save and load ms and bytes.
 
+Phase 12 drives the stereo and monocular sensors over phase 2's canyon: the
+41 frames as rectified pairs through ``System(cfg).track_stereo`` (the
+camera of the reference's ``Examples/Stereo/KITTI00-02.yaml``, the right
+image rendered at the baseline bf / fx; mapping and loop closing on), 11
+pairs of a right camera turned by 0.5 degrees with both images distorted and
+a ``Camera2`` settings file (the System rectifies them), the 41 frames
+through ``track_monocular`` (two-view initialization, then the fused step
+without depth), and the stereo KITTI driver on phase 11's sequence with
+``image_0`` / ``image_1`` written beside it. It checks every frame's state,
+2 K1 + 2 K2 launches a stereo frame and 1 + 1 a monocular one, the mapping
+jobs' bindings, the rectified baseline, the monocular initialization frame
+and the frames that take the fused step, no sync inside the monocular fused
+step, the trajectories (Sim3-aligned for the monocular drive), and prints
+host ms per kind of frame, the share of keypoints with a stereo depth
+before and after the SAD refinement, the row matcher's device ms and
+kernels and the peak memory.
+
 ``--mapping-drive N`` runs, instead of the phases, N frames tracking only
 and then with the mapping plane on (a keyframe every 4 in both): the
 window's and the map's growth over a longer drive.
@@ -119,10 +136,11 @@ from torch.profiler import record_function
 
 from orb_slam3_rgbl_tpu_torch import cuda_build
 from orb_slam3_rgbl_tpu_torch import synthetic as syn
-from orb_slam3_rgbl_tpu_torch.config import kitti_rgbl_config
+from orb_slam3_rgbl_tpu_torch.config import MONOCULAR, STEREO, kitti_rgbl_config
 from orb_slam3_rgbl_tpu_torch.geometry import align, lie
 from orb_slam3_rgbl_tpu_torch.ops import brief_cuda, depth as depth_ops, fast as fast_ops
 from orb_slam3_rgbl_tpu_torch.ops import frontend_cuda
+from orb_slam3_rgbl_tpu_torch.ops.matching import stereo_row_match
 from orb_slam3_rgbl_tpu_torch.ops import orb as orb_ops, pyramid as pyr_ops
 from orb_slam3_rgbl_tpu_torch.optim import local_ba, pose_graph
 from orb_slam3_rgbl_tpu_torch.optim import sim3 as sim3_opt
@@ -130,7 +148,7 @@ from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
 from orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab import train_vocabulary
 from orb_slam3_rgbl_tpu_torch.slam import frame as frame_mod, tracking as trk
 from orb_slam3_rgbl_tpu_torch.slam import map_state as map_mod, merging
-from orb_slam3_rgbl_tpu_torch.slam.compiled import lidar_projection
+from orb_slam3_rgbl_tpu_torch.slam.compiled import extract as compiled_extract, lidar_projection
 from orb_slam3_rgbl_tpu_torch.slam.local_mapping import MAP_SPANS, LocalMapper
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
 from orb_slam3_rgbl_tpu_torch.slam.loop_closing import LOOP_SPANS, LoopCloser
@@ -2008,26 +2026,28 @@ def dense_depths(cfg, frames, device):
     return out
 
 
-def distort(cfg, images, depths):
-    """The frames as a camera with ``DISTORTION`` sees them: each of its
-    pixels samples the pinhole frame where its undistorted coordinate lands
-    (``grid_sample`` on the frames' device; bilinear for the image, nearest
-    for depth)."""
+def through_distortion(cam, images, mode: str = "bilinear"):
+    """``images`` (pinhole frames of ``cam`` without its distortion) as the
+    distorted camera ``cam`` sees them: each of its pixels samples the
+    pinhole frame where its undistorted coordinate lands (``grid_sample`` on
+    the frames' device)."""
     from orb_slam3_rgbl_tpu_torch.geometry.camera import undistort_points
 
-    cam = dataclasses.replace(cfg.camera, **DISTORTION)
     dev = images[0].device
     v, u = torch.meshgrid(torch.arange(cam.height, dtype=torch.float32, device=dev),
                           torch.arange(cam.width, dtype=torch.float32, device=dev), indexing="ij")
     src = undistort_points(cam, torch.stack([u, v], dim=-1))
     grid = torch.stack([src[..., 0] / (cam.width - 1) * 2 - 1,
                         src[..., 1] / (cam.height - 1) * 2 - 1], dim=-1)[None]
+    return [torch.nn.functional.grid_sample(x[None, None], grid, mode=mode, padding_mode="border",
+                                            align_corners=True)[0, 0] for x in images]
 
-    def warp(x, mode):
-        return torch.nn.functional.grid_sample(x[None, None], grid, mode=mode,
-                                               padding_mode="border", align_corners=True)[0, 0]
 
-    return [warp(i, "bilinear") for i in images], [warp(d, "nearest") for d in depths]
+def distort(cfg, images, depths):
+    """The frames as a camera with ``DISTORTION`` sees them (bilinear for the
+    image, nearest for depth)."""
+    cam = dataclasses.replace(cfg.camera, **DISTORTION)
+    return through_distortion(cam, images), through_distortion(cam, depths, "nearest")
 
 
 @contextlib.contextmanager
@@ -2038,7 +2058,7 @@ def spy_drivers(rec: dict):
     from orb_slam3_rgbl_tpu_torch.io import kitti as kitti_mod, png as png_mod
 
     calls = []
-    t_rgbl, t_rgbd = System.track_rgbl, System.track_rgbd
+    t_rgbl, t_rgbd, t_stereo = System.track_rgbl, System.track_rgbd, System.track_stereo
     load_gray, read_png = kitti_mod.load_image_gray, png_mod.read_png
 
     def tracked(fn):
@@ -2065,12 +2085,13 @@ def spy_drivers(rec: dict):
         return out
 
     System.track_rgbl, System.track_rgbd = tracked(t_rgbl), tracked(t_rgbd)
+    System.track_stereo = tracked(t_stereo)
     kitti_mod.load_image_gray, png_mod.read_png = timed_gray, timed_png
     try:
         with spy(calls, []):
             yield
     finally:
-        System.track_rgbl, System.track_rgbd = t_rgbl, t_rgbd
+        System.track_rgbl, System.track_rgbd, System.track_stereo = t_rgbl, t_rgbd, t_stereo
         kitti_mod.load_image_gray, png_mod.read_png = load_gray, read_png
 
 
@@ -2261,6 +2282,340 @@ def phase11_kitti(cfg, traj, frames, device, workdir: str):
     if device.type == "cuda":
         log(f"phase 11 peak memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+
+# phase 12: the stereo and monocular sensors
+# the camera of the reference's Examples/Stereo/KITTI00-02.yaml
+STEREO_CAMERA = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,
+                     th_depth=35.0)
+N_UNRECTIFIED = 11            # frames of the unrectified pair
+RIGHT_TURN_DEG = 0.5          # the unrectified right camera's turn about its y axis
+DISTORTION_R = dict(k1=-0.018, k2=0.004, p1=-1e-4, p2=2e-4)   # the unrectified right camera's
+BASELINE_REL_TOL = 1e-3       # cam_rect.bf / fx against the calibrated baseline
+MONO_INIT_BY = 12             # tests/test_mono.py's bound on the first OK frame
+# every frame of the monocular drive from this one on takes the fused step:
+# rehearsed on the CPU at this width over these frames, the port initialized
+# on frame 8 and fused from frame 10, the JAX System on frame 9 and from 11
+# (the two-view RANSACs draw from different streams)
+MONO_FUSED_FROM = 11
+
+
+def stereo_config():
+    """Phase 2's configuration with the STEREO sensor and the stereo camera
+    of ``Examples/Stereo/KITTI00-02.yaml``, mapping and loop closing on."""
+    cfg = kitti_synthetic_config()
+    return dataclasses.replace(cfg, sensor=STEREO, loop_closing=True,
+                               camera=dataclasses.replace(cfg.camera, **STEREO_CAMERA))
+
+
+def compose_pose(Twc: np.ndarray, T12: np.ndarray) -> np.ndarray:
+    """World pose (7,) of a camera at ``T12`` (4×4, its pose in the frame of
+    the camera at ``Twc``)."""
+    q12 = lie.matrix_to_quat(torch.as_tensor(T12[:3, :3], dtype=torch.float32)).numpy()
+    q, t = Twc[:4].astype(np.float32), Twc[4:7].astype(np.float32)
+    return np.concatenate([lie.np_quat_mul(q, q12),
+                           t + lie.np_quat_rotate(q, T12[:3, 3].astype(np.float32))])
+
+
+def render_views(cfg, traj, T12, device, seed: int = SEED):
+    """The canyon's images from the camera at pose ``T12`` relative to each
+    pose of ``traj`` (set-up work, on ``device``)."""
+    cam = cfg.camera
+    world = syn.make_world(seed, device=device)
+    return [syn.render_image(world, compose_pose(Twc, T12), cam.fx, cam.fy, cam.cx, cam.cy,
+                             cam.height, cam.width).contiguous() for Twc in traj]
+
+
+def baseline_pose(cfg) -> np.ndarray:
+    T = np.eye(4)
+    T[0, 3] = cfg.camera.bf / cfg.camera.fx
+    return T
+
+
+@contextlib.contextmanager
+def spy_stereo(rec: list):
+    """Per call of ``refine_stereo_subpixel``: valid left keypoints, those
+    with a stereo depth before it, those it refined, those with depth after."""
+    orig = frame_mod.refine_stereo_subpixel
+
+    def recorded(feats, *a, **k):
+        out = orig(feats, *a, **k)
+        rec.append(torch.stack([feats.valid.sum(), (feats.depth > 0).sum(),
+                                (out.u_right != feats.u_right).sum(),
+                                (out.depth > 0).sum()]))
+        return out
+
+    frame_mod.refine_stereo_subpixel = recorded
+    try:
+        yield
+    finally:
+        frame_mod.refine_stereo_subpixel = orig
+
+
+def profile_call(fn, iters: int = 5):
+    """(device ms, kernels) per call of ``fn`` under torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with _profile() as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if _on_device(e)]
+    return sum(_ms(e) for e in dev) / iters, len(dev) / iters
+
+
+def stereo_drive(sysm, lefts, rights, device):
+    """``System.track_stereo`` over the pairs: per-frame (TrackResult, host
+    ms, tracking stages run)."""
+    out, calls = [], []
+    with spy(calls, []):
+        for i, (left, right) in enumerate(zip(lefts, rights)):
+            calls.clear()
+            t = time.perf_counter()
+            res = sysm.track_stereo(left, right, i * 0.1)
+            _synchronize(device)
+            out.append((res, (time.perf_counter() - t) * 1e3, list(calls)))
+    return out
+
+
+def phase12_stereo(cfg, traj, lefts, device):
+    """``System(cfg).track_stereo`` over the canyon's pairs (rectified input,
+    mapping and loop closing on, natural keyframe policy)."""
+    n = len(lefts)
+    t0 = time.perf_counter()
+    rights = render_views(cfg, traj[:n], baseline_pose(cfg), device)
+    _synchronize(device)
+    log(f"phase 12: rendered {n} right images at the baseline bf/fx = "
+        f"{cfg.camera.bf / cfg.camera.fx:.4f} m in {time.perf_counter() - t0:.1f} s")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    sysm = System(cfg, device=device)
+    refine, jobs = [], []
+    with spy_stereo(refine), spy_mapping(jobs, [], contextlib.nullcontext):
+        rows = stereo_drive(sysm, lefts, rights, device)
+    counts = dict(cuda_build.launch_counts)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20 if device.type == "cuda" else 0.0
+    results = [(r, ms) for r, ms, _ in rows]
+    states = [r.state for r, _ in results]
+    inliers = [r.n_inliers for r, _ in results[1:]]
+    errs = trans_errors(traj, results)
+    if any(st != trk.OK for st in states) or min(inliers) < MIN_INLIERS:
+        fail(f"stereo: states {[trk.STATE_NAMES[st] for st in states]}, inliers {inliers}; every "
+             f"frame must be OK with >= {MIN_INLIERS}")
+    if counts.get("fast_and_blur") != 2 * n or counts.get("brief_continuous") != 2 * n:
+        fail(f"stereo: launch counts {counts} over {n} frames; expected 2 K1 and 2 K2 a frame")
+    if any("_accept_fused" in c for _, _, c in rows):
+        fail("stereo: a frame took the fused step (the stereo sensor has none)")
+    if not float(errs.max()) < MAX_TRANS_ERR_M:
+        fail(f"stereo: translation error {errs.max():.3f} m >= {MAX_TRANS_ERR_M} m")
+    faults = [(k, f) for k, _, f in jobs if f]
+    if faults:
+        fail(f"stereo: binding faults after mapping jobs {faults[:3]}")
+    share = torch.stack(refine).double().cpu().numpy()
+    before, refined, after = (share[:, i] / share[:, 0] for i in (1, 2, 3))
+    kf = [r.created_kf for r, _ in results]
+    timed = range(1, n)
+    for kind, idx in (("keyframe", [i for i in timed if kf[i]]),
+                      ("no keyframe", [i for i in timed if not kf[i]])):
+        ms = [results[i][1] for i in idx]
+        if ms:
+            log(f"stereo host ms/frame, {kind}: {_median_p90(ms)}")
+    # the row matcher alone, on a frame's features
+    fl, fr = (compiled_extract(cfg, im, device) for im in (lefts[n // 2], rights[n // 2]))
+    sf = torch.tensor([cfg.orb.scale_factor ** l for l in range(cfg.orb.n_levels)],
+                      device=device)
+    match_ms, match_kernels = profile_call(lambda: stereo_row_match(
+        fl.desc, fl.uv[:, 1], fl.valid, fr.desc, fr.uv[:, 0], fr.uv[:, 1], fr.valid,
+        fr.octave, 0.0, cfg.camera.bf / 0.5, fl.uv[:, 0], sf))
+    log(f"stereo (rectified): {n} frames, all OK, none fused, {sysm.map.n_kf} keyframes, "
+        f"{len(jobs)} mapping jobs (bindings consistent after each), launches {counts} (2 K1 + "
+        f"2 K2 a frame); valid left keypoints with a stereo depth: {before.mean():.4f} mean "
+        f"({before.min():.4f}-{before.max():.4f}) before the SAD refinement, {after.mean():.4f} "
+        f"after it, {refined.mean():.4f} refined to a subpixel column; stereo_row_match "
+        f"({fl.uv.shape[0]} x {fr.uv.shape[0]} slots) {match_ms:.4f} ms device in "
+        f"{match_kernels:.0f} kernels; max trans err {errs.max():.3f} m (bound "
+        f"{MAX_TRANS_ERR_M}); peak memory {peak_mb:.0f} MiB")
+    del sysm
+    return rights
+
+
+def stereo_settings_yaml(cfg, path: str, T12: np.ndarray, dist_l: dict, dist_r: dict):
+    """A ``File.version: "1.0"`` settings file of a calibrated pair that needs
+    rectifying: ``Camera1`` / ``Camera2`` with their distortion and
+    ``Stereo.T_c1_c2`` (``cfg``'s ORB settings)."""
+    cam, o = cfg.camera, cfg.orb
+    lines = ["%YAML:1.0", 'File.version: "1.0"', 'Camera.type: "PinHole"']
+    for k, dist in (("Camera1", dist_l), ("Camera2", dist_r)):
+        lines += [f"{k}.fx: {cam.fx}", f"{k}.fy: {cam.fy}", f"{k}.cx: {cam.cx}",
+                  f"{k}.cy: {cam.cy}"] + [f"{k}.{d}: {v}" for d, v in dist.items()]
+    lines += [f"Camera.width: {cam.width}", f"Camera.height: {cam.height}",
+              f"Camera.fps: {cfg.fps}", f"Stereo.ThDepth: {cam.th_depth}",
+              "Stereo.T_c1_c2: !!opencv-matrix", "  rows: 4", "  cols: 4", "  dt: f",
+              "  data: [" + ", ".join(repr(float(v)) for v in T12.reshape(-1)) + "]",
+              f"ORBextractor.nFeatures: {o.n_features}", f"ORBextractor.scaleFactor: {o.scale_factor}",
+              f"ORBextractor.nLevels: {o.n_levels}", f"ORBextractor.iniThFAST: {o.ini_th_fast}",
+              f"ORBextractor.minThFAST: {o.min_th_fast}"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def phase12_unrectified(cfg, traj, lefts, device, workdir: str):
+    """A calibrated pair that needs rectifying: the right camera turned by
+    ``RIGHT_TURN_DEG`` about y, both images through a radial-tangential
+    distortion, a ``Camera2`` settings file; the System rectifies each pair
+    (``geometry/rectify.py``) and tracks on the rectified camera."""
+    from orb_slam3_rgbl_tpu_torch.config import load_config
+    from orb_slam3_rgbl_tpu_torch.geometry.rectify import stereo_rectify
+
+    n = N_UNRECTIFIED
+    a = np.deg2rad(RIGHT_TURN_DEG)
+    T12 = baseline_pose(cfg)
+    T12[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    cam_l = dataclasses.replace(cfg.camera, **DISTORTION)
+    cam_r = dataclasses.replace(cfg.camera, **DISTORTION_R)
+    img_l = through_distortion(cam_l, lefts[:n])
+    img_r = through_distortion(cam_r, render_views(cfg, traj[:n], T12, device))
+    settings = os.path.join(workdir, "stereo_camera2.yaml")
+    stereo_settings_yaml(cfg, settings, T12, DISTORTION, DISTORTION_R)
+    ucfg = dataclasses.replace(load_config(settings, sensor=STEREO), loop_closing=True)
+    sysm = System(ucfg, device=device)
+    if sysm.rectifier is None:
+        fail("unrectified stereo: the System built no rectifier for a Camera2 settings file")
+    rect = sysm.cam
+    base = float(np.linalg.norm(T12[:3, 3]))
+    rel = abs(rect.bf / rect.fx - base) / base
+    if not rel < BASELINE_REL_TOL:
+        fail(f"unrectified stereo: cam_rect.bf / fx = {rect.bf / rect.fx:.6f} m against the "
+             f"baseline {base:.6f} m ({rel:.2e} relative)")
+    cuda_build.reset_launch_counts()
+    rows = stereo_drive(sysm, img_l, img_r, device)
+    counts = dict(cuda_build.launch_counts)
+    # the System's world is the rectified left camera of frame 0: turned by
+    # R1 from the left camera, whose frame the ground truth is in
+    c = ucfg.camera
+    K = np.array([[c.fx, 0, c.cx], [0, c.fy, c.cy], [0, 0, 1.0]])
+    T21 = np.linalg.inv(T12)
+    R1 = stereo_rectify(K, np.array([cam_l.k1, cam_l.k2, cam_l.p1, cam_l.p2, cam_l.k3]), K,
+                        np.array([cam_r.k1, cam_r.k2, cam_r.p1, cam_r.p2, cam_r.k3]),
+                        (c.width, c.height), T21[:3, :3], T21[:3, 3])[0]
+    est = np.stack([lie.np_se3_centers(r.pose) for r, _, _ in rows]) @ R1
+    errs = np.linalg.norm(est - (traj[:n, 4:7] - traj[0, 4:7]), axis=1)
+    states = [r.state for r, _, _ in rows]
+    bound = MAX_TRANS_ERR_M * n / N_DRIVE
+    if any(st != trk.OK for st in states):
+        fail(f"unrectified stereo: states {[trk.STATE_NAMES[st] for st in states]}")
+    if counts.get("fast_and_blur") != 2 * n or counts.get("brief_continuous") != 2 * n:
+        fail(f"unrectified stereo: launch counts {counts}; expected 2 K1 and 2 K2 a frame")
+    if not float(errs.max()) < bound:
+        fail(f"unrectified stereo: translation error {errs.max():.3f} m >= {bound:.3f} m")
+    log(f"stereo (unrectified, right camera turned {RIGHT_TURN_DEG} deg, distortion {DISTORTION} "
+        f"/ {DISTORTION_R}): rectified camera fx {rect.fx:.3f} cx {rect.cx:.3f} cy {rect.cy:.3f} "
+        f"bf {rect.bf:.4f} (baseline {rect.bf / rect.fx:.6f} m, {rel:.2e} from {base:.6f}); "
+        f"{n} frames, all OK, launches {counts}; host ms/frame "
+        f"{_median_p90([ms for _, ms, _ in rows[1:]])}; max trans err {errs.max():.3f} m "
+        f"(bound {bound:.3f})")
+
+
+def phase12_mono(traj, frames, device):
+    """``System(cfg).track_monocular`` over phase 2's frames (mapping and
+    loop closing on): two-view initialization, then the fused step without
+    a depth source."""
+    cfg = dataclasses.replace(kitti_synthetic_config(), sensor=MONOCULAR, loop_closing=True)
+    n = len(frames)
+    sysm = System(cfg, device=device)
+    calls, rows = [], []
+    cuda_build.reset_launch_counts()
+    with spy(calls, []):
+        for i, (img, _, _) in enumerate(frames):
+            calls.clear()
+            t = time.perf_counter()
+            res = sysm.track_monocular(img, i * 0.1)
+            _synchronize(device)
+            rows.append((res, (time.perf_counter() - t) * 1e3, "_accept_fused" in calls))
+    counts = dict(cuda_build.launch_counts)
+    states = [r.state for r, _, _ in rows]
+    first = states.index(trk.OK) if trk.OK in states else n
+    fused = [i for i, (_, _, f) in enumerate(rows) if f]
+    if first > MONO_INIT_BY or any(st != trk.OK for st in states[first:]):
+        fail(f"mono: states {[trk.STATE_NAMES[st] for st in states]}; initialization by frame "
+             f"{MONO_INIT_BY}, then every frame OK")
+    if fused != list(range(fused[0] if fused else n, n)) or not fused \
+            or fused[0] > MONO_FUSED_FROM or fused[0] < first + 2:
+        fail(f"mono: fused frames {fused}, expected every frame from frame {first + 2} (two "
+             f"after the initialization) or from {MONO_FUSED_FROM} at the latest")
+    if counts.get("fast_and_blur") != n or counts.get("brief_continuous") != n:
+        fail(f"mono: launch counts {counts} over {n} frames; expected 1 K1 and 1 K2 a frame")
+    check_no_sync(sysm.tracker, (frames[-1][0], frames[-1][0], None), device)
+    gt = traj[first:n, 4:7]
+    est = sysm.trajectory()[first:n, 4:7]
+    ate = float(align.ate_rmse(torch.as_tensor(gt, dtype=torch.float32),
+                               torch.as_tensor(est, dtype=torch.float32), with_scale=True))
+    if not ate < MAX_TRANS_ERR_M:
+        fail(f"mono: Sim3-aligned ATE {ate:.3f} m >= {MAX_TRANS_ERR_M} m")
+    classic = [ms for i, (_, ms, f) in enumerate(rows) if i > first and not f]
+    log(f"mono: initialized on frame {first} ({rows[first][1]:.1f} ms host), fused from frame "
+        f"{fused[0]}, {sysm.map.n_kf} keyframes, {int(sysm.map.lm_valid.sum())} "
+        f"landmarks, launches {counts} (1 K1 + 1 K2 a frame); host ms/frame before "
+        f"initialization {_median_p90([ms for _, ms, _ in rows[:first]])}, classic after it "
+        f"{_median_p90(classic) if classic else 'none'}, fused "
+        f"{_median_p90([ms for _, ms, f in rows if f])}; Sim3-aligned ATE {ate:.4f} m over "
+        f"frames {first}..{n - 1} (bound {MAX_TRANS_ERR_M})")
+
+
+def phase12_driver(cfg, traj, lefts, rights, device, workdir: str):
+    """``run_kitti_stereo`` on phase 11's sequence with ``image_0`` and
+    ``image_1`` (8-bit gray PNGs of the pairs) written beside its images."""
+    from orb_slam3_rgbl_tpu_torch.examples import run_kitti_stereo
+
+    seq = os.path.join(workdir, "seq")
+    n = len(lefts)
+    expect = []
+    for sub, images in (("image_0", lefts), ("image_1", rights)):
+        os.makedirs(os.path.join(seq, sub), exist_ok=True)
+        for i, img in enumerate(images):
+            g = np.clip(np.round(img.cpu().numpy()), 0, 255).astype(np.uint8)
+            write_png(os.path.join(seq, sub, f"{i:06d}.png"), g, RGB_FILTERS)
+            expect.append(g.astype(np.float32))
+    settings = os.path.join(workdir, "stereo.yaml")
+    settings_yaml(cfg, settings)
+    out = os.path.join(workdir, "stereo_traj.txt")
+    slam, results, times, rec, counts = run_driver(run_kitti_stereo, [settings, seq, "--out", out],
+                                                   device)
+    states = [r.state for r in results]
+    if len(results) != n or any(st != trk.OK for st in states) or \
+            min(r.n_inliers for r in results) < MIN_INLIERS:
+        fail(f"stereo driver: states {[trk.STATE_NAMES[st] for st in states]}")
+    if counts.get("fast_and_blur") != 2 * n or counts.get("brief_continuous") != 2 * n:
+        fail(f"stereo driver: launch counts {counts}; expected 2 K1 and 2 K2 a frame")
+    decoded = sorted(((g.shape, g.tobytes()) for g, _ in rec["gray"]))
+    if decoded != sorted(((e.shape, e.tobytes()) for e in expect)):
+        fail("stereo driver: a decoded image differs from the PNG written")
+    rows = np.loadtxt(out)
+    if rows.shape != (n, 12) or not np.isfinite(rows).all():
+        fail(f"stereo driver: CameraTrajectory.txt holds {rows.shape}, expected ({n}, 12) finite")
+    errs = np.linalg.norm(rows.reshape(n, 3, 4)[:, :, 3] - (traj[:n, 4:7] - traj[0, 4:7]), axis=1)
+    if not float(errs.max()) < MAX_TRANS_ERR_M:
+        fail(f"stereo driver: translation error {errs.max():.3f} m >= {MAX_TRANS_ERR_M} m")
+    ms = np.asarray(times) * 1e3
+    log(f"stereo KITTI driver: {n} pairs, all OK, {slam.map.n_kf} keyframes, launches {counts}; "
+        f"host ms/frame median {np.median(ms):.2f} mean {ms.mean():.2f}; decode ms/PNG (gray) "
+        f"median {statistics.median([m for _, m in rec['gray']]):.2f}; one finite pose a line; "
+        f"max trans err {errs.max():.3f} m")
+
+
+def phase12(traj, frames, device, workdir: str, card: str):
+    """The stereo and monocular sensors: the rectified pair, the pair that
+    needs rectifying, the monocular drive and the stereo KITTI driver."""
+    t0 = time.perf_counter()
+    log(f"phase 12 on {card}")
+    cfg = stereo_config()
+    lefts = [img for img, _, _ in frames]
+    rights = phase12_stereo(cfg, traj, lefts, device)
+    phase12_unrectified(cfg, traj, lefts, device, workdir)
+    phase12_mono(traj, frames, device)
+    phase12_driver(cfg, traj, lefts, rights, device, workdir)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s on {card}")
 
 
 def long_mapping_drive(cfg, device, n_frames: int):
@@ -2539,6 +2894,10 @@ def main():
     workdir = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
     try:
         phase11_kitti(cfg, traj, frames[:N_KITTI], device, workdir)
+        log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
+        # ---- phase 12: the stereo and monocular sensors (and the stereo driver
+        # on phase 11's sequence) ---------------------------------------------
+        phase12(traj, frames[:N_DRIVE], device, workdir, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del frames

@@ -115,3 +115,27 @@ def windowed_projection_match(proj_uv, proj_valid, proj_desc, proj_octave,
     if proj_angle is not None and kp_angle is not None:
         ok = _rotation_consistency(ok, proj_angle - kp_angle[best_j])
     return torch.where(ok, best_j, -1).to(torch.int32), best_d
+
+
+def stereo_row_match(desc_l, v_l, valid_l, desc_r, u_r, v_r, valid_r, octave_r,
+                     min_disp: float, max_disp: float, u_l, scale_factors,
+                     th: float = TH_HIGH):
+    """Row-banded stereo matching (``Frame::ComputeStereoMatches``):
+    right keypoints within ±2·scale rows of the left keypoint (the scale of
+    the right keypoint's octave) and with disparity u_l − u_r in
+    [min_disp, max_disp] are candidates; the first minimal Hamming distance
+    wins if it is ≤ ``th``. The (N, M) table is the masked
+    ``distance_table``; nothing larger is built.
+
+    The JAX function also takes the left octaves, which it does not use.
+
+    Returns (u_right (N,) f32 or −1, best distance (N,) f32)."""
+    d = distance_table(desc_l, desc_r, valid_l, valid_r)
+    row_tol = 2.0 * scale_factors[octave_r.clamp(0, scale_factors.shape[0] - 1).long()]
+    row_ok = (v_l[:, None] - v_r[None, :]).abs() <= row_tol[None, :]
+    disp = u_l[:, None] - u_r[None, :]
+    d = torch.where(row_ok & (disp >= min_disp) & (disp <= max_disp), d, 256.0)
+    best_j = torch.argmin(d, dim=1)
+    best_d = d.gather(1, best_j[:, None])[:, 0]
+    u_right = torch.where(best_d <= th, u_r[best_j], -1.0)
+    return u_right, best_d

@@ -57,15 +57,15 @@ def _project(cam: PinholeCamera, p: torch.Tensor) -> torch.Tensor:
 
 
 def minimal_sets(valid: torch.Tensor, n_hypotheses: int, generator: Optional[torch.Generator],
-                 draws: Optional[torch.Tensor]) -> torch.Tensor:
-    """(H, 3) row indices of the minimal sets: uniform draws in [0, P)
+                 draws: Optional[torch.Tensor], size: int = 3) -> torch.Tensor:
+    """(H, size) row indices of the minimal sets: uniform draws in [0, P)
     folded onto the valid rows (valid rows first, in their order; a draw is
     taken modulo their count)."""
     P = valid.shape[0]
     if draws is None:
         if generator is None:
             raise ValueError("RANSAC needs the caller's torch.Generator (or explicit draws)")
-        draws = torch.randint(0, P, (n_hypotheses, 3), generator=generator,
+        draws = torch.randint(0, P, (n_hypotheses, size), generator=generator,
                               device=generator.device)
     draws = torch.as_tensor(draws).to(device=valid.device, dtype=torch.int64)
     order = torch.argsort((~valid).to(torch.int8), stable=True)

@@ -1,7 +1,7 @@
 """The fused per-frame tracking step (counterpart of
-``orb_slam3_rgbl_tpu.slam.compiled``): image + LiDAR cloud (or depth image)
-in → features, bindings and pose out, with no host round-trip inside the
-step.
+``orb_slam3_rgbl_tpu.slam.compiled``): image + LiDAR cloud (or depth image,
+or nothing for the monocular sensor) in → features, bindings and pose out,
+with no host round-trip inside the step.
 
 Covers reference ``Tracking::Track`` stages: Frame ctor (extraction +
 LiDAR depth), TrackWithMotionModel (SearchByProjection against the last
@@ -65,10 +65,16 @@ def attach_lidar(cfg: SlamConfig, feats, points, P, valid_mask):
     return feats
 
 
+STEP_MODES = ("rgbl", "rgbd", "mono")
+
+
 def attach_depth(cfg: SlamConfig, mode: str, feats, depth_src, depth_valid, P):
     """The frame's depth by ``mode``: the LiDAR cloud ``depth_src`` with its
-    mask ``depth_valid`` ('rgbl', through the projection ``P``) or the
-    metric (H, W) depth image ``depth_src`` ('rgbd')."""
+    mask ``depth_valid`` ('rgbl', through the projection ``P``), the
+    metric (H, W) depth image ``depth_src`` ('rgbd'), or none ('mono': the
+    features keep depth −1)."""
+    if mode == "mono":
+        return feats
     if mode == "rgbd":
         return frame_mod.attach_depth_map(feats, depth_src, cfg.camera.bf)
     return attach_lidar(cfg, feats, depth_src, P, depth_valid)
@@ -172,11 +178,10 @@ def make_track_step(cfg: SlamConfig, window_cap: int = 8192, mm_th: float = 15.0
     ``mode`` 'rgbl': ``depth_src`` is a fixed-capacity (Np, 4) LiDAR cloud
     with ``depth_valid`` masking real returns; 'rgbd': ``depth_src`` is the
     (H, W) metric depth image (``Frame::ComputeStereoFromRGBD``) and
-    ``depth_valid`` is ignored. The 'mono' mode waits for ROADMAP Queue 1
-    item 14."""
-    if mode not in ("rgbl", "rgbd"):
-        raise NotImplementedError(
-            f"track mode {mode!r} is not ported yet (ROADMAP Queue 1 item 14)")
+    ``depth_valid`` is ignored; 'mono': no depth source (``depth_src`` and
+    ``depth_valid`` are ignored), every residual is monocular."""
+    if mode not in STEP_MODES:
+        raise ValueError(f"make_track_step: unknown mode {mode!r}, expected one of {STEP_MODES}")
     dev = resolve(device)
     cam = cfg.camera
     H, W = cam.height, cam.width

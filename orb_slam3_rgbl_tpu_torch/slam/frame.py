@@ -128,3 +128,87 @@ def attach_depth_map(feats: FrameFeatures, depth_map, bf: float,
     d = torch.where(feats.valid, d, -1.0)
     ur = torch.where(feats.valid, ur, -1.0)
     return feats._replace(depth=d, u_right=ur)
+
+
+def attach_stereo_depth(feats_l: FrameFeatures, feats_r: FrameFeatures, bf: float,
+                        min_disp: float = 0.0, max_disp: float = 200.0, n_levels: int = 8,
+                        scale_factor: float = 1.2) -> FrameFeatures:
+    """Stereo: row-banded Hamming matching of the left features against the
+    right image's (``ops.matching.stereo_row_match``) and depth bf /
+    disparity where the disparity exceeds 1e-3 px (reference
+    ``Frame::ComputeStereoMatches``)."""
+    from orb_slam3_rgbl_tpu_torch.ops.matching import stereo_row_match
+
+    dev = feats_l.uv.device
+    scale_factors = torch.tensor([scale_factor ** l for l in range(n_levels)],
+                                 dtype=torch.float32, device=dev)
+    u_right, _ = stereo_row_match(
+        feats_l.desc, feats_l.uv[:, 1], feats_l.valid,
+        feats_r.desc, feats_r.uv[:, 0], feats_r.uv[:, 1], feats_r.valid, feats_r.octave,
+        min_disp, max_disp, feats_l.uv[:, 0], scale_factors)
+    disp = feats_l.uv[:, 0] - u_right
+    good = (u_right >= 0) & (disp > 1e-3)
+    depth = torch.where(good, bf / torch.where(good, disp, 1.0), -1.0)
+    return feats_l._replace(depth=depth, u_right=torch.where(good, u_right, -1.0))
+
+
+def _nanmedian_of(values: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """The median of ``values[keep]`` as ``jnp.nanmedian`` gives it — the
+    mean of the two middle values of an even count (``torch.nanmedian``
+    returns the lower one) — and inf for an empty selection; on the device,
+    without a host sync."""
+    s = torch.sort(torch.where(keep, values, float("inf"))).values
+    n = keep.sum()
+    lo = s.gather(0, ((n - 1).clamp_min(0) // 2)[None])[0]
+    hi = s.gather(0, (n // 2).clamp_max(s.shape[0] - 1)[None])[0]
+    return torch.where(n > 0, lo * 0.5 + hi * 0.5, float("inf"))
+
+
+def stereo_sad_table(feats: FrameFeatures, gray_l, gray_r, w: int = 5, L: int = 5):
+    """The SAD of the (2w+1)² patch around each left keypoint against the
+    right image's patches at the 2L+1 columns around its integer match
+    (row and columns clamped into the image): (SAD (N, 2L+1), the integer
+    centre column (N,))."""
+    H, W = gray_l.shape
+    dev = feats.uv.device
+    P = 2 * w + 1
+    vi = torch.round(feats.uv[:, 1]).to(torch.int64).clamp(w, H - w - 1)
+    ui = torch.round(feats.uv[:, 0]).to(torch.int64).clamp(w, W - w - 1)
+    ur0 = torch.round(feats.u_right).to(torch.int64).clamp(w + L, W - w - L - 1)
+    dy = torch.arange(-w, w + 1, device=dev)
+    rows = vi[:, None, None] + dy[None, :, None]
+    IL = gray_l[rows, ui[:, None, None] + dy[None, None, :]]                     # (N, P, P)
+    dxr = torch.arange(-w - L, w + L + 1, device=dev)
+    PR = gray_r[rows, ur0[:, None, None] + dxr[None, None, :]]                   # (N, P, P+2L)
+    windows = PR.unfold(2, P, 1)                                                 # (N, P, 2L+1, P)
+    return (IL[:, :, None, :] - windows).abs().sum(dim=(1, 3)), ur0
+
+
+def refine_stereo_subpixel(feats: FrameFeatures, gray_l, gray_r, bf: float,
+                           w: int = 5, L: int = 5) -> FrameFeatures:
+    """SAD subpixel refinement of the stereo matches (reference
+    ``Frame::ComputeStereoMatches``, correlation stage): the (2w+1)² patch
+    around the left keypoint slides ±L columns around the integer right
+    match on the level-0 images; a parabola through the best SAD and its
+    neighbours gives the subpixel column; matches whose disparity falls
+    under 0.01 px or whose best SAD exceeds 1.5·1.4 × the median are cut.
+    A match that is not refined keeps its integer ``u_right`` and depth."""
+    has = feats.u_right >= 0
+    dists, ur0 = stereo_sad_table(feats, gray_l, gray_r, w, L)
+    best = torch.argmin(dists, dim=1)
+    interior = (best > 0) & (best < 2 * L)
+    bi = best.clamp(1, 2 * L - 1)
+    d1 = dists.gather(1, (bi - 1)[:, None])[:, 0]
+    d2 = dists.gather(1, bi[:, None])[:, 0]
+    d3 = dists.gather(1, (bi + 1)[:, None])[:, 0]
+    denom = d1 + d3 - 2.0 * d2
+    delta = torch.where(denom.abs() > 1e-6, (d1 - d3) / (2.0 * denom), 0.0)
+    ok = has & interior & (delta.abs() <= 1.0)
+    best_ur = ur0.to(torch.float32) + (bi - L).to(torch.float32) + delta
+    disparity = feats.uv[:, 0] - best_ur
+    ok = ok & (disparity > 0.01)
+    # median-distance outlier cut (Frame.cc:1059-1072)
+    ok = ok & (torch.where(ok, d2, float("inf")) < 1.5 * 1.4 * _nanmedian_of(d2, ok))
+    u_right = torch.where(ok, best_ur, feats.u_right)
+    depth = torch.where(ok, bf / disparity.clamp_min(1e-3), feats.depth)
+    return feats._replace(u_right=u_right, depth=depth)

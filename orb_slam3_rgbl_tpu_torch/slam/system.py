@@ -1,9 +1,14 @@
 """System facade, the port's public entry point (counterpart of
 ``orb_slam3_rgbl_tpu.slam.system``; reference ``System.cc``).
 
-Ported: ``System(cfg).track_rgbl`` and ``track_rgbd`` (sensor RGBD: a metric
-depth image in place of the cloud) with the default configuration (local
-mapping on, loop closing on) — the fused steady-state loop and the classic
+Ported: ``System(cfg).track_rgbl``, ``track_rgbd`` (sensor RGBD: a metric
+depth image in place of the cloud), ``track_stereo`` (sensor STEREO: depth
+from row matching of the left and right features, refined by SAD, after the
+pair is rectified where the settings give a second camera that needs it)
+and ``track_monocular`` (sensor MONOCULAR: no depth; the map starts from a
+two-view reconstruction and has no metric scale) with the default
+configuration (local mapping on, loop closing on) — the fused steady-state
+loop (RGB-L, RGB-D, monocular) and the classic
 ladder, the atlas's new-map recovery after a lost streak or a backward
 timestamp, trajectory export, and the planes behind every frame that
 created a keyframe: the mapping job of ``LocalMapper.process_keyframe``
@@ -53,8 +58,10 @@ the JAX package's archive format (``utils/serialization.py``); a loaded
 atlas resumes in relocalization. ``timer`` (a ``utils.profiling.StageTimer``)
 collects the reference's stage times beside the profiler spans.
 
-Stereo, monocular, the KannalaBrandt8 camera and the inertial sensors raise
-``NotImplementedError`` naming the ROADMAP Queue 1 item that ports them.
+Stereo frames take the per-stage path every frame, as in the JAX package
+(it has no fused stereo step). The KannalaBrandt8 camera (and with it the
+stereo-fisheye pair) and the inertial sensors raise ``NotImplementedError``
+naming the ROADMAP Queue 1 item that ports them.
 """
 
 from __future__ import annotations
@@ -72,10 +79,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from orb_slam3_rgbl_tpu_torch.config import RGBD, RGBL, SENSOR_NAMES, SlamConfig
+from orb_slam3_rgbl_tpu_torch.config import (MONOCULAR, RGBD, RGBL, SENSOR_NAMES, STEREO,
+                                             SlamConfig)
 from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry import camera as cam_mod
 from orb_slam3_rgbl_tpu_torch.geometry import lie
+from orb_slam3_rgbl_tpu_torch.geometry.rectify import build_rectifier
 from orb_slam3_rgbl_tpu_torch.io import trajectory as traj_io
 from orb_slam3_rgbl_tpu_torch.ops import fast as fast_ops
 from orb_slam3_rgbl_tpu_torch.slam import compiled, merging
@@ -115,25 +124,32 @@ class System:
         if config.inertial:
             raise NotImplementedError(
                 "inertial sensors are not ported yet (ROADMAP Queue 1 item 15)")
-        if config.sensor not in (RGBL, RGBD):
-            raise NotImplementedError(
-                f"sensor {SENSOR_NAMES.get(config.sensor, config.sensor)} is not ported yet, "
-                "only RGBL and RGBD (ROADMAP Queue 1 item 14)")
+        if config.sensor not in SENSOR_NAMES:
+            raise ValueError(f"unknown sensor {config.sensor!r}")
         if config.camera_type == "KannalaBrandt8":
             raise NotImplementedError(
-                "the KannalaBrandt8 camera is not ported yet (ROADMAP Queue 1 item 14)")
-        # a distorted pinhole works on undistorted keypoints
-        # (Frame::UndistortKeyPoints) against a working camera without
-        # distortion
+                "the KannalaBrandt8 camera (and the stereo-fisheye pair) is not ported yet "
+                "(ROADMAP Queue 1 item 14)")
+        # a stereo pair with a second camera that needs it is rectified
+        # (the reference's Settings maps) and the system works on the
+        # rectified camera; a distorted pinhole otherwise works on
+        # undistorted keypoints (Frame::UndistortKeyPoints) against a
+        # working camera without distortion
+        self.rectifier = None
         self._undistort_cam = None
-        if config.camera_type == "PinHole" and config.camera.has_distortion:
+        if (config.sensor == STEREO and config.stereo is not None
+                and config.stereo.needs_rectify and config.camera_type == "PinHole"):
+            self.rectifier = build_rectifier(config)
+            config = dataclasses.replace(config, camera=self.rectifier.cam_rect)
+        elif config.camera_type == "PinHole" and config.camera.has_distortion:
             self._undistort_cam = config.camera
             config = dataclasses.replace(config, camera=dataclasses.replace(
                 config.camera, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0))
-            if config.sensor == RGBL:
-                log.warning("distorted PinHole configuration with the RGBL sensor: keypoints "
-                            "are undistorted per frame, but the LiDAR projection assumes "
-                            "rectified images")
+            if config.sensor in (RGBL, STEREO):
+                log.warning("distorted PinHole configuration with sensor %s: keypoints are "
+                            "undistorted per frame, but stereo row matching and the LiDAR "
+                            "projection assume rectified images; give rectified input or a "
+                            "Camera2 section", SENSOR_NAMES[config.sensor])
         self.cfg = config
         self.cam = config.camera
         self.device = resolve(device)
@@ -148,6 +164,7 @@ class System:
         # relocalization (CPU generators, seeded: a run repeats)
         self._loop_rng = torch.Generator().manual_seed(7)
         self._reloc_rng = torch.Generator().manual_seed(13)
+        self._init_rng = torch.Generator().manual_seed(21)   # monocular two-view draws
         self._lost_streak = 0
         self._fast: Optional[FastPath] = None   # shared across atlas maps
         self.use_fused = True       # the fused steady-state loop
@@ -286,6 +303,37 @@ class System:
             has_d, uvu[..., 0] - self.cam.bf / torch.where(has_d, feats.depth, 1.0), -1.0)
         return feats._replace(uv=uvu, u_right=u_right)
 
+    def track_stereo(self, gray_l, gray_r, timestamp: float) -> TrackResult:
+        """Left and right gray images (H, W) → ``TrackResult``
+        (``System::TrackStereo``): rectified first when the system has a
+        rectifier; both extracted; the left features' depth from row
+        matching against the right ones (disparity ≤ bf / 0.5, z ≥ 0.5 m),
+        refined by SAD on the level-0 images; then the classic ladder."""
+        self._check_timestamp_jump(timestamp)
+        img_l = torch.as_tensor(gray_l, dtype=torch.float32, device=self.device)
+        img_r = torch.as_tensor(gray_r, dtype=torch.float32, device=self.device)
+        if self.rectifier is not None:
+            img_l, img_r = self.rectifier.remap(img_l, img_r)
+        o = self.cfg.orb
+        feats = frame_mod.attach_stereo_depth(
+            self._extract(img_l), self._extract(img_r), self.cam.bf, min_disp=0.0,
+            max_disp=self.cam.bf / 0.5, n_levels=o.n_levels, scale_factor=o.scale_factor)
+        feats = frame_mod.refine_stereo_subpixel(feats, img_l, img_r, self.cam.bf)
+        return self._track(self._undistort_feats(feats), timestamp)
+
+    def track_monocular(self, gray, timestamp: float) -> TrackResult:
+        """Gray image (H, W) → ``TrackResult`` (``System::TrackMonocular``).
+        The map initializes from a two-view reconstruction on the classic
+        ladder and has no metric scale; steady frames run the fused step
+        without a depth source."""
+        self._check_timestamp_jump(timestamp)
+        img = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
+        if self.use_fused and self._undistort_cam is None and self.cfg.sensor == MONOCULAR:
+            self._ensure_fast("mono")
+            return self._post_track(self.tracker.track_image_mono(img, timestamp,
+                                                                  timer=self.timer))
+        return self._track(self._undistort_feats(self._extract(img)), timestamp)
+
     def track_features(self, feats, timestamp: float) -> TrackResult:
         """Feature-level entry point: extracted ``FrameFeatures`` on the
         system's device go straight to the classic ladder (testing, or
@@ -343,6 +391,7 @@ class System:
         # landmark statistics
         t.mapping_inflight_fn = lambda: bool(self._map_queue) or self._map_busy()
         t.fast = self._fast
+        t.init_generator = self._init_rng
         self.loop_closer = None
         if self.cfg.loop_closing and loop_closing:
             self.loop_closer = LoopCloser(

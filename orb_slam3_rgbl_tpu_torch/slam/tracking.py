@@ -12,15 +12,17 @@ CreateNewKeyFrame. Control flow and tie rules are host numpy, exactly as
 in the JAX package; matching and pose solves run the port's PyTorch
 functions on the tracker's device.
 
-Ported for the non-inertial depth sensors: RGB-L (``track_image_rgbl``)
-and RGB-D (``track_image_rgbd``, the same step with a depth image for the
-cloud). Localization mode (``only_tracking``) tracks against a frozen map:
-no keyframe, acceptance on visual-odometry evidence, and the last frame's
-close unbound points as temporary structure for the motion model. Not
-ported: monocular initialization and relocalization's DLT solver (ROADMAP
-Queue 1 item 14) and the inertial parts (item 15). Relocalization runs
-against the keyframe database that the loop-closing plane wires
-(``kf_db``).
+Ported for the non-inertial sensors: RGB-L (``track_image_rgbl``), RGB-D
+(``track_image_rgbd``, the same step with a depth image for the cloud),
+stereo (features with stereo depth, through ``track``) and monocular
+(``track_image_mono``: the step without a depth source; the map starts
+from a two-view reconstruction, ``_monocular_initialization``, and a lost
+tracker relocalizes by 2D-3D DLT PnP). Localization mode
+(``only_tracking``) tracks against a frozen map: no keyframe, acceptance on
+visual-odometry evidence, and the last frame's close unbound points as
+temporary structure for the motion model. Not ported: the inertial parts
+(ROADMAP Queue 1 item 15). Relocalization runs against the keyframe
+database that the loop-closing plane wires (``kf_db``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from orb_slam3_rgbl_tpu_torch.config import MONOCULAR, SlamConfig
 from orb_slam3_rgbl_tpu_torch.device import resolve
-from orb_slam3_rgbl_tpu_torch.geometry import lie
+from orb_slam3_rgbl_tpu_torch.geometry import lie, two_view
 from orb_slam3_rgbl_tpu_torch.geometry.camera import np_geo_project, np_geo_unproject
 from orb_slam3_rgbl_tpu_torch.ops import matching
 from orb_slam3_rgbl_tpu_torch.optim import pnp, pose_opt
@@ -56,7 +58,10 @@ LOCAL_KF_CAP = 80     # reference caps local keyframes at 80 (Tracking.cc:3543)
 MIN_FUSED_INLIERS = 30   # below this a fused frame goes to the classic ladder
 MIN_VO_MATCHES = 20      # localization mode accepts on this many total inliers
 VO_SENTINEL = -2         # binding of a temporary visual-odometry point
-RELOC_HYPOTHESES = 256   # PnP RANSAC budget of one relocalization candidate
+RELOC_HYPOTHESES = 256   # rigid PnP RANSAC budget of one relocalization candidate
+RELOC_DLT_HYPOTHESES = 512   # DLT PnP RANSAC budget (monocular relocalization)
+MONO_INIT_CAP = 1024     # matches handed to the two-view reconstruction, at most
+MONO_INIT_MIN = 100      # features of an initialization frame, matches, map points
 
 
 @dataclasses.dataclass
@@ -79,9 +84,6 @@ class Tracker:
         if config.inertial:
             raise NotImplementedError(
                 "inertial tracking is not ported yet (ROADMAP Queue 1 item 15)")
-        if config.sensor == MONOCULAR:
-            raise NotImplementedError(
-                "monocular initialization is not ported yet (ROADMAP Queue 1 item 14)")
         self.cfg = config
         self.cam = config.camera
         self.geo_cam = config.geo_camera
@@ -91,6 +93,9 @@ class Tracker:
         self.n_feat: Optional[int] = None   # set on the first frame
         self.kf_db = None   # KeyFrameDatabase, wired by the loop-closing plane
         self.reloc_generator = None   # torch.Generator of the PnP draws, wired with it
+        self.is_mono = config.sensor == MONOCULAR
+        self.init_generator = None    # torch.Generator of the two-view draws (monocular)
+        self._mono_ref = None         # (device feats, host feats, timestamp) of the reference
         self.fast = None    # FastPath, wired by System for the fused loop
         # mapping hooks, wired by the mapping plane (all checked for None)
         self.pre_kf_hook = None        # called right before keyframe creation
@@ -171,7 +176,8 @@ class Tracker:
         created_kf = False
         self.new_kf_ids = []
         if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
-            ok = self._stereo_initialization(feats, timestamp)
+            ok = (self._monocular_initialization(feats, timestamp) if self.is_mono
+                  else self._stereo_initialization(feats, timestamp))
             self.state = OK if ok else NOT_INITIALIZED
             n_inl = int(self._host(feats).valid.sum()) if ok else 0
             created_kf = ok
@@ -220,6 +226,96 @@ class Tracker:
         self.new_kf_ids = [kf_id]
         if self.kf_feats_hook is not None:
             self.kf_feats_hook(kf_id, feats)
+        return True
+
+    # ------------------------------------------------------------------
+    def _two_view_draws(self, n: int):
+        """The two-view reconstruction's minimal sets over ``n`` matches,
+        from the generator the owner wired."""
+        if self.init_generator is None:
+            raise ValueError("monocular initialization needs the caller's torch.Generator")
+        return two_view.two_view_draws(n, self.init_generator)
+
+    def _monocular_initialization(self, feats: FrameFeatures, timestamp: float) -> bool:
+        """Reference ``Tracking::MonocularInitialization`` +
+        ``CreateInitialMapMonocular``: hold a reference frame with > 100
+        features, match the next frame to it within 100 px
+        (``SearchForInitialization``), reconstruct the two views (F and H
+        race), scale the map to unit median depth, create KF0 + KF1. The
+        reference keyframe takes frame id ``frame_id − 1`` whatever frame
+        it came from, as in the JAX package."""
+        hf = self._host(feats)
+        if self._mono_ref is None:
+            if hf.valid.sum() > MONO_INIT_MIN:
+                self._mono_ref = (feats, hf, timestamp)
+            return False
+        if hf.valid.sum() <= MONO_INIT_MIN:
+            self._mono_ref = None
+            return False
+        ref, href, ref_t = self._mono_ref
+        d = matching.distance_table(ref.desc, feats.desc, ref.valid, feats.valid)
+        duv2 = ((ref.uv[:, None, :] - feats.uv[None, :, :]) ** 2).sum(dim=-1)
+        d = torch.where(duv2 < 100.0 ** 2, d, 512.0)
+        idx, _ = matching.mutual_best_match(d, ref.angle, feats.angle, th=matching.TH_LOW,
+                                            ratio=0.9, check_rotation=True)
+        idx = idx.cpu().numpy()
+        f1 = np.nonzero(idx >= 0)[0]
+        if f1.size < MONO_INIT_MIN:
+            # too few matches: this frame becomes the reference
+            self._mono_ref = (feats, hf, timestamp)
+            return False
+        f1 = f1[:MONO_INIT_CAP]
+        f2 = idx[f1]
+        m = f1.size
+        f32 = torch.float32
+        res = two_view.reconstruct_two_views(
+            self._dev(href.uv[f1], f32), self._dev(hf.uv[f2], f32),
+            torch.ones(m, dtype=torch.bool, device=self.device), self.cam,
+            draws=self._two_view_draws(m))
+        down = torch.cat([res.success.to(f32)[None], res.T21, res.points.reshape(-1),
+                          res.is_good.to(f32)]).cpu().numpy()
+        if down[0] < 0.5:
+            return False
+        T21 = down[1:8].astype(np.float32)              # cur ← ref (ref at identity)
+        X = down[8: 8 + 3 * m].reshape(m, 3).astype(np.float32)
+        sel = np.nonzero(down[8 + 3 * m:] > 0.5)[0]
+        # the reference resets an initial map of fewer than 100 points
+        if sel.size < MONO_INIT_MIN:
+            return False
+        med = float(np.median(X[sel, 2]))
+        if not np.isfinite(med) or med <= 1e-6:
+            return False
+        # unit-median-depth gauge (the reference's invMedianDepth)
+        X = X / med
+        T21[4:7] /= med
+        fsel1, fsel2 = f1[sel], f2[sel]
+        lm0 = np.full(self.n_feat, -1, np.int32)
+        kf0 = self.map.add_keyframe(
+            lie.np_se3_identity(), href.uv, href.octave.astype(np.int16), href.desc,
+            href.depth, href.u_right, href.valid, lm0, ref_t, max(self.frame_id - 1, 0),
+            angle=href.angle)
+        kf1 = self.map.add_keyframe(
+            T21, hf.uv, hf.octave.astype(np.int16), hf.desc, hf.depth, hf.u_right, hf.valid,
+            lm0.copy(), timestamp, self.frame_id, angle=hf.angle)
+        pts = X[sel]
+        dist = np.linalg.norm(pts, axis=-1)   # KF0's camera at the origin
+        normals = pts / np.maximum(dist[:, None], 1e-9)
+        sf = self.scale_factors[np.clip(href.octave[fsel1], 0, len(self.scale_factors) - 1)]
+        ids = self.map.add_landmarks(
+            pts.astype(np.float32), href.desc[fsel1], kf0, fsel1, normals.astype(np.float32),
+            (dist * sf).astype(np.float32),
+            (dist * sf / self.scale_factors[-1] / self.cfg.orb.scale_factor).astype(np.float32))
+        self.map.kf_lm_idx[kf1, fsel2] = ids
+        self.cur_pose = T21.copy()
+        self.cur_lm_idx = np.full(self.n_feat, -1, np.int32)
+        self.cur_lm_idx[fsel2] = ids
+        self.ref_kf = kf1
+        self.last_kf_frame = self.frame_id
+        self.new_kf_ids = [kf0, kf1]
+        if self.kf_feats_hook is not None:
+            self.kf_feats_hook(kf0, ref)
+            self.kf_feats_hook(kf1, feats)
+        self._mono_ref = None
         return True
 
     # ------------------------------------------------------------------
@@ -480,22 +576,24 @@ class Tracker:
         return v[:7].astype(np.float32), int(v[7]), v[8:] > 0.5
 
     # ------------------------------------------------------------------
-    def _reloc_draws(self, n_pairs: int) -> torch.Tensor:
-        """(RELOC_HYPOTHESES, 3) minimal-set draws in [0, n_pairs) from the
-        generator the owner wired beside the keyframe database."""
+    def _reloc_draws(self, n_pairs: int, size: int = 3) -> torch.Tensor:
+        """Minimal-set draws in [0, n_pairs) from the generator the owner
+        wired beside the keyframe database: (RELOC_HYPOTHESES, 3) for the
+        rigid solver, (RELOC_DLT_HYPOTHESES, 6) for the DLT one."""
         if self.reloc_generator is None:
             raise ValueError("relocalization needs the caller's torch.Generator for PnP RANSAC")
-        return torch.randint(0, n_pairs, (RELOC_HYPOTHESES, 3), generator=self.reloc_generator,
+        n_hypotheses = RELOC_HYPOTHESES if size == 3 else RELOC_DLT_HYPOTHESES
+        return torch.randint(0, n_pairs, (n_hypotheses, size), generator=self.reloc_generator,
                              device=self.reloc_generator.device)
 
     def _relocalization(self, feats: FrameFeatures):
         """Recover the pose from scratch (reference ``Relocalization``
         ``Tracking.cc:3643-3810``): database candidates → descriptor match
         → PnP RANSAC → robust pose refinement, and a wide projection search
-        before the final accept. The depth sensor gives the query features
-        their 3D, so hypotheses are rigid 3-point alignments
-        (``optim/pnp.py``). Without a keyframe database (no loop-closing
-        plane) it fails at once."""
+        before the final accept. A depth sensor gives the query features
+        their 3D, so hypotheses are rigid 3-point alignments; the monocular
+        sensor's are 6-point DLT poses (``optim/pnp.py``). Without a
+        keyframe database (no loop-closing plane) it fails at once."""
         fail = np.full(self.n_feat, -1, np.int32), 0
         if self.kf_db is None:
             return fail
@@ -513,7 +611,8 @@ class Tracker:
                 d, feats.angle, self._dev(self.map.kf_angle[cand], torch.float32),
                 th=matching.TH_LOW, ratio=0.75, check_rotation=True)
             idx = idx.cpu().numpy()
-            f1 = np.nonzero((idx >= 0) & (hf.depth > 0))[0]
+            has_depth = hf.depth > 0 if not self.is_mono else np.ones(idx.shape, bool)
+            f1 = np.nonzero((idx >= 0) & has_depth)[0]
             if f1.size < 15:
                 continue
             lm = self.map.kf_lm_idx[cand, idx[f1]]
@@ -523,12 +622,21 @@ class Tracker:
                 continue
             uv = hf.uv[f1]
             s2 = (self.cfg.orb.scale_factor ** (2 * hf.octave[f1])).astype(np.float32)
-            p_cam = (np_geo_unproject(self.geo_cam, uv) * hf.depth[f1][:, None]).astype(np.float32)
             f32 = torch.float32
-            res = pnp.rigid_pnp_ransac(
-                self._dev(p_cam, f32), self._dev(self.map.lm_pos[lm], f32), self._dev(uv, f32),
-                self._dev(s2, f32), torch.ones(f1.size, dtype=torch.bool, device=self.device),
-                self.cam, n_hypotheses=RELOC_HYPOTHESES, draws=self._reloc_draws(f1.size))
+            every = torch.ones(f1.size, dtype=torch.bool, device=self.device)
+            X_w = self._dev(self.map.lm_pos[lm], f32)
+            if self.is_mono:
+                res = pnp.dlt_pnp_ransac(
+                    X_w, self._dev(uv, f32), self._dev(s2, f32), every, self.cam,
+                    n_hypotheses=RELOC_DLT_HYPOTHESES,
+                    draws=self._reloc_draws(f1.size, 6))
+            else:
+                p_cam = (np_geo_unproject(self.geo_cam, uv) * hf.depth[f1][:, None]
+                         ).astype(np.float32)
+                res = pnp.rigid_pnp_ransac(
+                    self._dev(p_cam, f32), X_w, self._dev(uv, f32), self._dev(s2, f32), every,
+                    self.cam, n_hypotheses=RELOC_HYPOTHESES,
+                    draws=self._reloc_draws(f1.size))
             down = torch.cat([res.Tcw, res.n_inliers[None].to(f32), res.inliers.to(f32)]
                              ).cpu().numpy()
             # reference RANSAC accepts ≥ 10 inliers (Tracking.cc:3690),
@@ -666,6 +774,11 @@ class Tracker:
         in place of the cloud (the fused step in its 'rgbd' mode)."""
         return self.track_image_rgbl(img, depth_img, None, timestamp, timer=timer)
 
+    def track_image_mono(self, img, timestamp: float, timer=None) -> TrackResult:
+        """One monocular frame: ``track_image_rgbl`` without a depth source
+        (the fused step in its 'mono' mode)."""
+        return self.track_image_rgbl(img, img, None, timestamp, timer=timer)
+
     def track_image_rgbl(self, img, points, cloud_valid, timestamp: float,
                          timer=None) -> TrackResult:
         """One RGB-L frame. A steady OK frame runs the fused step; a frame
@@ -759,7 +872,8 @@ class Tracker:
         if not want:
             ref_matches = self._ref_kf_tracked()
             need_close = self._need_close(tracked_close, nontracked_close)
-            th_ref = 0.4 if self.map.n_kf < 2 else 0.75
+            # the reference's thRefRatio: 0.75, 0.4 with one keyframe, 0.9 monocular
+            th_ref = 0.9 if self.is_mono else 0.4 if self.map.n_kf < 2 else 0.75
             c1a = self.frame_id >= self.last_kf_frame + self.max_frames
             c1b = self.frame_id >= self.last_kf_frame + self.min_frames
             c1c = n_inl < ref_matches * 0.25 or need_close

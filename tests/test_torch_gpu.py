@@ -1,6 +1,7 @@
 """The CUDA kernels K1, K2 and K3 against their plain versions, the loop-closing
-plane's solvers, the atlas weld, the tree vocabulary, the RGB-D fused step and
-keypoint undistortion against their CPU runs, on the card. Marked
+plane's solvers, the atlas weld, the tree vocabulary, the RGB-D fused step,
+keypoint undistortion, stereo matching and refinement, the two-view solve and
+the monocular fused step against their CPU runs, on the card. Marked
 ``gpu``; without a card each test skips from its fixture.
 
 The machine with the card has no JAX, so run this file without the
@@ -685,3 +686,117 @@ def test_undistort_points_on_the_card(cuda):
     # the card may contract multiply-adds the CPU rounds apart: the CPU
     # tests' bar against JAX (tests/test_torch_config.py)
     assert (g.cpu() - undistort_points(cam, torch.from_numpy(uv))).abs().max() < 3e-4
+
+
+def _stereo_pair():
+    """The 320×192 canyon's first frame and its right image (the left pose
+    moved by bf / fx along the camera's x axis), rounded as an 8-bit camera
+    gives them, made on the CPU."""
+    from orb_slam3_rgbl_tpu_torch import synthetic as syn
+    from orb_slam3_rgbl_tpu_torch.geometry import lie
+
+    cfg = syn.synthetic_rgbl_config()
+    cam = cfg.camera
+    world = syn.make_world(0, tex_size=256, device=torch.device("cpu"))
+    Twc = syn.straight_trajectory(1, step=0.6, weave=0.4)[0].astype(np.float32)
+    Twc_r = Twc.copy()
+    Twc_r[4:7] += lie.np_quat_rotate(Twc[:4], np.array([cam.bf / cam.fx, 0, 0], np.float32))
+    return cfg, [torch.round(syn.render_image(world, T, cam.fx, cam.fy, cam.cx, cam.cy,
+                                              cam.height, cam.width)) for T in (Twc, Twc_r)]
+
+
+def test_stereo_matching_and_refinement_match_their_cpu_run(cuda):
+    """Row matching, stereo depth and the SAD refinement of the same
+    features on the card and on the CPU: matches, SAD tables and accepted
+    refinements equal (integer distances and sums), columns within 1e-4."""
+    from orb_slam3_rgbl_tpu_torch.slam import compiled, frame
+
+    cfg, (left, right) = _stereo_pair()
+    o, bf = cfg.orb, cfg.camera.bf
+    fl, fr = (compiled.extract(cfg, im, torch.device("cpu")) for im in (left, right))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        to = [type(fl)(*(x.to(dev) for x in f)) for f in (fl, fr)]
+        f = frame.attach_stereo_depth(*to, bf, max_disp=bf / 0.5, n_levels=o.n_levels,
+                                      scale_factor=o.scale_factor)
+        table, _ = frame.stereo_sad_table(f, left.to(dev), right.to(dev))
+        r = frame.refine_stereo_subpixel(f, left.to(dev), right.to(dev), bf)
+        out[dev.type] = (f, table, r)
+    (fc, tc, rc), (fg, tg, rg) = out["cpu"], out["cuda"]
+    assert fg.depth.device.type == "cuda" and int((fc.u_right >= 0).sum()) > 100
+    assert torch.equal(fg.u_right.cpu(), fc.u_right)
+    has = fc.u_right >= 0
+    assert torch.equal(tg.cpu()[has], tc[has])
+    assert torch.equal(rg.u_right.cpu() != fc.u_right, rc.u_right != fc.u_right)
+    assert (rg.u_right.cpu() - rc.u_right).abs().max() < 1e-4
+
+
+def test_two_view_solve_matches_its_cpu_run(cuda):
+    """``reconstruct_two_views`` on the same matches and draws on the card
+    and on the CPU: the same decision, T21 within 1e-3, ≥ 99% of is_good."""
+    from orb_slam3_rgbl_tpu_torch.config import kitti_rgbl_config
+    from orb_slam3_rgbl_tpu_torch.geometry import lie, two_view
+
+    cam = kitti_rgbl_config().camera
+    rng = np.random.default_rng(0)
+    n = 300
+    X = np.stack([rng.uniform(-20, 20, n), rng.uniform(-6, 6, n), rng.uniform(10, 60, n)],
+                 1).astype(np.float32)
+    T21 = torch.cat([lie.so3_exp(torch.tensor([0.0, 0.02, 0.0])), torch.tensor([-0.9, 0.0, 0.0])])
+    X2 = lie.se3_apply(T21, torch.from_numpy(X)).numpy()
+
+    def proj(p):
+        return np.stack([cam.fx * p[:, 0] / p[:, 2] + cam.cx,
+                         cam.fy * p[:, 1] / p[:, 2] + cam.cy], 1) + rng.normal(0, 0.3, (n, 2))
+
+    uv1, uv2 = (torch.from_numpy(proj(p).astype(np.float32)) for p in (X, X2))
+    draws = two_view.two_view_draws(n, torch.Generator().manual_seed(3))
+    res = {dev.type: two_view.reconstruct_two_views(
+        uv1.to(dev), uv2.to(dev), torch.ones(n, dtype=torch.bool, device=dev), cam, draws=draws)
+        for dev in (torch.device("cpu"), cuda)}
+    c, g = res["cpu"], res["cuda"]
+    assert bool(c.success) and bool(g.success) and g.T21.device.type == "cuda"
+    assert (g.T21.cpu() - c.T21).abs().max() < 1e-3
+    assert (g.is_good.cpu() == c.is_good).float().mean() >= 0.99
+
+
+def test_mono_fused_step_matches_its_cpu_run(cuda):
+    """The fused step in 'mono' mode (K1 and K2 on the card, no depth) against
+    the same step on the CPU, from one tracker state initialized on the CPU:
+    ≥ 99% of keypoints where both put them, no depth, inliers within 5%,
+    pose within 1e-3 (map units of unit median depth)."""
+    import dataclasses
+    from orb_slam3_rgbl_tpu_torch import synthetic as syn
+    from orb_slam3_rgbl_tpu_torch.config import MONOCULAR
+    from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
+    from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
+    from orb_slam3_rgbl_tpu_torch.slam.tracking import OK, Tracker
+
+    cfg = dataclasses.replace(syn.synthetic_rgbl_config(), sensor=MONOCULAR)
+    cam = cfg.camera
+    cpu = torch.device("cpu")
+    world = syn.make_world(0, tex_size=256, device=cpu)
+    imgs = [syn.render_image(world, T, cam.fx, cam.fy, cam.cx, cam.cy, cam.height, cam.width)
+            for T in syn.straight_trajectory(12, step=0.5, weave=1.2)]
+    t = Tracker(cfg, MapState.create(16, 8192, 600), device=cpu)
+    t.init_generator = torch.Generator().manual_seed(21)
+    i = 0
+    while t.state != OK:
+        assert i < 10, "no monocular initialization on the CPU"
+        t.track_image_mono(imgs[i], i * 0.1)
+        i += 1
+    pred = t._predict_pose()
+    cuda_build.reset_launch_counts()
+    outs = {}
+    for dev in (cpu, cuda):
+        fp = FastPath(cfg, 600, mode="mono", device=dev)
+        fp.sync(t.map, t.ref_kf, t.last_feats, t.last_lm_idx, t.last_lm_gen)
+        outs[dev.type] = fp.run(imgs[i], imgs[i], None, pred)
+    assert cuda_build.launch_counts["fast_and_blur"] == 1
+    c, g = outs["cpu"], outs["cuda"]
+    assert g.Tcw.device.type == "cuda" and int(c.n_inliers) >= 30
+    same = (g.feats.uv.cpu() == c.feats.uv).all(1)
+    assert same.float().mean() >= 0.99
+    assert (g.feats.depth == -1).all() and (g.feats.u_right == -1).all()
+    assert abs(int(g.n_inliers) - int(c.n_inliers)) <= 0.05 * int(c.n_inliers)
+    assert (g.Tcw.cpu() - c.Tcw).abs().max() < 1e-3

@@ -39,6 +39,10 @@ PORT_MODULES = [
     "orb_slam3_rgbl_tpu_torch.utils.profiling",
     "orb_slam3_rgbl_tpu_torch.examples.run_kitti_rgbl",
     "orb_slam3_rgbl_tpu_torch.examples.run_kitti_rgbd",
+    "orb_slam3_rgbl_tpu_torch.geometry.rectify", "orb_slam3_rgbl_tpu_torch.geometry.two_view",
+    "orb_slam3_rgbl_tpu_torch.io.euroc", "orb_slam3_rgbl_tpu_torch.examples.run_kitti_stereo",
+    "orb_slam3_rgbl_tpu_torch.examples.run_euroc",
+    "orb_slam3_rgbl_tpu_torch.examples.run_tum_rgbd",
     "chip_smoke",
 ]
 
@@ -79,6 +83,7 @@ def test_port_imports_no_opencv_or_pil():
 def test_entry_points_never_fall_back_to_cpu():
     import numpy as np
     from orb_slam3_rgbl_tpu_torch import device, synthetic
+    from orb_slam3_rgbl_tpu_torch.config import MONOCULAR, STEREO
     from orb_slam3_rgbl_tpu_torch.slam import compiled, frame
     from orb_slam3_rgbl_tpu_torch.slam.system import System
 
@@ -92,15 +97,20 @@ def test_entry_points_never_fall_back_to_cpu():
              lambda: frame.extract_features(torch.zeros(64, 64), 64, 64, n_levels=1),
              lambda: System(tracking_only, enable_mapping=False).track_rgbl(img, cloud, 0.0),
              lambda: System(tracking_only).track_rgbl(img, cloud, 0.0),
-             lambda: System(cfg).track_rgbl(img, cloud, 0.0)]      # the default configuration
+             lambda: System(cfg).track_rgbl(img, cloud, 0.0),      # the default configuration
+             lambda: System(dataclasses.replace(cfg, sensor=STEREO)).track_stereo(img, img, 0.0),
+             lambda: System(dataclasses.replace(cfg, sensor=MONOCULAR)).track_monocular(img, 0.0)]
     for call in calls:
         if torch.cuda.is_available():
             call()
         else:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call()
-    with pytest.raises(NotImplementedError):
-        compiled.make_track_step(cfg, mode="mono", device="cpu")
+    # every mode of the fused step is ported; an unknown one is refused
+    for mode in compiled.STEP_MODES:
+        compiled.make_track_step(cfg, mode=mode, device="cpu")
+    with pytest.raises(ValueError, match="unknown mode"):
+        compiled.make_track_step(cfg, mode="stereo", device="cpu")
 
 
 def _functions_with_device_default_none():

@@ -185,6 +185,29 @@ def test_detect_only_returns_the_same_event(state):
         bare.detect_only(kf_id)
 
 
+def test_detect_only_without_fixed_scale_matches_jax(state):
+    """The monocular closer (``fix_scale=False``, ``LoopCloser.fix_scale``
+    for the MONOCULAR sensor) on the same state: the same event keyframes,
+    the Sim3 to the tolerances above with its scale free and within 2e-3 of
+    JAX's, inlier counts within 3 (the two RANSACs draw from different
+    streams)."""
+    js, ev, kf_id, groups, pending, tcfg = state
+    jc = jax_closer_copy(js)
+    jc.fix_scale = False
+    jc._consistent_groups = copy.deepcopy(groups)
+    with jax.enable_x64(False):
+        ev_j = jc.detect_only(kf_id)
+    tc = port_closer(js, tcfg, groups)
+    tc.fix_scale = False
+    ev_t = tc.detect_only(kf_id)
+    assert ev_j is not None and ev_t is not None
+    assert (ev_t.kf_cur, ev_t.kf_matched) == (ev_j.kf_cur, ev_j.kf_matched)
+    assert abs(ev_t.n_inliers - ev_j.n_inliers) <= 3, (ev_t.n_inliers, ev_j.n_inliers)
+    np.testing.assert_allclose(ev_t.S12[:4], ev_j.S12[:4], atol=2e-3)
+    np.testing.assert_allclose(ev_t.S12[4:7], ev_j.S12[4:7], atol=2e-2)
+    assert ev_t.S12[7] != 1.0 and abs(ev_t.S12[7] - ev_j.S12[7]) < 2e-3, (ev_t.S12, ev_j.S12)
+
+
 def test_search_and_fuse_and_essential_edges_exact(state):
     js, ev, kf_id, groups, pending, tcfg = state
     jc = jax_closer_copy(js)

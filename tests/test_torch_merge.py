@@ -390,6 +390,32 @@ def test_verify_cross_map_on_jax_draws(drive):
                                       device="cpu") is None
 
 
+def test_verify_cross_map_without_fixed_scale_on_jax_draws(drive):
+    """The monocular weld's verification (``fix_scale=False``, as
+    ``System._try_merge`` passes for the MONOCULAR sensor) on the same
+    recorded maps and JAX's own draws: the same pairs and inlier count, the
+    Sim3 to 1e-4 with its scale free (no longer exactly 1)."""
+    rec, tcfg = drive["rec"], drive["tcfg"]
+    c = [c for c in rec["verify"] if c["out"] is not None][0]
+    key = jnp.asarray(c["key"])
+    with jax.enable_x64(False):
+        out_j = j_merging.verify_cross_map(drive["cfg"], copy_jax_map(c["m1"]), c["kf1"],
+                                           copy_jax_map(c["m2"]), c["kf2"], key, False)
+        draws = np.asarray(jax.random.randint(key, (RANSAC_HYPOTHESES, 3), 0, c["P"][0]))
+    out_t = t_merging.verify_cross_map(tcfg, convert.map_state_from_numpy(c["m1"]), c["kf1"],
+                                       convert.map_state_from_numpy(c["m2"]), c["kf2"], False,
+                                       draws=torch.from_numpy(draws), device="cpu")
+    S_j, n_j, (lm1_j, lm2_j) = out_j
+    S_t, n_t, (lm1_t, lm2_t) = out_t
+    assert n_t == n_j >= 25
+    assert S_t[7] != 1.0 and S_j[7] != 1.0
+    sign = np.sign(np.dot(S_t[:4], S_j[:4]))
+    np.testing.assert_allclose(S_t[:4] * sign, S_j[:4], atol=1e-4)
+    np.testing.assert_allclose(S_t[4:], S_j[4:], atol=1e-4)
+    np.testing.assert_array_equal(lm1_t, lm1_j)
+    np.testing.assert_array_equal(lm2_t, lm2_j)
+
+
 def test_rebind_after_merge_matches_jax(drive):
     rec, tcfg = drive["rec"], drive["tcfg"]
     r = rec["rebind"]

@@ -196,4 +196,3 @@ def test_rigid_pnp_ransac_on_jax_draws(n_pad):
     assert int(t_sim3.first_argmax(counts)) == int(np.argmax(counts.numpy()))
     with pytest.raises(ValueError, match="Generator"):
         t_pnp.rigid_pnp_ransac(*(_t(a) for a in (p_cam, X_w, uv, s2, valid)), T_CAM)
-    assert not hasattr(t_pnp, "dlt_pnp_ransac")     # the monocular solver is not ported

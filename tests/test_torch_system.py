@@ -143,16 +143,17 @@ def test_classic_only_drive_matches_jax():
 
 
 @pytest.mark.parametrize("change, item", [
-    (dict(sensor=1), "item 14"),                           # STEREO
-    (dict(sensor=0), "item 14"),                           # MONOCULAR
+    (dict(sensor=4), "item 15"),                           # IMU_STEREO
     (dict(sensor=5), "item 15"),                           # IMU_RGBD
     (dict(sensor=3), "item 15"),                           # IMU_MONOCULAR
     (dict(camera_type="KannalaBrandt8"), "item 14"),
+    (dict(sensor=1, camera_type="KannalaBrandt8"), "item 14"),   # a stereo-fisheye pair
 ])
 def test_system_refuses_unported_configurations(change, item):
-    """Stereo, monocular, the inertial sensors and the KannalaBrandt8 camera
-    raise; RGBD and a distorted PinHole camera are ported
-    (tests/test_torch_rgbd.py, tests/test_torch_config.py)."""
+    """The inertial sensors and the KannalaBrandt8 camera (the stereo-fisheye
+    pair with it) raise; RGBD, STEREO, MONOCULAR and a distorted PinHole
+    camera are ported (tests/test_torch_rgbd.py, tests/test_torch_stereo.py,
+    tests/test_torch_mono.py, tests/test_torch_config.py)."""
     from orb_slam3_rgbl_tpu_torch import synthetic as t_syn
 
     cfg = dataclasses.replace(t_syn.synthetic_rgbl_config(), loop_closing=False)
@@ -166,7 +167,8 @@ def test_system_refuses_unported_configurations(change, item):
     default = t_syn.synthetic_rgbl_config()
     assert default.loop_closing and not default.vocab_path
     assert TSystem(default, device="cpu").loop_closer is None     # built on the first frame
-    for ported in (dataclasses.replace(default, sensor=2),
+    for ported in (dataclasses.replace(default, sensor=2), dataclasses.replace(default, sensor=1),
+                   dataclasses.replace(default, sensor=0),
                    dataclasses.replace(default, camera=dataclasses.replace(default.camera, k1=0.1))):
         assert TSystem(ported, device="cpu").map is None
 
