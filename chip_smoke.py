@@ -101,6 +101,22 @@ host ms per kind of frame, the share of keypoints with a stereo depth
 before and after the SAD refinement, the row matcher's device ms and
 kernels and the peak memory.
 
+Phase 13 drives the inertial sensors through ``run_euroc`` on a
+EuRoC-shaped sequence it writes (752×480 distorted stereo at 20 fps, a
+200 Hz IMU, the reference's EuRoC settings): stereo-inertial over 48
+frames, then monocular-inertial over 160, each with the host and the card
+to itself, after K1 and K2 are held to their plain versions at that width.
+The stereo drive ends ~1.2 s after its IMU initialization and its VIBA1
+runs on the driven state (``LocalMapper.maybe_viba`` 5 s after the
+initialization); the monocular drive reaches its VIBA1.
+It checks every frame after the IMU initialization, the initialization's
+frame, VIBA1, the launch counts, the three solvers under
+``set_sync_debug_mode("error")``, the bindings after every job, and
+gravity, ATE, speed and (monocular) scale against the ground truth; it
+prints host ms per kind of frame and of each solve, and the card's busy
+time (the union of its kernels' intervals) in three profiled solves.
+``--phase13`` runs phase 13 alone.
+
 ``--mapping-drive N`` runs, instead of the phases, N frames tracking only
 and then with the mapping plane on (a keyframe every 4 in both): the
 window's and the map's growth over a longer drive.
@@ -259,9 +275,30 @@ def _ms(evt) -> float:
     return (evt.time_range.end - evt.time_range.start) / 1e3
 
 
-def _profile():
-    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+def _profile(cpu: bool = True):
+    act = [torch.profiler.ProfilerActivity.CUDA] + (
+        [torch.profiler.ProfilerActivity.CPU] if cpu else [])
     return torch.profiler.profile(activities=act)
+
+
+def _device_work(events) -> list:
+    """The card's own work among profiler events (kernels, copies, sets),
+    without the device-side ranges of ``record_function`` spans, which
+    cover the work inside them."""
+    return [e for e in events if _on_device(e) and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(("track.", "map.", "loop.", "merge."))]
+
+
+def _busy_ms(events) -> float:
+    """The union of the events' intervals (ms): the time the card was busy."""
+    total, lo, hi = 0.0, None, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if hi is None or a > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (total + (0.0 if hi is None else hi - lo)) / 1e3
 
 
 def kernel_device_ms(fn, name: str, iters: int = 20) -> float:
@@ -504,8 +541,11 @@ def bits_equal(a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def phase1_kernels(cfg, device) -> dict:
-    """K1, K2 and K3 against their plain versions at the main path's shapes."""
+def phase1_kernels(cfg, device, device_times: bool = True) -> dict:
+    """K1, K2 and K3 against their plain versions at the main path's shapes;
+    without ``device_times``, event times only (no profiler trace: late in
+    this process the profiler stops recording K1's device time)."""
+    dev_ms = kernel_device_ms if device_times else (lambda fn, name, iters=20: float("nan"))
     cam, o = cfg.camera, cfg.orb
     _, frames = render_drive(cfg, 1, device, n_az=64, n_el=8)
     levels = [lv.contiguous() for lv in pyr_ops.build_pyramid(
@@ -557,9 +597,9 @@ def phase1_kernels(cfg, device) -> dict:
 
     ms1 = time_cuda(k1_all)
     ms1_each = time_cuda(k1_each)
-    dms1 = kernel_device_ms(k1_all, "fast_blur_kernel")
-    dms1_each = kernel_device_ms(k1_each, "fast_blur_kernel")
-    dms1_call = kernel_device_ms(k1_all, "")
+    dms1 = dev_ms(k1_all, "fast_blur_kernel")
+    dms1_each = dev_ms(k1_each, "fast_blur_kernel")
+    dms1_call = dev_ms(k1_all, "")
     pms1 = time_cuda(lambda: frontend_cuda.fast_and_blur_levels_plain(levels), iters=20)
     log(f"K1 one launch over {len(levels)} levels (scores + composite, padding included): "
         f"{ms1:.4f} ms by events, kernel alone {dms1:.4f} ms on the device ({dms1_call:.4f} ms "
@@ -609,8 +649,8 @@ def phase1_kernels(cfg, device) -> dict:
     ms2 = time_cuda(k2)
     pms2 = time_cuda(k2_plain)
     gms2 = time_cuda(lambda: orb_ops.brief_descriptors(comp, uv_all, ang))
-    dms2 = kernel_device_ms(k2, "brief_kernel")
-    dms2_call = kernel_device_ms(k2, "")
+    dms2 = dev_ms(k2, "brief_kernel")
+    dms2_call = dev_ms(k2, "")
     log(f"K2 {N} keypoints on a {Hc}x{Wc} composite: bit-identical to the plain version "
         f"(tables, then gather) and to orb.brief_descriptors ({int(inside.sum())} in-patch "
         f"keypoints), all {idx.numel()} rotated positions equal to continuous_index_tables; "
@@ -620,7 +660,7 @@ def phase1_kernels(cfg, device) -> dict:
     # the floor of a launch: an empty kernel at K1's and at K2's grid
     grids = {"K1": (k1_blocks, frontend_cuda.THREADS),
              "K2": (-(-N // brief_cuda.K2_KPB), 256)}
-    for name, (blocks, threads) in grids.items():
+    for name, (blocks, threads) in grids.items() if device_times else ():
         floor_dev, floor_evt = empty_launch_ms(blocks, threads)
         log(f"empty kernel at {name}'s grid ({blocks} x {threads}): {floor_dev:.4f} ms on "
             f"the device, {floor_evt:.4f} ms by events")
@@ -646,14 +686,15 @@ def phase1_kernels(cfg, device) -> dict:
     ms3 = time_cuda(k3)
     pms3 = time_cuda(lambda: brief_cuda.brief_blocks_plain(comp, slot_corners, block_bins))
     gms3 = time_cuda(lambda: brief_cuda.brief_binned_plain(comp, uv_all, ang))
-    dms3 = kernel_device_ms(k3, "brief_binned_kernel")
+    dms3 = dev_ms(k3, "brief_binned_kernel")
     log(f"K3 {S} slots ({N} keypoints, {block_bins.shape[0]} blocks) on the same composite: "
         f"bit-identical to brief_blocks_plain on all {S} slots and to brief_binned_plain on "
         f"{int(inside.sum())} keypoints; kernel {ms3:.4f} ms (device time alone {dms3:.4f} ms), "
         f"plain {pms3:.4f} ms, gather form {gms3:.4f} ms")
-    floor_dev, floor_evt = empty_launch_ms(-(-S // brief_cuda.K3_KPB), 256)
-    log(f"empty kernel at K3's grid ({-(-S // brief_cuda.K3_KPB)} x 256): {floor_dev:.4f} ms on "
-        f"the device, {floor_evt:.4f} ms by events")
+    if device_times:
+        floor_dev, floor_evt = empty_launch_ms(-(-S // brief_cuda.K3_KPB), 256)
+        log(f"empty kernel at K3's grid ({-(-S // brief_cuda.K3_KPB)} x 256): {floor_dev:.4f} ms "
+            f"on the device, {floor_evt:.4f} ms by events")
 
     k2_terms = brief_bytes(comp, corners, idx)
     log("K2 least bytes: " + ", ".join(f"{k} {v:.0f}" for k, v in k2_terms.items()))
@@ -2618,6 +2659,474 @@ def phase12(traj, frames, device, workdir: str, card: str):
     log(f"phase 12: {time.perf_counter() - t0:.1f} s on {card}")
 
 
+# phase 13: the inertial sensors through the EuRoC driver
+# the cameras, extrinsics and IMU of the reference's
+# Examples/Stereo-Inertial/EuRoC.yaml (Camera1 = cam0, Camera2 = cam1)
+EUROC_CAM1 = dict(fx=458.654, fy=457.296, cx=367.215, cy=248.375, width=752, height=480)
+EUROC_DIST1 = dict(k1=-0.28340811, k2=0.07395907, p1=0.00019359, p2=1.76187114e-05)
+EUROC_CAM2 = dict(fx=457.587, fy=456.134, cx=379.999, cy=255.238)
+EUROC_DIST2 = dict(k1=-0.28368365, k2=0.07451284, p1=-0.00010473, p2=-3.55590700e-05)
+EUROC_T_C1_C2 = np.array([
+    [0.999997256477797, -0.002317135723275, -0.000343393120620, 0.110074137800478],
+    [0.002312067192432, 0.999898048507103, -0.014090668452683, -0.000156612054392],
+    [0.000376008102320, 0.014089835846691, 0.999900662638081, 0.000889382785432],
+    [0.0, 0.0, 0.0, 1.0]])
+EUROC_T_B_C1 = np.array([
+    [0.0148655429818, -0.999880929698, 0.00414029679422, -0.0216401454975],
+    [0.999557249008, 0.0149672133247, 0.025715529948, -0.064676986768],
+    [-0.0257744366974, 0.00375618835797, 0.999660727178, 0.00981073058949],
+    [0.0, 0.0, 0.0, 1.0]])
+EUROC_IMU = {"IMU.NoiseGyro": 1.7e-4, "IMU.NoiseAcc": 2.0e-3, "IMU.GyroWalk": 1.9393e-5,
+             "IMU.AccWalk": 3.0e-3, "IMU.Frequency": 200.0}
+EUROC_FPS, IMU_HZ = 20, 200
+EUROC_T0_NS = 1_000_000_000   # the first frame's stamp (1 s: float32 stays 1 µs fine)
+N_EUROC = 160                 # frames written (8 s)
+# frames each mode drives: stereo-inertial initializes ~1.3 s in (frame 25,
+# bound 25) and then tracks ~1.2 s on the IMU; after the initialization a
+# frame costs ~2 s of host time, so the 5 s to its VIBA1 would not fit the
+# script's time limit: VIBA1 is run by `LocalMapper.maybe_viba` at the
+# initialization's time + VIBA1_AFTER_S on the driven state, the call
+# `System._post_track` makes every frame. Monocular-inertial needs its
+# two-view initialization and 10 keyframes first (IMU on frame ~47, bound
+# first OK + 40) and drives to VIBA1 (~151, by 157): before VIBA1 its scale
+# and speed are still ~10% off (drives cut to 72, 84 or 96 frames on the CPU:
+# scale 1.098-1.099, speed 7-12% off; 20% at 112), after it 0.4% and 2.5%
+# on the H100
+EUROC_MODE_FRAMES = {"stereo-inertial": 48, "mono-inertial": 160}
+VIBA1_AFTER_S = 5.0           # LocalMapping.cc: VIBA1 5 s after the IMU initialization
+ROOM_HALF = 10.0              # the box room's half width (m): walls ~10 m ahead
+GRAVITY_TILT_DEG = 12.0       # gravity's tilt from the render world's +y
+# bounds from the CPU rehearsals at this size (tests/rehearse_phase13.py,
+# PERF.md §6): the IMU initializes at most this many frames after the
+# first OK frame, the later of the port's and the JAX System's rehearsal,
+# the JAX System under the reference's inertial rules that the port
+# follows (stereo 25 and 25; monocular 40 and 40) — counted from the first
+# OK frame, as the two-view initialization's own frame moves by a frame or
+# two between the card's extraction and the CPU's; the error bounds are ~3×
+# the port's rehearsal (gravity 0.33° stereo / 0.16° monocular, ATE 0.013 /
+# 0.056 m, monocular scale 1.027, speed 0.1% / 6.6%)
+IMU_INIT_BY = {"stereo-inertial": 25, "mono-inertial": 40}
+MAX_GRAVITY_ERR_DEG = 1.0
+MAX_SCALE_ERR = 0.10          # mono-inertial: |s − 1| of the Sim3 alignment after init
+MAX_VEL_ERR = 0.20            # the last keyframe's speed, relative
+MAX_ATE_M = {"stereo-inertial": 0.05, "mono-inertial": 0.17}
+
+
+def euroc_motion(n_frames: int):
+    """A hand-held motion in the box room, its ground truth and its IMU:
+    smooth sinusoidal accelerations (~0.4–0.7 m/s²), mild rotation
+    (≤ ~0.3 rad/s), a slow drift towards the far wall, gravity tilted by
+    ``GRAVITY_TILT_DEG`` from the render world's down axis (+y). The camera
+    (cam0) pose is analytic; the body is cam0 through ``EUROC_T_B_C1``; the
+    IMU's rates and specific forces are central differences of the body
+    pose in float64 (h = 1 ms). Returns (frame times (s), cam0 Twc (F, 7),
+    body velocities (F, 3), IMU rows (S, 7) [t, ax, ay, az, gx, gy, gz],
+    gravity in the render world)."""
+    from scipy.spatial.transform import Rotation
+
+    T_cb = np.linalg.inv(EUROC_T_B_C1)
+
+    def cam_pose(t):
+        p = np.array([0.25 * np.sin(2.1 * t) + 0.1 * t, 0.12 * np.sin(1.7 * t + 0.4),
+                      0.3 * np.sin(1.3 * t + 1.0) + 1.0 * t - 7.0])
+        R = Rotation.from_euler("yxz", [0.22 * np.sin(0.6 * t), 0.08 * np.sin(0.9 * t + 0.3),
+                                        0.05 * np.sin(1.1 * t)]).as_matrix()
+        return R, p
+
+    def body_pose(t):
+        R, p = cam_pose(t)
+        return R @ T_cb[:3, :3], p + R @ T_cb[:3, 3]
+
+    g = Rotation.from_rotvec(np.deg2rad(GRAVITY_TILT_DEG) * np.array([1.0, 0.0, 0.3]) /
+                             np.linalg.norm([1.0, 0.0, 0.3])).apply([0.0, 9.81, 0.0])
+    h = 1e-3
+    times = np.arange(n_frames) / EUROC_FPS
+    n_imu = int(round(times[-1] * IMU_HZ)) + 1
+    rows = []
+    for k in range(n_imu):
+        t = k / IMU_HZ
+        Rm, pm = body_pose(t - h)
+        R0, p0 = body_pose(t)
+        Rp, pp = body_pose(t + h)
+        acc_w = (pp - 2 * p0 + pm) / (h * h)
+        gyr = Rotation.from_matrix(Rm.T @ Rp).as_rotvec() / (2 * h)
+        rows.append(np.concatenate([[t], R0.T @ (acc_w - g), gyr]))
+    twc, vel = [], []
+    for t in times:
+        R, p = cam_pose(t)
+        twc.append(np.concatenate([Rotation.from_matrix(R).as_quat()[[3, 0, 1, 2]], p]))
+        vel.append((body_pose(t + h)[1] - body_pose(t - h)[1]) / (2 * h))
+    return times, np.asarray(twc, np.float32), np.asarray(vel), np.asarray(rows), g
+
+
+def write_euroc(root: str, times, lefts, rights, imu_rows):
+    """An ASL-format sequence (``mav0/cam0``, ``cam1``, ``imu0``), 8-bit
+    gray PNGs, and a timestamps file in nanoseconds. Returns (mav dir,
+    timestamps file)."""
+    mav = os.path.join(root, "mav0")
+    stamps = [EUROC_T0_NS + int(round(t * 1e9)) for t in times]
+    for cam, images in (("cam0", lefts), ("cam1", rights)):
+        if images is None:
+            continue
+        os.makedirs(os.path.join(mav, cam, "data"))
+        with open(os.path.join(mav, cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for ns, img in zip(stamps, images):
+                write_png(os.path.join(mav, cam, "data", f"{ns}.png"),
+                          np.clip(np.rint(img.cpu().numpy()), 0, 255).astype(np.uint8))
+                f.write(f"{ns},{ns}.png\n")
+    os.makedirs(os.path.join(mav, "imu0"))
+    with open(os.path.join(mav, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_RS_S_x,w_RS_S_y,w_RS_S_z,a_RS_S_x,a_RS_S_y,a_RS_S_z\n")
+        for r in imu_rows:
+            ns = EUROC_T0_NS + int(round(r[0] * 1e9))
+            f.write(f"{ns}," + ",".join(repr(float(v)) for v in (*r[4:7], *r[1:4])) + "\n")
+    ts_file = os.path.join(root, "timestamps.txt")
+    with open(ts_file, "w") as f:
+        f.write("\n".join(str(ns) for ns in stamps) + "\n")
+    return mav, ts_file
+
+
+def euroc_settings_yaml(path: str, n_features: int, stereo: bool):
+    """The reference's EuRoC settings (``File.version: "1.0"``): Camera1,
+    Camera2 and ``Stereo.T_c1_c2`` for the stereo pair, ``IMU.T_b_c1`` and the
+    IMU noise, 20 fps, ORB 1.2 × 8 levels."""
+    def matrix(name, M):
+        return [f"{name}: !!opencv-matrix", "  rows: 4", "  cols: 4", "  dt: f",
+                "  data: [" + ", ".join(repr(float(v)) for v in M.reshape(-1)) + "]"]
+
+    lines = ["%YAML:1.0", 'File.version: "1.0"', 'Camera.type: "PinHole"']
+    cams = (("Camera1", EUROC_CAM1, EUROC_DIST1),) + (
+        (("Camera2", EUROC_CAM2, EUROC_DIST2),) if stereo else ())
+    for k, cam, dist in cams:
+        lines += [f"{k}.{p}: {cam[p]}" for p in ("fx", "fy", "cx", "cy")]
+        lines += [f"{k}.{d}: {v}" for d, v in dist.items()]
+    lines += [f"Camera.width: {EUROC_CAM1['width']}", f"Camera.height: {EUROC_CAM1['height']}",
+              f"Camera.fps: {EUROC_FPS}", "Camera.RGB: 1", "Stereo.ThDepth: 60.0"]
+    if stereo:
+        lines += matrix("Stereo.T_c1_c2", EUROC_T_C1_C2)
+    lines += matrix("IMU.T_b_c1", EUROC_T_B_C1)
+    lines += [f"{k}: {v}" for k, v in EUROC_IMU.items()]
+    lines += [f"ORBextractor.nFeatures: {n_features}", "ORBextractor.scaleFactor: 1.2",
+              "ORBextractor.nLevels: 8", "ORBextractor.iniThFAST: 20",
+              "ORBextractor.minThFAST: 7"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def render_euroc(twc, device, seed: int = SEED):
+    """cam0 and cam1 images of the box room through their distortion."""
+    from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
+
+    world = syn.make_box_world(seed, tex_size=512, half=ROOM_HALF, device=device)
+    H, W = EUROC_CAM1["height"], EUROC_CAM1["width"]
+    out = []
+    for cam, dist, T in ((EUROC_CAM1, EUROC_DIST1, None), ({**EUROC_CAM1, **EUROC_CAM2},
+                                                           EUROC_DIST2, EUROC_T_C1_C2)):
+        pin = [syn.render_image(world, Tw if T is None else compose_pose(Tw, T), cam["fx"],
+                                cam["fy"], cam["cx"], cam["cy"], H, W) for Tw in twc]
+        geo = PinholeCamera(fx=cam["fx"], fy=cam["fy"], cx=cam["cx"], cy=cam["cy"], width=W,
+                            height=H, **dist)
+        out.append(through_distortion(geo, pin))
+    return out
+
+
+@contextlib.contextmanager
+def spy_inertial(rec: dict):
+    """Per frame of an inertial drive: host ms (synchronized), keyframe,
+    the map's IMU state; the host ms of every ``_vi_refine``,
+    ``local_inertial_bundle_adjustment``, ``full_inertial_ba`` and
+    ``maybe_initialize_imu`` (synchronized) and the last ``_vi_refine``'s
+    arguments (profiled after the drive, ``profile_inertial``); the three
+    solvers run under ``torch.cuda.set_sync_debug_mode("error")``;
+    ``check_binding_consistency`` after every mapping job."""
+    from orb_slam3_rgbl_tpu_torch.optim import inertial as inertial_mod, inertial_ba
+
+    timed = {"_vi_refine": (Tracker, "vi_refine"),
+             "local_inertial_bundle_adjustment": (LocalMapper, "local_viba"),
+             "full_inertial_ba": (LocalMapper, "full_viba"),
+             "maybe_initialize_imu": (LocalMapper, "imu_init")}
+    originals = {n: getattr(c, n) for n, (c, _) in timed.items()}
+    solvers = {(inertial_mod, "inertial_pose_optimize_prior"), (inertial_mod, "imu_initialization"),
+               (inertial_ba, "vi_bundle_adjust")}
+    solver_fns = {(m, n): getattr(m, n) for m, n in solvers}
+    orig_post, orig_job = System._post_track, LocalMapper.process_keyframe
+
+    def timing(key, fn):
+        def wrapper(self, *a, **k):
+            if key == "vi_refine":
+                rec["vi_refine_args"] = a
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            rec.setdefault(key, []).append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    def sync_free(fn, name):
+        def wrapper(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                rec.setdefault("sync_free", collections.Counter())[name] += 1
+        return wrapper
+
+    def post(self, res):
+        out = orig_post(self, res)
+        rec.setdefault("frames", []).append(
+            (bool(res.created_kf), bool(self.map.imu_initialized),
+             int(self.mapper._viba_stage) if self.mapper is not None else 0))
+        return out
+
+    def job(self, kf_id, *a, **k):
+        out = orig_job(self, kf_id, *a, **k)
+        issues = map_mod.check_binding_consistency(self.map)
+        if issues:
+            fail(f"phase 13: bindings inconsistent after the job of keyframe {kf_id}: {issues[:3]}")
+        rec["jobs"] = rec.get("jobs", 0) + 1
+        return out
+
+    for n, (c, key) in timed.items():
+        setattr(c, n, timing(key, originals[n]))
+    for (m, n), fn in solver_fns.items():
+        setattr(m, n, sync_free(fn, n))
+    System._post_track, LocalMapper.process_keyframe = post, job
+    try:
+        yield
+    finally:
+        for n, (c, _) in timed.items():
+            setattr(c, n, originals[n])
+        for (m, n), fn in solver_fns.items():
+            setattr(m, n, fn)
+        System._post_track, LocalMapper.process_keyframe = orig_post, orig_job
+
+
+def _angle_deg(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.degrees(np.arctan2(np.linalg.norm(np.cross(a, b)), a @ b)))
+
+
+def phase13_mode(mode: str, mav: str, ts_file: str, settings: str, twc_gt, vel_gt, g_world,
+                 device, workdir: str):
+    """One inertial mode of ``run_euroc`` over the written sequence, held to
+    its checks; returns its record."""
+    from orb_slam3_rgbl_tpu_torch.examples import run_euroc
+
+    n = min(len(twc_gt), EUROC_MODE_FRAMES[mode])
+    twc_gt, vel_gt = twc_gt[:n], vel_gt[:n]
+    stereo = mode == "stereo-inertial"
+    out_tum = os.path.join(workdir, f"{mode}_f.txt")
+    argv = [settings, mav, "--mode", mode, "--timestamps", ts_file, "--frames", str(n),
+            "--out-tum", out_tum, "--out-kf", os.path.join(workdir, f"{mode}_kf.txt"),
+            "--device", device.type]
+    rec = {}
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with spy_inertial(rec):
+        slam, results, times = run_euroc.run(run_euroc.parse_args(argv))
+        wall = time.perf_counter() - t0
+        # VIBA1 on the driven state, unless the drive reached it
+        mapper = slam.mapper
+        viba1_in_drive = mapper._viba_stage >= 1
+        if mapper._imu_init_time is not None and not viba1_in_drive:
+            mapper.maybe_viba(mapper._imu_init_time + VIBA1_AFTER_S)
+            issues = map_mod.check_binding_consistency(slam.map)
+            if issues:
+                fail(f"phase 13 {mode}: bindings inconsistent after VIBA1: {issues[:3]}")
+    counts = dict(cuda_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    frames = rec["frames"]
+    states = [r.state for r in results]
+    init = next((i for i, f in enumerate(frames) if f[1]), None)
+    if init is None:
+        fail(f"phase 13 {mode}: the IMU never initialized over {n} frames")
+    first_ok = states.index(trk.OK)
+    viba1 = (f"on frame {next(i for i, f in enumerate(frames) if f[2] >= 1)}" if viba1_in_drive
+             else f"by maybe_viba at the initialization's time + {VIBA1_AFTER_S:.0f} s, "
+                  f"{results[-1].timestamp - mapper._imu_init_time:.2f} s after it the drive's "
+                  f"last frame")
+    per = 2 if stereo else 1
+    # after the IMU initialization every frame OK, or RECENTLY_LOST on the
+    # IMU's prediction inside the grace window (time_recently_lost after the
+    # last OK frame); never LOST
+    last_ok, grace = results[init].timestamp, slam.tracker.time_recently_lost
+    dead_reckoned = []
+    for i in range(init, n):
+        if states[i] == trk.OK:
+            last_ok = results[i].timestamp
+        elif states[i] == trk.RECENTLY_LOST and results[i].timestamp - last_ok <= grace:
+            dead_reckoned.append(i)
+        else:
+            fail(f"phase 13 {mode}: frame {i} {trk.STATE_NAMES[states[i]]} after the IMU "
+                 f"initialization: {[trk.STATE_NAMES[s] for s in states[init:]]}")
+    if init - first_ok > IMU_INIT_BY[mode]:
+        fail(f"phase 13 {mode}: IMU initialized {init - first_ok} frames after the first OK frame "
+             f"{first_ok} (bound {IMU_INIT_BY[mode]})")
+    if mapper._viba_stage < 1 or len(rec.get("full_viba", [])) != 1:
+        fail(f"phase 13 {mode}: VIBA1 did not run ({n} frames, init on frame {init}, VIBA stage "
+             f"{mapper._viba_stage}, {len(rec.get('full_viba', []))} full inertial BAs)")
+    if counts.get("fast_and_blur") != per * n or counts.get("brief_continuous") != per * n:
+        fail(f"phase 13 {mode}: launch counts {counts} over {n} frames; expected {per} K1 and "
+             f"{per} K2 a frame")
+    for name in ("imu_initialization", "vi_bundle_adjust") + (
+            ("inertial_pose_optimize_prior",)):
+        if not rec.get("sync_free", {}).get(name):
+            fail(f"phase 13 {mode}: {name} never ran under set_sync_debug_mode('error')")
+    # accuracy: the System's world against the ground truth
+    est = slam.trajectory()
+    if est.shape != (n, 7) or not np.isfinite(est).all():
+        fail(f"phase 13 {mode}: trajectory() gave {est.shape}")
+    sel = np.arange(init, n)
+    gt_c = twc_gt[:, 4:7]
+    a = align.horn_align(torch.as_tensor(est[sel, 4:7]), torch.as_tensor(gt_c[sel]))
+    ate = float(a.rmse)
+    a_s = align.horn_align(torch.as_tensor(est[sel, 4:7]), torch.as_tensor(gt_c[sel]),
+                           with_scale=True)
+    scale_err = abs(float(a_s.s) - 1.0)
+    # gravity in the camera frame, estimated (the world's −z) against true
+    R_rect = slam.rectifier.R1 if slam.rectifier is not None else np.eye(3)
+    g_errs = []
+    for i in sel:
+        conj = np.array([1, -1, -1, -1], np.float32)
+        g_c_true = R_rect @ lie.np_quat_rotate(twc_gt[i, :4] * conj, g_world.astype(np.float32))
+        g_c_est = lie.np_quat_rotate(est[i, :4] * conj, np.array([0, 0, -9.81], np.float32))
+        g_errs.append(_angle_deg(g_c_true, g_c_est))
+    g_err = float(np.median(g_errs))
+    # the last keyframe's velocity against the body's
+    m = slam.map
+    k_last = int(m.valid_kf_ids()[-1])
+    fi = int(np.argmin(np.abs(np.asarray([r.timestamp for r in results]) - m.kf_timestamp[k_last])))
+    v_err = abs(np.linalg.norm(m.kf_vel[k_last]) - np.linalg.norm(vel_gt[fi])) / np.linalg.norm(
+        vel_gt[fi])
+    if not g_err < MAX_GRAVITY_ERR_DEG:
+        fail(f"phase 13 {mode}: gravity direction off by {g_err:.2f} deg (bound "
+             f"{MAX_GRAVITY_ERR_DEG})")
+    if not ate < MAX_ATE_M[mode]:
+        fail(f"phase 13 {mode}: SE3-aligned ATE {ate:.4f} m after init (bound {MAX_ATE_M[mode]})")
+    if not v_err < MAX_VEL_ERR:
+        fail(f"phase 13 {mode}: last keyframe's speed off by {v_err:.3f} (bound {MAX_VEL_ERR})")
+    if mode == "mono-inertial" and not scale_err < MAX_SCALE_ERR:
+        fail(f"phase 13 {mode}: scale {float(a_s.s):.4f} against the ground truth (bound "
+             f"{MAX_SCALE_ERR} from 1)")
+    ms = np.asarray(times) * 1e3
+    kinds = {"before init": [i for i in range(1, init)],
+             "after init, no keyframe": [i for i in range(init + 1, n) if not frames[i][0]],
+             "keyframe (its synchronous job)": [i for i in range(init + 1, n) if frames[i][0]]}
+    for kind, idx in kinds.items():
+        log(f"phase 13 {mode}: host ms/frame, {kind}: {_median_p90([ms[i] for i in idx])}")
+    log(f"phase 13 {mode}: first OK frame {first_ok}; frames dead-reckoned in RECENTLY_LOST "
+        f"after init {dead_reckoned}; IMU initialized on frame {init} "
+        f"({ms[init]:.1f} ms host, its frame); VIBA1 {viba1}; "
+        f"VIBA stage at the end {mapper._viba_stage}; {m.n_kf} keyframes ({len(m.valid_kf_ids())} "
+        f"live), {rec.get('jobs', 0)} mapping jobs, {int(m.lm_valid.sum())} landmarks; "
+        f"counts {dict(slam.mapper.counts)}")
+    log(f"phase 13 {mode}: maybe_initialize_imu: {len(rec.get('imu_init', []))} calls, the one "
+        f"that ran the solve {max(rec.get('imu_init', [0.0])):.1f} ms host")
+    for key, what in (("vi_refine", "_vi_refine"), ("local_viba", "local_inertial_bundle_adjustment"),
+                      ("full_viba", "full_inertial_ba (VIBA1's first)")):
+        log(f"phase 13 {mode}: {what}: host ms {_median_p90(rec.get(key, []))}")
+    log(f"phase 13 {mode}: gravity direction error after init median {g_err:.3f} deg; "
+        f"SE3-aligned ATE after init {ate:.4f} m (bound {MAX_ATE_M[mode]}); Sim3 scale "
+        f"{float(a_s.s):.4f} against the ground truth; last keyframe's speed "
+        f"{np.linalg.norm(m.kf_vel[k_last]):.3f} m/s against {np.linalg.norm(vel_gt[fi]):.3f} "
+        f"({v_err:.3f} relative); launches {counts} ({per} K1 + {per} K2 a frame); solvers "
+        f"sync-free {dict(rec.get('sync_free', {}))}; peak memory {peak:.0f} MiB; "
+        f"driver wall {wall:.1f} s")
+    return slam, rec
+
+
+def profile_inertial(slam, rec: dict, mode: str):
+    """One call each of the inertial solves on the drive's final state,
+    under the profiler, with the card to themselves: the last frame's
+    ``_vi_refine`` again, a ``local_inertial_bundle_adjustment`` and a
+    ``full_inertial_ba`` (VIBA's solve) ending at the last keyframe."""
+    kf = int(slam.map.valid_kf_ids()[-1])
+    calls = (("_vi_refine (the last frame's)", lambda: slam.tracker._vi_refine(
+                *rec["vi_refine_args"])),
+             ("local_inertial_bundle_adjustment", lambda: slam.mapper.local_inertial_bundle_adjustment(kf)),
+             ("full_inertial_ba over the whole chain", lambda: slam.mapper.full_inertial_ba(kf)))
+    for what, fn in calls:
+        torch.cuda.synchronize()
+        with _profile(cpu=False) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        dev = _device_work(prof.events())
+        busy = _busy_ms(dev)
+        if not dev:
+            text = "no device events recorded (device busy time not measured)"
+        elif busy > ms:
+            text = (f"{len(dev)} device events whose union, {busy:.3f} ms, exceeds the host time "
+                    f"(device busy time not measured)")
+        else:
+            text = (f"{busy:.3f} ms device busy (the union of {len(dev)} kernels' intervals, "
+                    f"{100 * busy / ms:.1f}% of the host time)")
+        log(f"phase 13 {mode}: {what} under the profiler (device activity only): {ms:.1f} ms "
+            f"host, {text}")
+
+
+EUROC_MODES = {"stereo-inertial": 1200, "mono-inertial": 1000}   # mode: ORB features
+
+
+def phase13_files(workdir: str, mode: str):
+    """(mav dir, timestamps file, settings file) of a written sequence."""
+    return (os.path.join(workdir, "mav0"), os.path.join(workdir, "timestamps.txt"),
+            os.path.join(workdir, f"{mode}.yaml"))
+
+
+def phase13(device, card: str):
+    """The inertial sensors: a EuRoC-shaped sequence (752×480 distorted
+    stereo, 200 Hz IMU, 20 fps) written to disk and run through
+    ``run_euroc`` in both inertial modes; K1 and K2 held to their plain
+    versions at 752×480 first. The two modes run one after the other, each
+    with the host and the card to itself; the stereo-inertial drive's solves
+    are profiled before the monocular-inertial drive starts."""
+    t0 = time.perf_counter()
+    log(f"phase 13 on {card}")
+    k_cfg = dataclasses.replace(
+        kitti_synthetic_config(),
+        camera=dataclasses.replace(kitti_synthetic_config().camera, **EUROC_CAM1),
+        orb=dataclasses.replace(kitti_synthetic_config().orb, n_features=1200))
+    # event times only: here, late in the process, the profiler records no
+    # device time for K1 (the device times at this width: `--phase13`)
+    phase1_kernels(k_cfg, device, device_times="--phase13" in sys.argv[1:])
+    times, twc, vel, imu_rows, g_world = euroc_motion(N_EUROC)
+    lefts, rights = render_euroc(twc, device)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_euroc_")
+    try:
+        t1 = time.perf_counter()
+        mav, ts_file = write_euroc(workdir, times, lefts, rights, imu_rows)
+        log(f"phase 13: wrote {N_EUROC} stereo pairs at {EUROC_CAM1['width']}x"
+            f"{EUROC_CAM1['height']} and {len(imu_rows)} IMU samples at {IMU_HZ} Hz in "
+            f"{time.perf_counter() - t1:.1f} s (render and motion "
+            f"{t1 - t0:.1f} s with the 752x480 kernel checks)")
+        del lefts, rights
+        np.savez(os.path.join(workdir, "gt.npz"), twc=twc, vel=vel, g=g_world)
+        for mode, nf in EUROC_MODES.items():
+            euroc_settings_yaml(phase13_files(workdir, mode)[2], nf,
+                                stereo=mode == "stereo-inertial")
+        t1 = time.perf_counter()
+        slam, rec = phase13_mode("stereo-inertial", *phase13_files(workdir, "stereo-inertial"),
+                                 twc, vel, g_world, device, workdir)
+        t2 = time.perf_counter()
+        profile_inertial(slam, rec, "stereo-inertial")
+        del slam, rec
+        t3 = time.perf_counter()
+        phase13_mode("mono-inertial", *phase13_files(workdir, "mono-inertial"), twc, vel,
+                     g_world, device, workdir)
+        log(f"phase 13: the stereo-inertial drive {t2 - t1:.1f} s, its three profiled calls "
+            f"{t3 - t2:.1f} s (the traces' processing included), the mono-inertial drive "
+            f"{time.perf_counter() - t3:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s on {card}")
+
+
+
 def long_mapping_drive(cfg, device, n_frames: int):
     """``--mapping-drive N``: N frames of the canyon (the far wall stands
     120 m ahead: N ≤ 161), tracking only and then with the mapping plane
@@ -2685,6 +3194,10 @@ def main():
                 + ", ".join(f"{op} {n}" for op, n in sass.most_common(12)))
 
     cfg = kitti_synthetic_config()
+    if "--phase13" in sys.argv[1:]:
+        phase13(device, card)
+        log(card)
+        return
     if "--mapping-drive" in sys.argv[1:]:
         long_mapping_drive(cfg, device, int(sys.argv[sys.argv.index("--mapping-drive") + 1]))
         log(card)
@@ -2901,6 +3414,12 @@ def main():
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del frames
+    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
+
+    # ---- phase 13: the inertial sensors through the EuRoC driver (before the
+    # asynchronous planes of phase 9: after them this process's profiler has
+    # recorded no device time in a run of the whole script) -----------------
+    phase13(device, card)
     log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
 
     # ---- phase 8, second half: the loop drive with vocab_path set ------------

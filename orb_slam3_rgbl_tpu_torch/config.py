@@ -6,9 +6,9 @@ The sensor constants, ``OrbConfig``, ``LidarConfig``, ``SlamConfig`` and
 ``dataclasses.asdict`` of one loads into the other (``convert``).
 ``load_config`` reads both generations of the reference's OpenCV-YAML
 settings: the legacy flat keys (``Examples/RGB-L/KITTI00-02.yaml``) and
-``File.version: "1.0"`` with ``!!opencv-matrix`` blocks. ``StereoConfig`` and
-``ImuConfig`` are parsed as data; the stereo rectifier and the inertial path
-wait for ROADMAP Queue 1 items 14 and 15.
+``File.version: "1.0"`` with ``!!opencv-matrix`` blocks. ``StereoConfig``
+feeds the stereo rectifier; ``ImuConfig`` the inertial sensors (read from
+either generation's IMU keys).
 """
 
 from __future__ import annotations
@@ -80,8 +80,12 @@ class LidarConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ImuConfig:
-    """IMU noise/extrinsics (carried for config round-trips; the inertial
-    path is not ported yet)."""
+    """The IMU of the inertial sensors: ``T_body_cam`` the 4×4 row-major
+    camera → body calibration (``IMU.T_b_c1``, or the older ``Tbc``), the
+    white-noise densities of the gyro and accelerometer (``IMU.NoiseGyro``,
+    ``IMU.NoiseAcc``: the preintegration covariance) and their random walks
+    (``IMU.GyroWalk``, ``IMU.AccWalk``: the bias-walk information of the
+    inertial BA), the sample rate (``IMU.Frequency``)."""
 
     T_body_cam: tuple = (
         1.0, 0.0, 0.0, 0.0,

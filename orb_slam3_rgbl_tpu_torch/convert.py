@@ -89,7 +89,8 @@ def map_state_from_numpy(jax_map) -> MapState:
     """A copy of a JAX ``MapState`` (its numpy arrays, counters, free list
     and cull redirects, read by attribute) as the port's ``MapState``, with
     an allocator lock of its own. Descriptors stay uint32, as the port's
-    map keeps them; the inertial fields have no counterpart yet."""
+    map keeps them; the inertial state (velocities, biases, the IMU chain
+    and its preintegrations, ``imu_initialized``) comes along."""
     kw = {}
     for f in dataclasses.fields(MapState):
         if f.name == "alloc_lock":

@@ -4,12 +4,12 @@ sequence in, the per-frame tracking time (median and mean) printed, TUM and
 EuRoC-format trajectories out.
 
     python -m orb_slam3_rgbl_tpu_torch.examples.run_euroc <settings.yaml> <mav_dir> \\
-        [--mode mono|stereo] [--timestamps EuRoC_TimeStamps/MH01.txt] [--frames N] \\
-        [--out-tum f_dataset.txt] [--out-kf kf_dataset.txt] [--device cuda|cpu]
+        [--mode mono|stereo|mono-inertial|stereo-inertial] [--timestamps EuRoC_TimeStamps/MH01.txt] \\
+        [--frames N] [--out-tum f_dataset.txt] [--out-kf kf_dataset.txt] [--device cuda|cpu]
 
-The inertial modes (``mono-inertial``, ``stereo-inertial``) are accepted and
-raise ``NotImplementedError``: the inertial sensors are not ported yet
-(ROADMAP Queue 1 item 15).
+The inertial modes (the reference's ``mono_inertial_euroc`` and
+``stereo_inertial_euroc``) read ``imu0/data.csv`` and hand each frame the
+samples since the previous one (``EurocSequence(..., inertial=True)``).
 """
 
 from __future__ import annotations
@@ -51,14 +51,11 @@ def run(args: argparse.Namespace):
     from orb_slam3_rgbl_tpu_torch.slam.system import System
 
     sensor_name, stereo, inertial = MODES[args.mode]
-    if inertial:
-        raise NotImplementedError(
-            f"--mode {args.mode}: the inertial sensors are not ported yet "
-            "(ROADMAP Queue 1 item 15)")
     cfg = cfg_mod.load_config(args.settings, sensor=getattr(cfg_mod, sensor_name))
     slam = System(cfg, device=args.device)
 
-    seq = EurocSequence(args.mav_dir, stereo=stereo, timestamps_file=args.timestamps or None)
+    seq = EurocSequence(args.mav_dir, stereo=stereo, inertial=inertial,
+                        timestamps_file=args.timestamps or None)
     n = len(seq) if args.frames <= 0 else min(args.frames, len(seq))
 
     results, times = [], []
@@ -66,11 +63,11 @@ def run(args: argparse.Namespace):
         fr = seq.frame(i)
         t0 = time.perf_counter()
         if stereo:
-            im_l, im_r, _, t = fr
-            res = slam.track_stereo(im_l, im_r, t)
+            im_l, im_r, imu, t = fr
+            res = slam.track_stereo(im_l, im_r, t, imu=imu)
         else:
-            img, _, t = fr
-            res = slam.track_monocular(img, t)
+            img, imu, t = fr
+            res = slam.track_monocular(img, t, imu=imu)
         if slam.device.type == "cuda":
             torch.cuda.current_stream(slam.device).synchronize()
         results.append(res)

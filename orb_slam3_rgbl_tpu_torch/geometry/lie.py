@@ -33,6 +33,14 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # quaternion core
 # ---------------------------------------------------------------------------
 
+def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    """Identity quaternion on ``device`` (default ``cuda``), made there: a
+    tensor from a Python list is a host copy that waits for the card."""
+    dev = resolve(device)
+    return torch.cat([torch.ones(1, dtype=dtype, device=dev),
+                      torch.zeros(3, dtype=dtype, device=dev)])
+
+
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
@@ -144,11 +152,19 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     omega = so3_hat(w)
     omega2 = omega @ omega
     small = theta_sq < _EPS
-    a = torch.where(small, 0.5 - theta_sq / 24.0, (1.0 - torch.cos(theta)) / theta_sq)
+    # both branches finite (a safe denominator): forward-mode derivatives
+    # pass through the branch torch.where drops
+    safe_sq = torch.where(small, 1.0, theta_sq)
+    a = torch.where(small, 0.5 - theta_sq / 24.0, (1.0 - torch.cos(theta)) / safe_sq)
     b = torch.where(small, 1.0 / 6.0 - theta_sq / 120.0,
-                    (theta - torch.sin(theta)) / (theta_sq * theta))
+                    (theta - torch.sin(theta)) / (safe_sq * theta))
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(omega.shape)
     return eye + a * omega + b * omega2
+
+
+def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian of SO3 at tangent ``w``: J_r(w) = J_l(−w)."""
+    return so3_left_jacobian(-w)
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +174,10 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
 def se3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
     """Identity pose on ``device`` (default ``cuda``)."""
     return torch.tensor([1.0, 0, 0, 0, 0, 0, 0], dtype=dtype, device=resolve(device))
+
+
+def se3_rot(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :4]
 
 
 def se3_trans(T: torch.Tensor) -> torch.Tensor:

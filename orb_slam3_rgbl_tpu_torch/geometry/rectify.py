@@ -35,6 +35,7 @@ class StereoRectifier:
     map_l: np.ndarray        # (H, W, 2) float32 source coordinates (x, y)
     map_r: np.ndarray
     cam_rect: PinholeCamera  # rectified pinhole intrinsics (+ bf)
+    R1: np.ndarray = None    # (3, 3) left camera → rectified left camera (R_r1_u1)
 
     def __post_init__(self):
         self._dev_maps: dict = {}
@@ -206,4 +207,4 @@ def build_rectifier(cfg: SlamConfig) -> StereoRectifier:
     cam_rect = dataclasses.replace(
         cam, fx=float(P1[0, 0]), fy=float(P1[1, 1]), cx=float(P1[0, 2]), cy=float(P1[1, 2]),
         k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0, bf=bf if bf > 0 else cam.bf)
-    return StereoRectifier(map_l=map_l, map_r=map_r, cam_rect=cam_rect)
+    return StereoRectifier(map_l=map_l, map_r=map_r, cam_rect=cam_rect, R1=R1)

@@ -112,7 +112,8 @@ class EurocSequence:
         t_lo = self.times[i - 1] if i > 0 else -np.inf
         t = self.imu[:, 0]
         sel = (t > t_lo) & (t <= t_hi)
-        return self.imu[sel].astype(np.float32)
+        # float64: a float32 EuRoC stamp (~1.4e9 s) is 128 s coarse
+        return self.imu[sel].copy()
 
     def frame(self, i: int):
         out = [_gray(self.left[i])]

@@ -17,10 +17,17 @@ a time: no (T, N, N) batch and no padded slots. Each stage of
 ``process_keyframe`` runs inside a ``torch.profiler.record_function`` span
 named ``map.<stage>`` (``MAP_SPANS``).
 
-Not ported: everything inertial (the inertial local BA, IMU
-initialization, the VIBA schedule, the IMU chain relinking of keyframe
-culling; ``System`` refuses inertial configurations) and ``prewarm``,
-which exists for XLA's compile tiers and has nothing to warm here.
+Inertial configurations add the reference's inertial mapping: once the
+map's IMU is initialized, the job's BA is the 15-DoF sliding-window
+``local_inertial_bundle_adjustment`` (``optim/inertial_ba.py``: 10
+optimizable + 5 fixed states of the temporal chain) and a motion-starved
+stretch flags ``bad_imu``; ``maybe_initialize_imu`` (after a keyframe, until
+it succeeds) runs the 3-stage IMU initialization and re-expresses the map
+gravity-down and metric; ``maybe_viba`` runs ``full_inertial_ba`` 5 s and 15 s
+after it (VIBA1, VIBA2); keyframe culling keeps the 21-state window and
+relinks the temporal IMU chain around a culled keyframe
+(``_relink_imu_chain``). Not ported: ``prewarm``, which exists for XLA's
+compile tiers and has nothing to warm here.
 """
 
 from __future__ import annotations
@@ -35,15 +42,18 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from orb_slam3_rgbl_tpu_torch.config import SlamConfig
+from orb_slam3_rgbl_tpu_torch.config import IMU_MONOCULAR, SlamConfig
 from orb_slam3_rgbl_tpu_torch.device import StreamOrder, resolve
 from orb_slam3_rgbl_tpu_torch.geometry import camera as cam_mod
 from orb_slam3_rgbl_tpu_torch.geometry import lie, triangulation
 from orb_slam3_rgbl_tpu_torch.geometry.camera import np_geo_project
 from orb_slam3_rgbl_tpu_torch.ops import matching
-from orb_slam3_rgbl_tpu_torch.optim import local_ba
+from orb_slam3_rgbl_tpu_torch.imu import preintegration as pre
+from orb_slam3_rgbl_tpu_torch.optim import inertial, inertial_ba, local_ba
+from orb_slam3_rgbl_tpu_torch.slam import imu_frontend
 from orb_slam3_rgbl_tpu_torch.slam.frame import inv_scale_sigma2
-from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState, dedup_kf_bindings
+from orb_slam3_rgbl_tpu_torch.slam.map_state import (MapState, apply_scaled_rotation,
+                                                     dedup_kf_bindings)
 from orb_slam3_rgbl_tpu_torch.utils.profiling import stage
 
 log = logging.getLogger(__name__)
@@ -57,6 +67,11 @@ FUSE_TARGETS_CAP = 16   # target keyframes of one fusion pass
 
 MAP_SPANS = ("map.kf_insert", "map.mp_cull", "map.mp_create", "map.loop_fusion", "map.lba",
              "map.kf_cull")
+VI_LM_CAP = 4096        # landmarks of one inertial BA (the JAX package's cap)
+VI_OBS_CAP = 8          # observations per landmark in it
+LOCAL_VIBA_ITERATIONS = 8    # LM iterations of the local inertial BA
+FULL_VIBA_ITERATIONS = 10    # and of the full inertial BA (VIBA, the weld)
+FULL_VIBA_MAX_STATES = 256   # states of the temporal chain the full inertial BA takes
 
 
 def _i32_words(desc) -> np.ndarray:
@@ -297,11 +312,49 @@ def _triangulate_batch(cam, scale_factor: float, kf_idx, T1, unbound1, nb_idx, T
             torch.stack(cnt_out).to(torch.int32))
 
 
+def _settle_cycles(remap: np.ndarray) -> np.ndarray:
+    """Settles the Replace chains that four path-compression rounds (the
+    JAX package's) left unsettled; a remap that they settled comes back as
+    it was. Such a chain either is longer than 16 links, and then each of
+    its members goes to the chain's fixed point (its winner), or it runs
+    into a cycle: a pair of landmarks with equal observation counts met in
+    both fusion directions can each win once (a → b forward, b → c → a
+    backward). Then the cycle's members, and the chains that lead into it,
+    go to the cycle's smallest id, so no binding is left on a landmark that
+    the remap frees. (The JAX package leaves both as they are, and its map
+    keeps bindings to freed landmarks.)"""
+    unsettled = np.nonzero(remap[remap] != remap)[0]
+    if unsettled.size == 0:
+        return remap
+    remap = remap.copy()
+    end: dict = {}
+    for x in unsettled:
+        path, seen, y = [], {}, int(x)
+        while True:
+            if y in end:
+                target = end[y]
+                break
+            if remap[y] == y:
+                target = y
+                break
+            if y in seen:
+                target = min(path[seen[y]:])      # the cycle's members
+                break
+            seen[y] = len(path)
+            path.append(y)
+            y = int(remap[y])
+        for p in path:
+            end[p] = target
+    for p, target in end.items():
+        remap[p] = target
+    return remap
+
+
 class LocalMapper:
+    VI_OPT_WINDOW = 10   # optimizable temporal states (Optimizer.cc:2392)
+    VI_FIX_WINDOW = 5    # fixed temporal anchors
+
     def __init__(self, config: SlamConfig, map_state: MapState, device=None):
-        if config.inertial:
-            raise NotImplementedError(
-                "the inertial mapping plane is not ported yet (ROADMAP Queue 1 item 15)")
         self.cfg = config
         self.cam = config.camera
         self.geo_cam = config.geo_camera  # residual/projection camera model
@@ -322,6 +375,13 @@ class LocalMapper:
         # what the plane did, summed over its jobs (read by callers)
         self.counts = collections.Counter()
         self.timer = None           # StageTimer, wired by System (its stage times)
+        # inertial state of the plane
+        self.bad_imu = False        # mbBadImu: a motion-starved IMU init, reset the map
+        self._t_init = 0.0          # accumulated well-excited time (mTinit)
+        self._imu_init_time = None  # the last keyframe's timestamp at IMU initialization
+        self._viba_stage = 0        # VIBA1 / VIBA2 done
+        if config.inertial:
+            self._T_bc, self._T_cb = imu_frontend.body_cam_extrinsics(config)
 
     def _dev(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -343,7 +403,14 @@ class LocalMapper:
         with self._stage("loop_fusion"):
             self._search_in_neighbors(kf_id)
         min_kf_for_ba = 2 if self.is_mono else 3
-        if run_ba and self.map.n_kf >= min_kf_for_ba:
+        if run_ba and self.map.n_kf >= min_kf_for_ba and self.cfg.inertial \
+                and self.map.imu_initialized:
+            # after IMU initialization the job's BA is LocalInertialBA
+            # (LocalMapping.cc:149 against :154)
+            with self._stage("lba"):
+                self._check_vi_excitation(kf_id)
+                self.local_inertial_bundle_adjustment(kf_id)
+        elif run_ba and self.map.n_kf >= min_kf_for_ba:
             with self._stage("lba"):
                 # pressure-adaptive iteration budget — the reference aborts
                 # local BA when the next keyframe arrives (mbAbortBA,
@@ -526,6 +593,7 @@ class LocalMapper:
                 if np.array_equal(nxt, remap):
                     break
                 remap = nxt
+            remap = _settle_cycles(remap)
             bound = m.kf_lm_idx >= 0
             m.kf_lm_idx[bound] = remap[m.kf_lm_idx[bound]]
             losers = np.nonzero(remap != np.arange(m.capacity_lm, dtype=np.int32))[0]
@@ -794,19 +862,279 @@ class LocalMapper:
     def _keyframe_culling(self, kf_id: int):
         """Reference ``KeyFrameCulling`` (LocalMapping.cc:902-1054): a
         covisible keyframe is redundant if ≥ 90% of its landmarks are seen
-        by ≥ 3 other keyframes."""
+        by ≥ 3 other keyframes. Inertial maps (LocalMapping.cc:1012-1019)
+        keep at least 21 keyframes and the two newest, cull at 50% for the
+        stereo and RGB-D sensors, and relink the IMU chain first."""
         neighbors = self.map.best_covisible(kf_id, 20, min_weight=15)
         if neighbors.size == 0:
             return
+        inertial_map = self.cfg.inertial
+        if inertial_map and self.map.valid_kf_ids().size <= 21:
+            return
+        redundant_th = 0.5 if (inertial_map and self.cfg.sensor != IMU_MONOCULAR) else 0.9
         counts = self.map.observation_counts()
         for k in neighbors:
             if k == 0:  # keep the origin keyframe
+                continue
+            if inertial_map and k >= kf_id - 2:
                 continue
             ids = self.map.kf_lm_idx[k]
             lm = ids[ids >= 0]
             if lm.size < 30:
                 continue
             redundant = (counts[lm] >= 4).mean()  # self + 3 others
-            if redundant > 0.9:
+            if redundant > redundant_th:
+                if inertial_map and not self._relink_imu_chain(int(k)):
+                    continue
                 self.map.remove_keyframe(int(k))
                 self.counts["kf_culled"] += 1
+
+    # ------------------------------------------------------------------
+    # the inertial mapping plane
+    # ------------------------------------------------------------------
+    def _check_vi_excitation(self, kf_id: int):
+        """The reference's bad-IMU detection (LocalMapping.cc:129-146):
+        after IMU initialization and before VIBA2, the last two keyframe
+        baselines summing < 2 cm within the first 10 s of excited time mean
+        an unreliable initialization: ``bad_imu`` asks for a map reset."""
+        if self._viba_stage >= 2:
+            return
+        m = self.map
+        kfs = m.valid_kf_ids()
+        kfs = kfs[kfs <= kf_id]
+        if kfs.size < 3:
+            return
+        c = lie.np_se3_centers(m.kf_pose[kfs[-3:]])
+        dist = np.linalg.norm(c[2] - c[1]) + np.linalg.norm(c[1] - c[0])
+        if dist > 0.05:
+            self._t_init += float(m.kf_timestamp[kfs[-1]] - m.kf_timestamp[kfs[-2]])
+        if self._t_init < 10.0 and dist < 0.02:
+            log.warning("not enough motion for the IMU initialization: the map is flagged "
+                        "for reset (bad IMU)")
+            self.bad_imu = True
+
+    def _temporal_chain(self, kf_id: int, length: int) -> np.ndarray:
+        """The ``kf_prev_imu`` chain back from ``kf_id`` (inclusive), oldest
+        first (the reference's vpOptimizableKFs, Optimizer.cc:2392-2410)."""
+        chain = [int(kf_id)]
+        k = int(kf_id)
+        while len(chain) < length:
+            p = int(self.map.kf_prev_imu[k])
+            if p < 0 or not self.map.kf_valid[p]:
+                break
+            chain.append(p)
+            k = p
+        return np.asarray(chain[::-1], np.int64)
+
+    def _build_vi_problem(self, chain: np.ndarray, n_fixed: int):
+        """The VI-BA problem over the temporal keyframe ``chain`` (oldest
+        first, the first ``n_fixed`` states anchors): the landmarks the
+        optimizable states see (at most ``VI_LM_CAP``, ``VI_OBS_CAP``
+        observations each) and one factor per consecutive pair, invalid
+        where the chain has no preintegration between them."""
+        m = self.map
+        K = len(chain)
+        up, f32 = self._dev, torch.float32
+        Twb = lie.np_se3_inv(lie.np_se3_mul(np.tile(self._T_bc, (K, 1)), m.kf_pose[chain]))
+        tbl = m.kf_lm_idx[chain[n_fixed:]]
+        lm_ids = np.unique(tbl[tbl >= 0])
+        lm_ids = lm_ids[m.lm_valid[lm_ids]][:VI_LM_CAP]
+        obs_kf, obs_feat, obs_mask, obs_uv, obs_ur = m.gather_observations(chain, lm_ids,
+                                                                            VI_OBS_CAP)
+        kf_global = chain[np.clip(obs_kf, 0, K - 1)]
+        octv = np.clip(m.kf_octave[kf_global, obs_feat].astype(np.int64), 0,
+                       self.inv_sigma2.shape[0] - 1)
+        preints, valid = [], []
+        for a in range(K - 1):
+            k_next = int(chain[a + 1])
+            ok = k_next in m.imu_preint and int(m.kf_prev_imu[k_next]) == int(chain[a])
+            valid.append(ok)
+            preints.append(m.imu_preint[k_next] if ok else imu_frontend.zero_preint_numpy())
+        meas = imu_frontend.stack_preints(preints, self.device)
+        dts = np.maximum(np.array([float(t[0]) for t in preints]), 1e-3)
+        icfg = self.cfg.imu
+        info_bg = np.minimum(1.0 / np.maximum(icfg.gyro_walk ** 2 * dts, 1e-12), 1e8)
+        info_ba = np.minimum(1.0 / np.maximum(icfg.acc_walk ** 2 * dts, 1e-12), 1e8)
+        fixed = np.zeros(K, bool)
+        fixed[:n_fixed] = True
+        if not fixed.any():
+            fixed[0] = True
+        problem = inertial_ba.VIBAProblem(
+            Twb=up(Twb, f32), vel=up(m.kf_vel[chain], f32), bg=up(m.kf_bg[chain], f32),
+            ba=up(m.kf_ba[chain], f32), state_fixed=up(fixed, torch.bool),
+            state_valid=torch.ones(K, dtype=torch.bool, device=self.device),
+            T_cb=up(self._T_cb, f32), landmarks=up(m.lm_pos[lm_ids], f32),
+            lm_valid=torch.ones(lm_ids.size, dtype=torch.bool, device=self.device),
+            obs_kf=up(obs_kf, torch.int64), obs_uv=up(obs_uv, f32), obs_ur=up(obs_ur, f32),
+            obs_inv_sigma2=self.inv_sigma2[up(octv, torch.int64)],
+            obs_mask=up(obs_mask, torch.bool),
+            pair_i=torch.arange(K - 1, device=self.device),
+            pair_j=torch.arange(1, K, device=self.device), pair_meas=meas,
+            pair_valid=up(np.asarray(valid, bool), torch.bool),
+            info_bg=up(info_bg.astype(np.float32), f32),
+            info_ba=up(info_ba.astype(np.float32), f32))
+        return problem, lm_ids, (obs_kf, obs_feat, obs_mask)
+
+    def local_inertial_bundle_adjustment(self, kf_id: int):
+        """``Optimizer::LocalInertialBA``: 10 optimizable states of the
+        temporal chain ending at ``kf_id`` and 5 fixed anchors before them,
+        the joint visual, preintegration and bias-walk solve, written back."""
+        chain = self._temporal_chain(kf_id, self.VI_OPT_WINDOW + self.VI_FIX_WINDOW)
+        if len(chain) < 3:
+            return
+        n_fixed = max(len(chain) - self.VI_OPT_WINDOW, 1)
+        problem, lm_ids, obs = self._build_vi_problem(chain, n_fixed)
+        res = inertial_ba.vi_bundle_adjust(problem, self.geo_cam,
+                                           iterations=LOCAL_VIBA_ITERATIONS)
+        self._vi_writeback(chain, n_fixed, lm_ids, res, *obs)
+        self.counts["vi_lba_runs"] += 1
+
+    def full_inertial_ba(self, kf_id: int):
+        """``Optimizer::FullInertialBA`` over the whole temporal chain
+        ending at ``kf_id`` (at most ``FULL_VIBA_MAX_STATES``: a longer chain
+        anchors on its oldest retained state, logged), its first state fixed."""
+        chain = self._temporal_chain(kf_id, FULL_VIBA_MAX_STATES)
+        if len(chain) == FULL_VIBA_MAX_STATES:
+            log.info("full inertial BA: the temporal chain hit the %d-state cap; older states "
+                     "anchor", FULL_VIBA_MAX_STATES)
+        if len(chain) < 4:
+            return
+        with record_function("map.full_inertial_ba"):
+            problem, lm_ids, obs = self._build_vi_problem(chain, n_fixed=1)
+            res = inertial_ba.vi_bundle_adjust(problem, self.geo_cam,
+                                               iterations=FULL_VIBA_ITERATIONS)
+            self._vi_writeback(chain, 1, lm_ids, res, *obs)
+        self.counts["full_inertial_ba_runs"] += 1
+
+    def _vi_writeback(self, chain, n_fixed, lm_ids, res, obs_kf, obs_feat, obs_mask):
+        """The solved states and landmarks into the map (one download);
+        observations classified outlier are unbound."""
+        m = self.map
+        K, M = len(chain), lm_ids.size
+        down = torch.cat([res.Twb.reshape(-1), res.vel.reshape(-1), res.bg.reshape(-1),
+                          res.ba.reshape(-1), res.landmarks.reshape(-1),
+                          res.obs_inlier.to(torch.float32).reshape(-1)]).cpu().numpy()
+        Twb, vel, bg, ba, lms, inl = np.split(down, np.cumsum([7 * K, 3 * K, 3 * K, 3 * K,
+                                                               3 * M]))
+        Tcw = lie.np_se3_mul(np.tile(self._T_cb, (K, 1)),
+                             lie.np_se3_inv(Twb.reshape(K, 7).astype(np.float32)))
+        upd = chain[n_fixed:]
+        m.kf_pose[upd] = Tcw[n_fixed:]
+        m.kf_vel[upd] = vel.reshape(K, 3)[n_fixed:]
+        m.kf_bg[upd] = bg.reshape(K, 3)[n_fixed:]
+        m.kf_ba[upd] = ba.reshape(K, 3)[n_fixed:]
+        if M:
+            m.lm_pos[lm_ids] = lms.reshape(M, 3)
+        bad = (inl.reshape(obs_mask.shape) < 0.5) & obs_mask
+        if bad.any():
+            rows, cols = np.nonzero(bad)
+            m.kf_lm_idx[chain[obs_kf[rows, cols]], obs_feat[rows, cols]] = -1
+            m.cull_orphans(lm_ids[np.unique(rows)])
+            self.counts["vi_outlier_obs"] += int(bad.sum())
+        m.version += 1
+
+    def maybe_viba(self, timestamp: float):
+        """The VIBA1 / VIBA2 schedule after IMU initialization
+        (LocalMapping.cc:218-256): a full inertial BA 5 s after the
+        initialization and another 15 s after it."""
+        m = self.map
+        if not (self.cfg.inertial and m.imu_initialized) or self._imu_init_time is None:
+            return
+        due = {0: 5.0, 1: 15.0}.get(self._viba_stage)
+        if due is None or timestamp - self._imu_init_time < due:
+            return
+        kfs = m.valid_kf_ids()
+        if kfs.size:
+            self.full_inertial_ba(int(kfs[-1]))
+        self._viba_stage += 1
+
+    def maybe_initialize_imu(self):
+        """The 3-stage IMU initialization (``LocalMapping::InitializeIMU``):
+        gyro bias from the rotations, the linear gravity / velocity / scale
+        bootstrap, the joint refinement (``optim.inertial.imu_initialization``;
+        the scale is free for IMU_MONOCULAR only), once the map has 6
+        keyframes over 1 s, as in the JAX package; for IMU_MONOCULAR the
+        reference's 10 over 2 s and accel-bias prior 1e10 (the JAX package's
+        1 s and 1e6 let the monocular scale and gravity take the visual
+        noise and the accel bias: a third of the true scale on the
+        EuRoC-shaped drive of ``chip_smoke.py`` phase 13, in both packages).
+        On success the map is
+        re-expressed gravity-down and metric (``Map::ApplyScaledRotation``),
+        the keyframes take their velocities and biases, and the device
+        feature mirror is reset (the rescale moved its pseudo-stereo
+        columns). Returns the applied Sim3 (new ← old world) or None."""
+        m = self.map
+        if not self.cfg.inertial or m.imu_initialized:
+            return None
+        mono = self.cfg.sensor == IMU_MONOCULAR
+        min_kf, min_span_s, prior_a = (10, 2.0, 1e10) if mono else (6, 1.0, 1e6)
+        kfs = m.valid_kf_ids()
+        if kfs.size < min_kf:
+            return None
+        if float(m.kf_timestamp[kfs[-1]] - m.kf_timestamp[kfs[0]]) < min_span_s:
+            return None
+        pairs_ok = np.zeros(kfs.size - 1, bool)
+        preints = []
+        for i in range(kfs.size - 1):
+            k = int(kfs[i + 1])
+            if k in m.imu_preint and int(m.kf_prev_imu[k]) == int(kfs[i]):
+                pairs_ok[i] = True
+                preints.append(m.imu_preint[k])
+            else:
+                preints.append(imu_frontend.zero_preint_numpy())
+        if pairs_ok.sum() < min_kf - 1:
+            return None
+        K = kfs.size
+        Twb = lie.np_se3_inv(lie.np_se3_mul(np.tile(self._T_bc, (K, 1)), m.kf_pose[kfs]))
+        with record_function("map.imu_init"):
+            out = inertial.imu_initialization(
+                self._dev(Twb, torch.float32), imu_frontend.stack_preints(preints, self.device),
+                self._dev(pairs_ok, torch.bool), prior_a=prior_a, fix_scale=not mono)
+            down = torch.cat([out["scale"].reshape(1), out["cost"].reshape(1), out["Rwg"],
+                              out["velocities"].reshape(-1), out["bias"].bg,
+                              out["bias"].ba]).cpu().numpy()
+        scale, cost, Rwg = float(down[0]), float(down[1]), down[2:6]
+        self.counts["imu_init_attempts"] += 1
+        if not np.isfinite(cost) or scale < 1e-2 or scale > 1e2:
+            return None
+        # the new world: gravity down and metric, X_new = s · R_gw · X_old
+        q_gw = np.concatenate([Rwg[:1], -Rwg[1:4]]).astype(np.float32)
+        S_align = np.concatenate([q_gw, np.zeros(3, np.float32),
+                                  [np.float32(scale)]]).astype(np.float32)
+        # the velocities are metric in the old world frame
+        m.kf_vel[kfs] = down[6:6 + 3 * K].reshape(K, 3)
+        m.kf_bg[kfs] = down[6 + 3 * K:9 + 3 * K]
+        m.kf_ba[kfs] = down[9 + 3 * K:12 + 3 * K]
+        apply_scaled_rotation(m, S_align, vel_metric_preserved=True)
+        self.dev_cache.reset(m.capacity_kf)   # the rescale moved the mirrored uR
+        m.imu_initialized = True
+        self._imu_init_time = float(m.kf_timestamp[kfs[-1]])
+        self._viba_stage = 0
+        return S_align
+
+    def _relink_imu_chain(self, k: int) -> bool:
+        """Before keyframe ``k`` of an inertial map is culled, its successor
+        on the temporal chain absorbs its preintegration
+        (``Preintegrated::MergePrevious``, LocalMapping.cc ~990-1040). False
+        when the chain cannot be kept (then ``k`` stays): ``k`` is the
+        chain's tail, a link is missing, or the merged span exceeds 3 s
+        (0.5 s before IMU initialization)."""
+        m = self.map
+        p = int(m.kf_prev_imu[k])
+        succ = np.nonzero(m.kf_prev_imu[: m.n_kf] == k)[0]
+        if succ.size == 0:
+            return False          # the chain's tail: tracking integrates against it
+        n = int(succ[0])
+        if p < 0 or k not in m.imu_preint or n not in m.imu_preint:
+            return False
+        span = float(m.kf_timestamp[n] - m.kf_timestamp[p])
+        if span > (3.0 if m.imu_initialized else 0.5):
+            return False
+        merged = pre.merge(imu_frontend.preint_from_numpy(m.imu_preint[k], self.device),
+                           imu_frontend.preint_from_numpy(m.imu_preint[n], self.device))
+        m.imu_preint[n] = imu_frontend.preint_to_numpy(merged)
+        m.kf_prev_imu[n] = p
+        del m.imu_preint[k]
+        m.kf_prev_imu[k] = -1
+        self.counts["imu_chain_relinks"] += 1
+        return True

@@ -33,7 +33,8 @@ snapshot alone (stopping between chunks when its ``abort_event`` is set)
 and ``_apply_gba`` writes back. The RANSAC draws are taken under
 ``rng_lock``, which the owner of the generator shares with its other users.
 
-Not ported: the 4-DoF pose graph of inertial maps (ROADMAP Queue 1 item 15).
+An inertial map whose IMU is initialized corrects its loop with the 4-DoF
+essential graph (translation and yaw; ``optimize_pose_graph_4dof``).
 ``prewarm`` has no counterpart: it warms XLA's compile tiers.
 """
 
@@ -577,14 +578,16 @@ class LoopCloser:
         old_nodes = nodes.copy()
         ei, ej, Sij, w = self._essential_edges(valid, slot, ev)
         rec["nodes"], rec["edges"] = int(K), len(ei)
-        if self.cfg.inertial and m.imu_initialized:
-            raise NotImplementedError(
-                "the 4-DoF pose graph of inertial maps is not ported yet "
-                "(ROADMAP Queue 1 item 15)")
         with record_function("loop.pose_graph"):
             problem = self._pose_graph_problem(nodes, slot[ev.kf_matched], ei, ej, Sij, w)
-            out = pose_graph.optimize_pose_graph(problem, iterations=20,
-                                                 fix_scale=self.fix_scale)
+            if self.cfg.inertial and m.imu_initialized:
+                # gravity makes roll, pitch and scale observable: translation
+                # and yaw only (OptimizeEssentialGraph4DoF, LoopClosing.cc:1183)
+                out = pose_graph.optimize_pose_graph_4dof(problem, iterations=20)
+                rec["pose_graph_dof"] = 4
+            else:
+                out = pose_graph.optimize_pose_graph(problem, iterations=20,
+                                                     fix_scale=self.fix_scale)
             costs = torch.stack([pose_graph.pose_graph_cost(problem, problem.nodes),
                                  pose_graph.pose_graph_cost(problem, out)])
             down = torch.cat([out.reshape(-1), costs]).cpu().numpy()

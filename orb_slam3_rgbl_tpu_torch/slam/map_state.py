@@ -1,14 +1,16 @@
 """Map state on the host (counterpart of
-``orb_slam3_rgbl_tpu.slam.map_state`` without its inertial state and
-``apply_scaled_rotation``, which wait for the inertial slice):
-numpy struct-of-arrays whose capacity grows on demand (landmarks double,
+``orb_slam3_rgbl_tpu.slam.map_state``): numpy struct-of-arrays whose capacity grows on demand (landmarks double,
 keyframes grow to what an atlas weld needs), with validity masks, the (K, N)
 ``kf_lm_idx`` binding table (landmark id per keyframe feature slot, −1
 unbound) and the ``version`` counter that tells the fast path when to
 refresh its device window. Tracking, keyframe creation, the mapping
 plane's culling, fusion and observation tables, and trajectory export all
 work on it; the tie rules (stable sorts, ``np.unique``'s first index,
-even-stride decimation) are the JAX package's.
+even-stride decimation) are the JAX package's. The inertial state (each
+keyframe's velocity, biases and predecessor on the temporal IMU chain, the
+chain's preintegrations, ``imu_initialized``) rides along, and
+``apply_scaled_rotation`` re-expresses the whole map after IMU
+initialization.
 
 Descriptors are kept as the JAX package keeps them, (…, 8) uint32.
 """
@@ -57,6 +59,15 @@ class MapState:
     lm_visible: np.ndarray    # (M,) i32 — times predicted visible
     lm_found: np.ndarray      # (M,) i32 — times actually matched
     lm_gen: np.ndarray        # (M,) i32 slot generation (bumped on free)
+    # --- inertial state (reference KeyFrame mVw / mImuBias / mPrevKF) ------
+    kf_vel: np.ndarray = None      # (K, 3) f32 world body velocity
+    kf_bg: np.ndarray = None       # (K, 3) f32 gyro bias
+    kf_ba: np.ndarray = None       # (K, 3) f32 accel bias
+    kf_prev_imu: np.ndarray = None  # (K,) i32 temporal IMU chain (−1 none)
+    # host dict: keyframe id → numpy preintegration tuple (prev_imu → kf),
+    # ``slam.imu_frontend.preint_to_numpy``'s layout
+    imu_preint: dict = dataclasses.field(default_factory=dict)
+    imu_initialized: bool = False
     # --- counters ----------------------------------------------------------
     n_kf: int = 0
     n_lm: int = 0             # landmark high-water mark (slots ever used)
@@ -71,6 +82,18 @@ class MapState:
     # spanning-tree-parent analog that trajectory export walks;
     # ``remove_keyframe`` fills it
     kf_redirect: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        # a map built without inertial arrays (an older archive) holds none
+        K = self.kf_pose.shape[0]
+        if self.kf_vel is None:
+            self.kf_vel = np.zeros((K, 3), np.float32)
+        if self.kf_bg is None:
+            self.kf_bg = np.zeros((K, 3), np.float32)
+        if self.kf_ba is None:
+            self.kf_ba = np.zeros((K, 3), np.float32)
+        if self.kf_prev_imu is None:
+            self.kf_prev_imu = np.full(K, INVALID, np.int32)
 
     @staticmethod
     def create(max_kf: int, max_lm: int, n_feat: int, map_id: int = 0) -> "MapState":
@@ -196,6 +219,10 @@ class MapState:
         self.kf_feat_valid = pad(self.kf_feat_valid, False)
         self.kf_lm_idx = pad(self.kf_lm_idx, INVALID)
         self.kf_angle = pad(self.kf_angle)
+        self.kf_vel = pad(self.kf_vel)
+        self.kf_bg = pad(self.kf_bg)
+        self.kf_ba = pad(self.kf_ba)
+        self.kf_prev_imu = pad(self.kf_prev_imu, INVALID)
 
     def refresh_free_list(self):
         """Rebuild the recycled-slot stack from validity (after load/merge)."""
@@ -504,6 +531,35 @@ class MapState:
         sf = 1.2 ** oct0.astype(np.float32)
         self.lm_max_dist[lm_set] = d_ref * sf
         self.lm_min_dist[lm_set] = self.lm_max_dist[lm_set] / (1.2 ** 7)
+
+
+def apply_scaled_rotation(m: MapState, S_new_old: np.ndarray,
+                          vel_metric_preserved: bool = False):
+    """Re-express the whole map in a new world frame X_new = s·R·X_old + t,
+    in place (reference ``Map::ApplyScaledRotation``: after IMU
+    initialization, gravity along −z and the monocular scale fixed).
+    Velocities rotate; unless ``vel_metric_preserved`` (the IMU
+    initialization's velocities are metric already) they also rescale."""
+    S = np.asarray(S_new_old, np.float32)
+    s = float(S_new_old[7])
+    kfs = m.valid_kf_ids()
+    if kfs.size:
+        Sp = lie.np_sim3_mul(lie.np_sim3_from_se3(m.kf_pose[kfs]), lie.np_sim3_inv(S)[None, :])
+        m.kf_pose[kfs] = lie.np_sim3_to_se3(Sp)
+        d = m.kf_depth[kfs]
+        uu = m.kf_uv[kfs][..., 0]
+        ur = m.kf_ur[kfs]
+        m.kf_depth[kfs] = np.where(d > 0, d * s, d)
+        m.kf_ur[kfs] = np.where((ur >= 0) & (d > 0), uu - (uu - ur) / s, ur)
+        v = lie.np_quat_rotate(S[:4][None, :], m.kf_vel[kfs]).astype(np.float32)
+        m.kf_vel[kfs] = v if vel_metric_preserved else v * s
+    lms = np.nonzero(m.lm_valid)[0]
+    if lms.size:
+        m.lm_pos[lms] = lie.np_sim3_apply(S, m.lm_pos[lms])
+        m.lm_normal[lms] = lie.np_quat_rotate(S[:4][None, :], m.lm_normal[lms]).astype(np.float32)
+        m.lm_max_dist[lms] *= s
+        m.lm_min_dist[lms] *= s
+    m.version += 1
 
 
 def dedup_kf_bindings(m: MapState):

@@ -16,8 +16,11 @@ map.
 
 The descriptor match and the two Sim3 solvers run on the caller's device
 with the real number of pairs; the weld itself is host numpy on
-``MapState``, as in the JAX package. The inertial arrays have no
-counterpart in the port's map yet, so nothing of them is transported.
+``MapState``, as in the JAX package. The inertial state travels with the
+keyframes: velocities rotate and rescale into the archived frame, biases
+stay, the temporal IMU chain and its preintegrations re-key through the
+keyframe remap, and the welded map's IMU counts as initialized when either
+map's was.
 """
 
 from __future__ import annotations
@@ -172,6 +175,18 @@ def merge_maps(old: MapState, active: MapState, ev_kf_cur: int,
     old.kf_angle[new_kf_ids] = active.kf_angle[kfs]
     tbl = active.kf_lm_idx[kfs]
     old.kf_lm_idx[new_kf_ids] = np.where(tbl >= 0, lm_remap[np.clip(tbl, 0, None)], INVALID)
+    # the inertial chain: velocities rotate and rescale into w2 units, the
+    # preintegrations re-key through the id remap
+    old.kf_vel[new_kf_ids] = s * lie.np_quat_rotate(S[None, :4], active.kf_vel[kfs]).astype(
+        np.float32)
+    old.kf_bg[new_kf_ids] = active.kf_bg[kfs]
+    old.kf_ba[new_kf_ids] = active.kf_ba[kfs]
+    prev = active.kf_prev_imu[kfs]
+    old.kf_prev_imu[new_kf_ids] = np.where(prev >= 0, kf_remap[np.clip(prev, 0, None)], INVALID)
+    for k_old, k_new in zip(kfs, new_kf_ids):
+        if int(k_old) in active.imu_preint:
+            old.imu_preint[int(k_new)] = active.imu_preint[int(k_old)]
+    old.imu_initialized = old.imu_initialized or active.imu_initialized
 
     old.lm_pos[new_lm_ids] = new_lm_pos
     old.lm_valid[new_lm_ids] = True

@@ -59,9 +59,21 @@ atlas resumes in relocalization. ``timer`` (a ``utils.profiling.StageTimer``)
 collects the reference's stage times beside the profiler spans.
 
 Stereo frames take the per-stage path every frame, as in the JAX package
-(it has no fused stereo step). The KannalaBrandt8 camera (and with it the
-stereo-fisheye pair) and the inertial sensors raise ``NotImplementedError``
-naming the ROADMAP Queue 1 item that ports them.
+(it has no fused stereo step). The inertial sensors (IMU_MONOCULAR,
+IMU_STEREO, IMU_RGBD) take ``imu=``, the (S, 7) samples ``[t, ax, ay, az,
+gx, gy, gz]`` since the previous frame, on ``track_monocular``,
+``track_stereo``, ``track_rgbd`` and ``track_features``; their frames take
+the per-stage path every frame (the fused step has no inertial branch, as
+in the JAX package). After a frame that made a keyframe the planes add the
+IMU initialization (until it succeeds; the tracker is then re-expressed in
+the gravity-aligned metric frame) and the VIBA1 / VIBA2 schedule; a
+motion-starved initialization (``LocalMapper.bad_imu``) resets the active
+map, and so does a forward timestamp jump of more than 1 s (a new map once
+VIBA2 has run). Inertial configurations stay synchronous even with
+``async_mapping = True``, as in the JAX package: the IMU initialization and
+VIBA interleave with the tracking state. The KannalaBrandt8 camera (and
+with it the stereo-fisheye pair) raises ``NotImplementedError`` naming the
+ROADMAP Queue 1 item that ports it.
 """
 
 from __future__ import annotations
@@ -79,8 +91,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from orb_slam3_rgbl_tpu_torch.config import (MONOCULAR, RGBD, RGBL, SENSOR_NAMES, STEREO,
-                                             SlamConfig)
+from orb_slam3_rgbl_tpu_torch.config import (IMU_STEREO, MONOCULAR, RGBD, RGBL, SENSOR_NAMES,
+                                             STEREO, SlamConfig)
 from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry import camera as cam_mod
 from orb_slam3_rgbl_tpu_torch.geometry import lie
@@ -121,9 +133,8 @@ class System:
     CLOUD_CAP = 131072  # fixed LiDAR capacity (KITTI sweeps hold ~120k points)
 
     def __init__(self, config: SlamConfig, enable_mapping: bool = True, device=None):
-        if config.inertial:
-            raise NotImplementedError(
-                "inertial sensors are not ported yet (ROADMAP Queue 1 item 15)")
+        if config.inertial and config.imu is None:
+            raise ValueError(f"sensor {SENSOR_NAMES[config.sensor]} needs cfg.imu (ImuConfig)")
         if config.sensor not in SENSOR_NAMES:
             raise ValueError(f"unknown sensor {config.sensor!r}")
         if config.camera_type == "KannalaBrandt8":
@@ -137,15 +148,24 @@ class System:
         # working camera without distortion
         self.rectifier = None
         self._undistort_cam = None
-        if (config.sensor == STEREO and config.stereo is not None
+        if (config.sensor in (STEREO, IMU_STEREO) and config.stereo is not None
                 and config.stereo.needs_rectify and config.camera_type == "PinHole"):
             self.rectifier = build_rectifier(config)
             config = dataclasses.replace(config, camera=self.rectifier.cam_rect)
+            if config.sensor == IMU_STEREO:
+                # the IMU sees the rectified camera (Settings.cc's
+                # Tbc = Tbc · T_r1_u1⁻¹; the JAX package keeps the
+                # unrectified extrinsic)
+                T = np.asarray(config.imu.T_body_cam, np.float64).reshape(4, 4)
+                T_u_r = np.eye(4)
+                T_u_r[:3, :3] = self.rectifier.R1.T
+                config = dataclasses.replace(config, imu=dataclasses.replace(
+                    config.imu, T_body_cam=tuple((T @ T_u_r).reshape(-1).tolist())))
         elif config.camera_type == "PinHole" and config.camera.has_distortion:
             self._undistort_cam = config.camera
             config = dataclasses.replace(config, camera=dataclasses.replace(
                 config.camera, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0))
-            if config.sensor in (RGBL, STEREO):
+            if config.sensor in (RGBL, STEREO, IMU_STEREO):
                 log.warning("distorted PinHole configuration with sensor %s: keypoints are "
                             "undistorted per frame, but stereo row matching and the LiDAR "
                             "projection assume rectified images; give rectified input or a "
@@ -225,13 +245,23 @@ class System:
         return int(sum(fast_ops.features_per_level(o.n_features, o.n_levels, o.scale_factor)))
 
     def _check_timestamp_jump(self, timestamp: float):
-        """Input-stream sanity (``Tracking::Track`` head): a BACKWARD
-        timestamp means the stream restarted — start a new map."""
+        """Input-stream sanity (``Tracking::Track`` head, Tracking.cc:1855-1888):
+        a BACKWARD timestamp means the stream restarted — start a new map; a
+        FORWARD gap of more than 1 s breaks an inertial map's preintegration
+        chain — reset the active map (a new map once VIBA2 has run)."""
         if self.tracker is None or not self.tracker.traj_time:
             return
-        if timestamp < self.tracker.traj_time[-1]:
+        last = self.tracker.traj_time[-1]
+        if timestamp < last:
             log.error("frame timestamp older than previous frame — starting a new map")
             self._create_map_in_atlas()
+        elif timestamp > last + 1.0 and self.cfg.inertial:
+            log.warning("timestamp jump of %.2f s: resetting", timestamp - last)
+            viba2_done = self.mapper is not None and self.mapper._viba_stage >= 2
+            if self.map.imu_initialized and viba2_done:
+                self._create_map_in_atlas()
+            else:
+                self.reset_active_map()
 
     def _create_map_in_atlas(self):
         """Archive the active map and start tracking in a fresh one
@@ -267,21 +297,23 @@ class System:
             else torch.as_tensor(cloud_mask, dtype=torch.bool, device=self.device))
         return self._track(self._undistort_feats(feats), timestamp)
 
-    def track_rgbd(self, gray, depth_img, timestamp: float) -> TrackResult:
+    def track_rgbd(self, gray, depth_img, timestamp: float, imu=None) -> TrackResult:
         """Gray image (H, W) + metric depth image (H, W) → ``TrackResult``
         (``System::TrackRGBD``). Depth is sampled at the raw (distorted)
         pixel; geometry uses undistorted coordinates. Steady-state frames
         run the fused step, as ``track_rgbl`` does, with the depth image in
-        place of the cloud."""
+        place of the cloud; an inertial frame (``imu``: the samples since the
+        previous frame) takes the per-stage path."""
         self._check_timestamp_jump(timestamp)
         depth = torch.as_tensor(depth_img, dtype=torch.float32, device=self.device)
-        if self.use_fused and self._undistort_cam is None and self.cfg.sensor == RGBD:
+        if (self.use_fused and self._undistort_cam is None and imu is None
+                and self.cfg.sensor == RGBD):
             self._ensure_fast("rgbd")
             img = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
             return self._post_track(self.tracker.track_image_rgbd(img, depth, timestamp,
                                                                   timer=self.timer))
         feats = frame_mod.attach_depth_map(self._extract(gray), depth, self.cam.bf)
-        return self._track(self._undistort_feats(feats), timestamp)
+        return self._track(self._undistort_feats(feats), timestamp, imu)
 
     def _ensure_fast(self, mode: str):
         """Components and the shared ``FastPath`` of the fused loop."""
@@ -303,12 +335,13 @@ class System:
             has_d, uvu[..., 0] - self.cam.bf / torch.where(has_d, feats.depth, 1.0), -1.0)
         return feats._replace(uv=uvu, u_right=u_right)
 
-    def track_stereo(self, gray_l, gray_r, timestamp: float) -> TrackResult:
+    def track_stereo(self, gray_l, gray_r, timestamp: float, imu=None) -> TrackResult:
         """Left and right gray images (H, W) → ``TrackResult``
         (``System::TrackStereo``): rectified first when the system has a
         rectifier; both extracted; the left features' depth from row
         matching against the right ones (disparity ≤ bf / 0.5, z ≥ 0.5 m),
-        refined by SAD on the level-0 images; then the classic ladder."""
+        refined by SAD on the level-0 images; then the classic ladder
+        (``imu``: the samples since the previous frame, IMU_STEREO)."""
         self._check_timestamp_jump(timestamp)
         img_l = torch.as_tensor(gray_l, dtype=torch.float32, device=self.device)
         img_r = torch.as_tensor(gray_r, dtype=torch.float32, device=self.device)
@@ -319,26 +352,28 @@ class System:
             self._extract(img_l), self._extract(img_r), self.cam.bf, min_disp=0.0,
             max_disp=self.cam.bf / 0.5, n_levels=o.n_levels, scale_factor=o.scale_factor)
         feats = frame_mod.refine_stereo_subpixel(feats, img_l, img_r, self.cam.bf)
-        return self._track(self._undistort_feats(feats), timestamp)
+        return self._track(self._undistort_feats(feats), timestamp, imu)
 
-    def track_monocular(self, gray, timestamp: float) -> TrackResult:
+    def track_monocular(self, gray, timestamp: float, imu=None) -> TrackResult:
         """Gray image (H, W) → ``TrackResult`` (``System::TrackMonocular``).
         The map initializes from a two-view reconstruction on the classic
-        ladder and has no metric scale; steady frames run the fused step
-        without a depth source."""
+        ladder and has no metric scale (IMU_MONOCULAR: metric once the IMU
+        initializes; ``imu``: the samples since the previous frame); steady
+        MONOCULAR frames run the fused step without a depth source."""
         self._check_timestamp_jump(timestamp)
         img = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
-        if self.use_fused and self._undistort_cam is None and self.cfg.sensor == MONOCULAR:
+        if (self.use_fused and self._undistort_cam is None and imu is None
+                and self.cfg.sensor == MONOCULAR):
             self._ensure_fast("mono")
             return self._post_track(self.tracker.track_image_mono(img, timestamp,
                                                                   timer=self.timer))
-        return self._track(self._undistort_feats(self._extract(img)), timestamp)
+        return self._track(self._undistort_feats(self._extract(img)), timestamp, imu)
 
-    def track_features(self, feats, timestamp: float) -> TrackResult:
+    def track_features(self, feats, timestamp: float, imu=None) -> TrackResult:
         """Feature-level entry point: extracted ``FrameFeatures`` on the
         system's device go straight to the classic ladder (testing, or
-        replaying features without images)."""
-        return self._track(feats, timestamp)
+        replaying features without images); ``imu`` as ``track_monocular``'s."""
+        return self._track(feats, timestamp, imu)
 
     # ------------------------------------------------------------------
     def _spawn_components(self, n_feat: int):
@@ -438,8 +473,10 @@ class System:
     # -- the mapping plane (the reference's LocalMapping thread) ---------
     def _dispatch_mapping(self, kf_id: int):
         """The new keyframe's job: inline on the synchronous plane, queued
-        to the mapping worker on the asynchronous one."""
-        if not self.async_mapping:
+        to the mapping worker on the asynchronous one. Inertial
+        configurations stay synchronous (the IMU initialization and VIBA
+        interleave with the tracking state)."""
+        if not self.async_mapping or self.cfg.inertial:
             self._mapping_job(kf_id, defer_merge=False)
             return
         self._tracker_stream = self._current_stream()
@@ -805,30 +842,43 @@ class System:
         self._merge_candidate = None
         self._last_shed_kf = None
 
-        # weld-window bundle adjustment (LoopClosing.cc:1623-1627)
+        # weld-window bundle adjustment (LoopClosing.cc:1623-1627); an
+        # initialized inertial map takes the 15-DoF solve over its chain
+        # (the reference's MergeInertialBA)
         if self.mapper is not None:
             with record_function("merge.ba"):
                 res.map.update_landmark_stats(np.array([res.kf_cur_new]))
-                self.mapper.local_bundle_adjustment(res.kf_cur_new)
+                if self.cfg.inertial and res.map.imu_initialized:
+                    self.mapper.full_inertial_ba(res.kf_cur_new)
+                else:
+                    self.mapper.local_bundle_adjustment(res.kf_cur_new)
         log.info("merge: welded map %d into map %d (%d keyframes transported, scale %.4f)",
                  active_map_id, old.map_id, len(res.appended_kfs), s)
 
-    def _track(self, feats, timestamp) -> TrackResult:
+    def _track(self, feats, timestamp, imu=None) -> TrackResult:
         if self.map is None:
             self._spawn_components(int(feats.uv.shape[0]))
-        return self._post_track(self.tracker.track(feats, timestamp))
+        return self._post_track(self.tracker.track(feats, timestamp, imu=imu))
 
     def _post_track(self, res: TrackResult) -> TrackResult:
         """After the tracking stage: land what the asynchronous planes
-        finished, then the mapping job of the frame's last new keyframe,
-        then elastic recovery — a LOST streak longer than ``fps`` frames
-        archives the map (or discards it, under two keyframes) and starts a
-        new one (Tracking.cc:2032-2058)."""
+        finished, then the mapping job of the frame's last new keyframe
+        (inertial: then the VIBA schedule or the IMU initialization, and the
+        bad-IMU reset), then elastic recovery — a LOST streak longer than
+        ``fps`` frames archives the map (or discards it, under two
+        keyframes) and starts a new one (Tracking.cc:2032-2058)."""
         if ((self._map_future is not None and self._map_future.done())
                 or (self._loop_inbox and self._map_future is None)):
             self._poll_mapping()
         if self.tracker.new_kf_ids:
             self._dispatch_mapping(self.tracker.new_kf_ids[-1])
+            if self.cfg.inertial and self.mapper is not None:
+                self._inertial_schedule(res.timestamp)
+        if self.mapper is not None and self.mapper.bad_imu:
+            # a motion-starved IMU initialization (Tracking.cc:1839-1844)
+            log.warning("resetting the active map (bad IMU)")
+            self.reset_active_map()
+            return res
         if res.state == trk.LOST:
             self._lost_streak += 1
         elif res.state == trk.OK:
@@ -836,6 +886,25 @@ class System:
         if self._lost_streak > int(self.cfg.fps):
             self._create_map_in_atlas()
         return res
+
+    def _inertial_schedule(self, timestamp: float):
+        """After a keyframe's job: VIBA1 / VIBA2 on an initialized map,
+        else an IMU initialization attempt; on success the tracker moves to
+        the gravity-aligned metric frame (ids unchanged) and takes the
+        reference keyframe's velocity and biases."""
+        if self.map.imu_initialized:
+            with record_function("map.viba"):
+                self.mapper.maybe_viba(timestamp)
+            return
+        S_align = self.mapper.maybe_initialize_imu()
+        if S_align is None:
+            return
+        identity_kf = np.arange(self.map.capacity_kf, dtype=np.int32)
+        identity_lm = np.append(np.arange(self.map.capacity_lm, dtype=np.int32), -1)
+        t = self.tracker
+        t.rebind_after_merge(self.map, identity_kf, identity_lm, S_align)
+        t.cur_vel = self.map.kf_vel[t.ref_kf].copy()
+        t.cur_bias = (self.map.kf_bg[t.ref_kf].copy(), self.map.kf_ba[t.ref_kf].copy())
 
     # ------------------------------------------------------------------
     def shutdown(self):

@@ -20,9 +20,23 @@ from a two-view reconstruction, ``_monocular_initialization``, and a lost
 tracker relocalizes by 2D-3D DLT PnP). Localization mode
 (``only_tracking``) tracks against a frozen map: no keyframe, acceptance on
 visual-odometry evidence, and the last frame's close unbound points as
-temporary structure for the motion model. Not ported: the inertial parts
-(ROADMAP Queue 1 item 15). Relocalization runs against the keyframe
-database that the loop-closing plane wires (``kf_db``).
+temporary structure for the motion model. Relocalization runs against the
+keyframe database that the loop-closing plane wires (``kf_db``).
+
+The inertial sensors (IMU_MONOCULAR, IMU_STEREO, IMU_RGBD) take the
+classic ladder every frame, with the reference's inertial branches: the
+``imu=`` samples of each frame go to two accumulators (since the last
+keyframe, since the last frame; ``slam/imu_frontend.py``); every keyframe
+stores its velocity, biases and the preintegration from its predecessor
+on the temporal chain; once the map's IMU is initialized the motion model
+predicts by preintegration (``PredictStateIMU``), every tracked frame is
+refined by the 15-DoF visual-inertial solve (``_vi_refine``: against the
+last frame under the carried marginalization prior while the map has not
+changed, else against the last keyframe), 15 inliers accept a frame, and a
+lost frame dead-reckons on the IMU for ``time_recently_lost`` seconds
+before it falls to LOST. Before initialization a keyframe comes every
+0.25 s and by no other rule (the reference's; the JAX package also lets the
+visual policy insert one); after it, at least every 0.5 s.
 """
 
 from __future__ import annotations
@@ -33,14 +47,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from orb_slam3_rgbl_tpu_torch.config import MONOCULAR, SlamConfig
+from orb_slam3_rgbl_tpu_torch.config import IMU_MONOCULAR, MONOCULAR, SlamConfig
 from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry import lie, two_view
 from orb_slam3_rgbl_tpu_torch.geometry.camera import np_geo_project, np_geo_unproject
 from orb_slam3_rgbl_tpu_torch.ops import matching
-from orb_slam3_rgbl_tpu_torch.optim import pnp, pose_opt
-from orb_slam3_rgbl_tpu_torch.slam import compiled
+from orb_slam3_rgbl_tpu_torch.imu import preintegration as pre
+from orb_slam3_rgbl_tpu_torch.optim import inertial, pnp, pose_opt
+from orb_slam3_rgbl_tpu_torch.slam import compiled, imu_frontend
 from orb_slam3_rgbl_tpu_torch.slam.frame import FrameFeatures, inv_scale_sigma2
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 from orb_slam3_rgbl_tpu_torch.utils.profiling import stage
@@ -62,6 +78,7 @@ RELOC_HYPOTHESES = 256   # rigid PnP RANSAC budget of one relocalization candida
 RELOC_DLT_HYPOTHESES = 512   # DLT PnP RANSAC budget (monocular relocalization)
 MONO_INIT_CAP = 1024     # matches handed to the two-view reconstruction, at most
 MONO_INIT_MIN = 100      # features of an initialization frame, matches, map points
+MIN_VI_INLIERS = 15      # inliers that accept a frame once the map's IMU is initialized
 
 
 @dataclasses.dataclass
@@ -73,6 +90,17 @@ class TrackResult:
     timestamp: float
 
 
+def _sqrt_info(H: np.ndarray) -> np.ndarray:
+    """L with L·Lᵀ ≈ the PSD projection of H: the marginal information
+    carried between visual-inertial pose solves (the reference keeps the
+    matrix in ``ConstraintPoseImu``; the square root keeps the joint solve's
+    weights diagonal). Eigenvalues clip to [0, 1e8], so the chained prior
+    never hardens into a fixed anchor."""
+    Hs = 0.5 * (H + H.T)
+    w, V = np.linalg.eigh(Hs)
+    return np.asarray(V @ np.diag(np.sqrt(np.clip(w, 0.0, 1e8))), np.float32)
+
+
 def _i32(desc_u32: np.ndarray) -> np.ndarray:
     """uint32 descriptor words → int32 with the same bits (the port's layout)."""
     return np.ascontiguousarray(desc_u32, np.uint32).view(np.int32)
@@ -81,9 +109,6 @@ def _i32(desc_u32: np.ndarray) -> np.ndarray:
 class Tracker:
     def __init__(self, config: SlamConfig, map_state: MapState, start_frame_id: int = 0,
                  device=None):
-        if config.inertial:
-            raise NotImplementedError(
-                "inertial tracking is not ported yet (ROADMAP Queue 1 item 15)")
         self.cfg = config
         self.cam = config.camera
         self.geo_cam = config.geo_camera
@@ -93,7 +118,7 @@ class Tracker:
         self.n_feat: Optional[int] = None   # set on the first frame
         self.kf_db = None   # KeyFrameDatabase, wired by the loop-closing plane
         self.reloc_generator = None   # torch.Generator of the PnP draws, wired with it
-        self.is_mono = config.sensor == MONOCULAR
+        self.is_mono = config.sensor in (MONOCULAR, IMU_MONOCULAR)
         self.init_generator = None    # torch.Generator of the two-view draws (monocular)
         self._mono_ref = None         # (device feats, host feats, timestamp) of the reference
         self.fast = None    # FastPath, wired by System for the fused loop
@@ -146,6 +171,30 @@ class Tracker:
         self.only_tracking = False
         self._loc_total_inliers = 0   # the pose solve's inliers, VO points included
         self.P_lidar = compiled.lidar_projection(config, self.device)
+        # --- the inertial frontend (GrabImuData / PreintegrateIMU) ---
+        self.inertial = config.inertial
+        if self.inertial:
+            self.T_bc, self.T_cb = imu_frontend.body_cam_extrinsics(config)
+            self._T_cb_dev = self._dev(self.T_cb, torch.float32)
+            # samples since the last keyframe, and since the last frame (the
+            # reference's mpImuPreintegratedFrame: the last-frame solve's window)
+            self._imu_kf_acc = imu_frontend.ImuAccumulator(config, self.device)
+            self._imu_frame_acc = imu_frontend.ImuAccumulator(config, self.device)
+            self._last_imu_kf = -1
+            self.cur_vel = np.zeros(3, np.float32)       # world body velocity
+            self.cur_bias = (np.zeros(3, np.float32), np.zeros(3, np.float32))
+            self._pred_vel: Optional[np.ndarray] = None  # the last IMU prediction's
+            self._prev_body_center: Optional[np.ndarray] = None
+            self._prev_body_time: Optional[float] = None
+            # the last OK frame's body state and the map version it was
+            # solved against (PoseInertialOptimizationLastFrame's anchor)
+            self._last_frame_vi = None
+            self._last_frame_map_version = -1
+            self._vi_prior_L: Optional[np.ndarray] = None   # the mpcpi chain
+        # RECENTLY_LOST grace (the reference's time_recently_lost): an
+        # initialized inertial tracker dead-reckons this long before LOST
+        self.time_recently_lost = 5.0
+        self._lost_since = -1e9
 
     # ------------------------------------------------------------------
     def _dev(self, a, dtype) -> torch.Tensor:
@@ -165,14 +214,20 @@ class Tracker:
         return host_f
 
     # ------------------------------------------------------------------
-    def track(self, feats: FrameFeatures, timestamp: float) -> TrackResult:
+    def track(self, feats: FrameFeatures, timestamp: float,
+              imu: Optional[np.ndarray] = None) -> TrackResult:
         """One frame through the classic ladder. ``feats`` are the frame's
-        features on the tracker's device."""
+        features on the tracker's device; ``imu`` the (S, 7) samples
+        ``[t, ax, ay, az, gx, gy, gz]`` since the previous frame (inertial
+        sensors)."""
         if self.join_mapping_fn is not None:
             self.join_mapping_fn()
         self.frame_id += 1
         if self.n_feat is None:
             self.n_feat = int(feats.uv.shape[0])
+        if self.inertial and imu is not None:
+            self._imu_kf_acc.add(imu)
+            self._imu_frame_acc.add(imu)
         created_kf = False
         self.new_kf_ids = []
         if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
@@ -182,16 +237,33 @@ class Tracker:
             n_inl = int(self._host(feats).valid.sum()) if ok else 0
             created_kf = ok
         else:
-            ok, n_inl = self._track_frame(feats)
+            ok, n_inl = self._track_frame(feats, timestamp)
             if ok:
                 self.state = OK
                 created_kf = self._maybe_insert_keyframe(feats, timestamp, n_inl)
             elif self.state == OK:
                 self.state = RECENTLY_LOST
-            elif self.state == RECENTLY_LOST:
+                self._lost_since = timestamp
+            elif self.state == RECENTLY_LOST and not self._imu_grace_active(timestamp):
                 self.state = LOST
+        if self.inertial and self.state == OK:
+            # the velocity before IMU initialization: finite differences of
+            # the body centres (the reference seeds keyframe velocities so)
+            c = self._body_pose(self.cur_pose)[4:7]
+            if (self._prev_body_center is not None and not self.map.imu_initialized
+                    and timestamp > self._prev_body_time):
+                self.cur_vel = ((c - self._prev_body_center)
+                                / (timestamp - self._prev_body_time)).astype(np.float32)
+            self._prev_body_center, self._prev_body_time = c, timestamp
         self._log_trajectory(timestamp)
         self._update_last(feats)
+        if self.inertial:
+            # the last-frame anchor of PoseInertialOptimizationLastFrame
+            self._last_frame_vi = ((self._body_pose(self.cur_pose), self.cur_vel.copy(),
+                                    self.cur_bias[0].copy(), self.cur_bias[1].copy())
+                                   if self.state == OK else None)
+            self._last_frame_map_version = self.map.version
+            self._imu_frame_acc.reset()
         return TrackResult(pose=self.cur_pose.copy(), state=self.state, n_inliers=n_inl,
                            created_kf=created_kf, timestamp=timestamp)
 
@@ -226,6 +298,9 @@ class Tracker:
         self.new_kf_ids = [kf_id]
         if self.kf_feats_hook is not None:
             self.kf_feats_hook(kf_id, feats)
+        if self.inertial:
+            self._imu_kf_acc.reset()
+            self._last_imu_kf = kf_id
         return True
 
     # ------------------------------------------------------------------
@@ -248,6 +323,8 @@ class Tracker:
         if self._mono_ref is None:
             if hf.valid.sum() > MONO_INIT_MIN:
                 self._mono_ref = (feats, hf, timestamp)
+                if self.inertial:
+                    self._imu_kf_acc.reset()   # KF0 → KF1's window starts here
             return False
         if hf.valid.sum() <= MONO_INIT_MIN:
             self._mono_ref = None
@@ -263,6 +340,8 @@ class Tracker:
         if f1.size < MONO_INIT_MIN:
             # too few matches: this frame becomes the reference
             self._mono_ref = (feats, hf, timestamp)
+            if self.inertial:
+                self._imu_kf_acc.reset()
             return False
         f1 = f1[:MONO_INIT_CAP]
         f2 = idx[f1]
@@ -315,16 +394,39 @@ class Tracker:
         if self.kf_feats_hook is not None:
             self.kf_feats_hook(kf0, ref)
             self.kf_feats_hook(kf1, feats)
+        if self.inertial:
+            meas = self._imu_kf_acc.preintegrate(pre.ImuBias(np.zeros(3, np.float32),
+                                                             np.zeros(3, np.float32)))
+            if meas is not None:
+                self.map.imu_preint[kf1] = imu_frontend.preint_to_numpy(meas)
+                self.map.kf_prev_imu[kf1] = kf0
+            self._imu_kf_acc.reset()
+            self._last_imu_kf = kf1
         self._mono_ref = None
         return True
 
     # ------------------------------------------------------------------
-    def _track_frame(self, feats: FrameFeatures):
+    def _track_frame(self, feats: FrameFeatures, timestamp: float):
         """Motion-model (or reference-KF) tracking then local-map
         refinement. Returns (ok, n_inliers)."""
         lm_idx = None
         self._loc_total_inliers = 0
         if self.state in (RECENTLY_LOST, LOST):
+            if (self.state == RECENTLY_LOST and self._imu_grace_active(timestamp)
+                    and self._imu_ready()):
+                # inertial dead-reckoning (Tracking.cc:2019-2035): the pose
+                # rides the IMU prediction, and the local map is searched
+                # from it (PredictStateIMU → TrackLocalMap)
+                p = self._predict_pose_imu()
+                if p is not None:
+                    self.cur_pose = p
+                    self.cur_vel = self._pred_vel.copy()
+                    lm_idx, n_inl = self._track_local_map(
+                        feats, np.full(self.n_feat, -1, np.int32))
+                    self.cur_lm_idx = lm_idx
+                    if n_inl >= MIN_VI_INLIERS:
+                        return True, n_inl       # visually re-acquired
+                    return False, 0              # carried on the IMU alone
             # RECENTLY_LOST / LOST attempt relocalization (Tracking.cc:2036-2053)
             lm_idx, n = self._relocalization(feats)
             if n < 15:
@@ -343,10 +445,18 @@ class Tracker:
                 return False, 0
 
         lm_idx, n_inl = self._track_local_map(feats, lm_idx)
+        if self._imu_ready():
+            # the visual-inertial refinement (TrackLocalMap's
+            # PoseInertialOptimizationLast* branch, Tracking.cc:3019-3036)
+            vi_inl = self._vi_refine(feats, lm_idx)
+            if vi_inl > 0:
+                n_inl = vi_inl
         self.cur_lm_idx = lm_idx
         # acceptance (Tracking.cc:3064-3096): ≥ 30 inliers, 50 right after
-        # relocalization
+        # relocalization, 15 once the map's IMU is initialized
         need = 50 if self.frame_id < self.last_reloc_frame + self.max_frames else 30
+        if self.inertial and self.map.imu_initialized:
+            need = MIN_VI_INLIERS
         if self.only_tracking and n_inl < need and self._loc_total_inliers >= MIN_VO_MATCHES:
             # localization mode goes on on visual-odometry evidence (the
             # reference's mbVO, Tracking.cc:2106)
@@ -354,9 +464,114 @@ class Tracker:
         return n_inl >= need, n_inl
 
     def _predict_pose(self) -> np.ndarray:
+        if self._imu_ready():
+            p = self._predict_pose_imu()
+            if p is not None:
+                return p
         if self.velocity is None or self.last_pose is None:
             return self.cur_pose
         return lie.np_se3_mul(self.velocity, self.last_pose)
+
+    # --- inertial helpers ---------------------------------------------
+    def _imu_ready(self) -> bool:
+        return (self.inertial and self.map.imu_initialized and self._last_imu_kf >= 0
+                and self._imu_kf_acc.n >= 2)
+
+    def _imu_grace_active(self, timestamp: float) -> bool:
+        """The RECENTLY_LOST dead-reckoning window of an initialized
+        inertial tracker (Tracking.cc:2019-2035)."""
+        return (self.inertial and self.map.imu_initialized
+                and timestamp - self._lost_since <= self.time_recently_lost)
+
+    def _body_pose(self, Tcw: np.ndarray) -> np.ndarray:
+        """Twb of the camera pose Tcw."""
+        return lie.np_se3_inv(lie.np_se3_mul(self.T_bc, np.asarray(Tcw, np.float32))
+                              ).astype(np.float32)
+
+    def _cam_pose(self, Twb: np.ndarray) -> np.ndarray:
+        """Tcw of the body pose Twb."""
+        return lie.np_se3_mul(self.T_cb, lie.np_se3_inv(np.asarray(Twb, np.float32))
+                              ).astype(np.float32)
+
+    def _vi_state(self, Twb, vw, bg, ba) -> inertial.VIState:
+        f32 = torch.float32
+        return inertial.VIState(self._dev(Twb, f32), self._dev(vw, f32),
+                                pre.ImuBias(self._dev(bg, f32), self._dev(ba, f32)))
+
+    def _kf_vi_state(self, k: int) -> inertial.VIState:
+        """Keyframe ``k``'s body state from the map, on the device."""
+        m = self.map
+        return self._vi_state(self._body_pose(m.kf_pose[k]), m.kf_vel[k], m.kf_bg[k], m.kf_ba[k])
+
+    def _kf_bias(self, k: int) -> pre.ImuBias:
+        return pre.ImuBias(self.map.kf_bg[k], self.map.kf_ba[k])
+
+    def _predict_pose_imu(self) -> Optional[np.ndarray]:
+        """The camera pose propagated by preintegration from the last
+        keyframe (``Tracking::PredictStateIMU``); the predicted velocity is
+        kept in ``_pred_vel``. One download."""
+        k = self._last_imu_kf
+        bias = self._kf_bias(k)
+        meas = self._imu_kf_acc.preintegrate(bias)
+        if meas is None:
+            return None
+        st = self._kf_vi_state(k)
+        R1, v1, p1 = pre.predict_state(lie.se3_rot(st.Twb), st.vw, lie.se3_trans(st.Twb), meas,
+                                       st.bias)
+        down = torch.cat([R1, p1, v1]).cpu().numpy().astype(np.float32)
+        self._pred_vel = down[7:10].copy()
+        return self._cam_pose(down[:7])
+
+    def _vi_refine(self, feats: FrameFeatures, lm_idx: np.ndarray) -> int:
+        """The 15-DoF visual-inertial pose solve of the current frame. While
+        the map has not changed since the last frame was solved: a joint
+        solve with the last frame's state under the previous solve's
+        marginalization prior (``PoseInertialOptimizationLastFrame`` +
+        ``mpcpi``); otherwise against the last keyframe held fixed
+        (``PoseInertialOptimizationLastKeyFrame``), which starts a new prior
+        chain. Returns the visual inliers (0: no IMU window)."""
+        prev = meas = prior_L = None
+        if (self._last_frame_vi is not None
+                and self._last_frame_map_version == self.map.version
+                and self._imu_frame_acc.n >= 2):
+            Twb_l, vw_l, bg_l, ba_l = self._last_frame_vi
+            prev = self._vi_state(Twb_l, vw_l, bg_l, ba_l)
+            meas = self._imu_frame_acc.preintegrate(pre.ImuBias(bg_l, ba_l))
+            prior_L = self._vi_prior_L
+        if meas is None:
+            k = self._last_imu_kf
+            prev = self._kf_vi_state(k)
+            meas = self._imu_kf_acc.preintegrate(self._kf_bias(k))
+            prior_L = None
+        if meas is None:
+            return 0
+        bound = lm_idx >= 0
+        Xw = np.zeros((self.n_feat, 3), np.float32)
+        Xw[bound] = self.map.lm_pos[lm_idx[bound]]
+        L = len(self.scale_factors)
+        obs = pose_opt.PoseObs(
+            Xw=self._dev(Xw, torch.float32), uv=feats.uv, u_right=feats.u_right,
+            inv_sigma2=self.inv_sigma2[feats.octave.clamp(0, L - 1).long()],
+            valid=self._dev(bound, torch.bool) & feats.valid)
+        vw0 = self._pred_vel if self._pred_vel is not None else self.cur_vel
+        Twb0 = self._dev(self._body_pose(self.cur_pose), torch.float32)
+        state0 = inertial.VIState(Twb0, self._dev(vw0, torch.float32), prev.bias)
+        with record_function("track.vi_refine"):
+            if prior_L is not None:
+                out, _, n_inl, H = inertial.inertial_pose_optimize_prior(
+                    state0, prev, self._dev(prior_L, torch.float32), meas, obs,
+                    self._T_cb_dev, self.geo_cam)
+            else:
+                out, n_inl, H = inertial.inertial_pose_optimize(state0, prev, meas, obs,
+                                                                self._T_cb_dev, self.geo_cam)
+            down = torch.cat([out.Twb, out.vw, out.bias.bg, out.bias.ba,
+                              n_inl.to(torch.float32)[None], H.reshape(-1)]).cpu().numpy()
+        # the marginal information goes forward (the mpcpi chain)
+        self._vi_prior_L = _sqrt_info(down[17:].reshape(15, 15).astype(np.float64))
+        self.cur_pose = self._cam_pose(down[:7])
+        self.cur_vel = down[7:10].astype(np.float32)
+        self.cur_bias = (down[10:13].astype(np.float32), down[13:16].astype(np.float32))
+        return int(down[16])
 
     def _track_with_motion_model(self, feats: FrameFeatures, th: float):
         """Project the last frame's landmarks with the constant-velocity
@@ -685,6 +900,22 @@ class Tracker:
         (``CreateNewKeyFrame``)."""
         if self.ref_kf < 0 or self.only_tracking:
             return False
+        if self.inertial and self._last_imu_kf >= 0:
+            # the inertial temporal density (Tracking.cc:3117-3151): before
+            # IMU initialization a keyframe every 0.25 s and no other (the
+            # JAX package also lets the visual policy insert one, and
+            # keyframes a frame or two apart make the initialization's
+            # velocities absorb the visual noise); after it, one at least
+            # every 0.5 s (the chain stays alive)
+            gap = timestamp - float(self.map.kf_timestamp[self._last_imu_kf])
+            if not self.map.imu_initialized:
+                if gap < 0.25:
+                    return False
+                self._create_keyframe(feats, timestamp)
+                return True
+            if gap >= 0.5:
+                self._create_keyframe(feats, timestamp)
+                return True
         hf = self._host(feats)
         close = hf.valid & (hf.depth > 0) & (hf.depth < self.th_depth_m)
         n_tc = int((close & (self.cur_lm_idx >= 0)).sum())
@@ -726,6 +957,17 @@ class Tracker:
                      ).astype(np.float32))
                 self.cur_lm_idx[keep] = ids
                 self.map.kf_lm_idx[kf_id, keep] = ids
+        if self.inertial:
+            self.map.kf_vel[kf_id] = self.cur_vel
+            self.map.kf_bg[kf_id], self.map.kf_ba[kf_id] = self.cur_bias
+            prev = self._last_imu_kf
+            if prev >= 0:
+                meas = self._imu_kf_acc.preintegrate(self._kf_bias(prev))
+                if meas is not None:
+                    self.map.imu_preint[kf_id] = imu_frontend.preint_to_numpy(meas)
+                    self.map.kf_prev_imu[kf_id] = prev
+            self._imu_kf_acc.reset()
+            self._last_imu_kf = kf_id
         self.ref_kf = kf_id
         self.last_kf_frame = self.frame_id
         self.new_kf_ids = [kf_id]
@@ -1035,6 +1277,13 @@ class Tracker:
         self._ref_tracked_cache = None   # keyed on the old map's version
         if self.ref_kf >= 0:
             self.ref_kf = int(kf_remap[self.ref_kf])
+        if self.inertial:
+            self._vi_prior_L = None      # the prior chain is frame-local state
+            self.cur_vel = (s * lie.np_quat_rotate(np.asarray(S_w2_w1[:4], np.float32),
+                                                   self.cur_vel)).astype(np.float32)
+            if self._prev_body_center is not None:
+                self._prev_body_center = lie.np_sim3_apply(
+                    np.asarray(S_w2_w1, np.float32), self._prev_body_center).astype(np.float32)
         # metric depth of the last frame rescales with the weld, on its device
         if self.last_feats is not None and s != 1.0:
             d = self.last_feats.depth

@@ -7,12 +7,12 @@ the ``MapState`` arrays (prefixed ``m<i>_`` per atlas map), each map's
 keyframe-database rows and trajectory segment, and a ``__meta__`` JSON
 string. An archive written by either package loads in the other.
 
-The port has no inertial state yet (ROADMAP Queue 1 item 15). It writes
-the JAX ``MapState``'s inertial arrays as a non-inertial JAX map holds them
-(zero velocities and biases, no IMU chain, no preintegration), so the JAX
-package builds a complete map from them. On load it ignores them on a map
-whose ``imu_initialized`` is false and refuses an initialized inertial map.
-Descriptors stay uint32 on disk. Like the JAX format, an archive keeps no
+The inertial state is written as the JAX package writes it: the
+velocity, bias and IMU-chain arrays among the map's arrays, the
+``imu_preint`` dict as one id vector and 12 stacked arrays
+(``imu_pre_ids``, ``imu_pre_f0`` … ``imu_pre_f11``), and ``imu_initialized``
+in the map's meta, so an initialized inertial map of either package loads
+in the other. Descriptors stay uint32 on disk. Like the JAX format, an archive keeps no
 keyframe-cull redirects (``MapState.kf_redirect``): a frame whose reference
 keyframe was culled resolves against that keyframe's last pose after a load.
 """
@@ -27,7 +27,7 @@ import numpy as np
 
 from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.retrieval import vocab
-from orb_slam3_rgbl_tpu_torch.slam.map_state import INVALID, MapState
+from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 
 FORMAT_VERSION = 1
 _PREINT_FIELDS = 12  # dt dR dV dP JRg JVg JVa JPg JPa cov bg ba
@@ -47,33 +47,25 @@ def _array_fields(m: MapState) -> dict:
             if isinstance(getattr(m, f.name), np.ndarray)}
 
 
-def _inertial_arrays(m: MapState) -> dict:
-    """The JAX ``MapState``'s inertial arrays of a map without an IMU."""
-    K = m.capacity_kf
-    return {"kf_vel": np.zeros((K, 3), np.float32), "kf_bg": np.zeros((K, 3), np.float32),
-            "kf_ba": np.zeros((K, 3), np.float32),
-            "kf_prev_imu": np.full(K, INVALID, np.int32)}
-
-
 def _map_meta(m: MapState) -> dict:
     return {"n_kf": m.n_kf, "n_lm": m.n_lm, "version": m.version, "map_id": m.map_id,
-            "imu_initialized": False}
+            "imu_initialized": bool(m.imu_initialized)}
 
 
 def _map_arrays(m: MapState, prefix: str) -> dict:
-    arrays = {prefix + k: v for k, v in {**_array_fields(m), **_inertial_arrays(m)}.items()}
-    # an empty preintegration chain, as the JAX format packs one
-    arrays[prefix + "imu_pre_ids"] = np.zeros(0, np.int32)
+    arrays = {prefix + k: v for k, v in _array_fields(m).items()}
+    # the preintegration chain: the {keyframe: 12 arrays} dict as one id
+    # vector and 12 stacked arrays
+    ks = sorted(m.imu_preint)
+    arrays[prefix + "imu_pre_ids"] = np.asarray(ks, np.int32)
     for j in range(_PREINT_FIELDS):
-        arrays[prefix + f"imu_pre_f{j}"] = np.zeros((0,), np.float32)
+        arrays[prefix + f"imu_pre_f{j}"] = (
+            np.stack([np.asarray(m.imu_preint[k][j]) for k in ks]) if ks
+            else np.zeros((0,), np.float32))
     return arrays
 
 
-def _map_from_arrays(data, prefix: str, meta: dict, path: str) -> MapState:
-    if meta.get("imu_initialized", False):
-        raise NotImplementedError(
-            f"{path}: map {meta.get('map_id')} is an initialized inertial map; the inertial "
-            "state is not ported yet (ROADMAP Queue 1 item 15)")
+def _map_from_arrays(data, prefix: str, meta: dict) -> MapState:
     fields = {f.name for f in dataclasses.fields(MapState)}
     arrays = {k[len(prefix):]: data[k] for k in data.files
               if k.startswith(prefix) and k[len(prefix):] in fields}
@@ -82,7 +74,12 @@ def _map_from_arrays(data, prefix: str, meta: dict, path: str) -> MapState:
     m.n_lm = int(meta["n_lm"])
     m.version = int(meta["version"])
     m.map_id = int(meta["map_id"])
+    m.imu_initialized = bool(meta.get("imu_initialized", False))
     m.refresh_free_list()
+    ids = data[prefix + "imu_pre_ids"] if prefix + "imu_pre_ids" in data.files else None
+    if ids is not None and ids.size:
+        cols = [data[prefix + f"imu_pre_f{j}"] for j in range(_PREINT_FIELDS)]
+        m.imu_preint = {int(k): tuple(c[i] for c in cols) for i, k in enumerate(ids)}
     return m
 
 
@@ -97,15 +94,14 @@ def _check_header(meta: dict, path: str, strict_vocab: bool):
 def save_map(path: str, m: MapState):
     meta = {"format_version": FORMAT_VERSION, **_map_meta(m),
             "vocab_checksum": vocabulary_checksum()}
-    np.savez_compressed(path, __meta__=json.dumps(meta), **_array_fields(m),
-                        **_inertial_arrays(m))
+    np.savez_compressed(path, __meta__=json.dumps(meta), **_array_fields(m))
 
 
 def load_map(path: str, strict_vocab: bool = True) -> MapState:
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(str(data["__meta__"]))
         _check_header(meta, path, strict_vocab)
-        return _map_from_arrays(data, "", meta, path)
+        return _map_from_arrays(data, "", meta)
 
 
 def save_atlas(path: str, atlas, tracker=None):
@@ -151,7 +147,7 @@ def load_atlas(path: str, config, strict_vocab: bool = True, device=None):
         atlas = Atlas(config, int(meta["n_features"]))
         for i, mm in enumerate(meta["maps"]):
             p = f"m{i}_"
-            e = AtlasEntry(map=_map_from_arrays(data, p, mm, path))
+            e = AtlasEntry(map=_map_from_arrays(data, p, mm))
             if mm.get("has_db"):
                 voc = (TreeVocabulary.load(config.vocab_path, device=device)
                        if config.vocab_path else None)

@@ -5,7 +5,9 @@ through the port's own PNG reader where the JAX package calls
 * ``EurocSequence`` (mono, stereo + IMU, an external timestamp list),
   ``load_cam_index``, ``load_imu`` and ``TumRgbdSequence`` on sequences
   written by the test with ``chip_smoke.write_png``: exact against the JAX
-  loaders (images, depth, timestamps, IMU windows).
+  loaders (images, depth, timestamps, IMU windows; the port's IMU windows
+  stay float64, EuRoC's ~1.4e9 s stamps being 128 s coarse in float32, and
+  equal the JAX float32 windows once cast).
 * ``run_kitti_stereo`` (6 stereo pairs of the 320×192 canyon): both
   packages' drivers track every frame and write one finite pose a line;
   the two trajectories agree within 5 mm (tests/test_torch_stereo.py's
@@ -13,7 +15,13 @@ through the port's own PNG reader where the JAX package calls
 * ``run_euroc --mode mono`` (12 frames of the weaving drive of
   tests/test_torch_mono_images.py): both drivers initialize, track every
   frame after it and write a finite TUM trajectory of the tracked frames
-  and the EuRoC-format copy; an inertial mode raises naming item 15.
+  and the EuRoC-format copy.
+* ``run_euroc --mode stereo-inertial`` and ``mono-inertial`` (the port's):
+  12 frames (0.55 s, before any IMU initialization) of ``chip_smoke``'s
+  EuRoC-shaped sequence at 376×240: every frame OK from the first (stereo)
+  or from the two-view initialization (monocular), every keyframe linked to
+  its predecessor on the IMU chain with a preintegration as long as their
+  time gap (1e-4 s).
 
 JAX runs with x64 off, as outside the test suite."""
 
@@ -83,8 +91,11 @@ def test_euroc_sequence_matches_jax(tmp_path, canyon):
         for i in range(len(s_j)):
             ft, fj = s_t.frame(i), s_j.frame(i)
             assert len(ft) == len(fj)
-            for a, b in zip(ft, fj):
-                if isinstance(b, np.ndarray):
+            for k, (a, b) in enumerate(zip(ft, fj)):
+                if isinstance(b, np.ndarray) and k == len(fj) - 2:     # the IMU window
+                    assert a.dtype == np.float64 and b.dtype == np.float32
+                    assert np.array_equal(a.astype(np.float32), b)
+                elif isinstance(b, np.ndarray):
                     assert a.dtype == b.dtype and np.array_equal(a, b)
                 else:
                     assert a == b
@@ -204,6 +215,92 @@ def test_mono_euroc_driver_on_both_packages(tmp_path, monkeypatch):
         assert len(rows) >= N_MONO - 6, (who, len(rows))
         assert np.isfinite(np.loadtxt(f_kf)).all() and os.path.exists(
             f_tum.replace(".txt", "_euroc.txt")), who
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t_driver.run(t_driver.parse_args([settings, str(tmp_path / "data"), "--mode",
-                                          "mono-inertial", "--device", "cpu"]))
+
+
+N_INERTIAL = {"stereo-inertial": 12, "mono-inertial": 24}
+
+
+@pytest.mark.parametrize("mode", ["stereo-inertial", "mono-inertial"])
+def test_inertial_euroc_driver(tmp_path, monkeypatch, mode):
+    """The port's ``run_euroc`` in an inertial mode on ``chip_smoke``'s
+    EuRoC-shaped sequence (the phase 13 writer at 12 frames, both cameras
+    at half EuRoC's size to keep the CPU's rendering short)."""
+    import chip_smoke as cs
+    import torch
+    from orb_slam3_rgbl_tpu_torch import config as t_cfg
+    from orb_slam3_rgbl_tpu_torch.examples import run_euroc as t_driver
+
+    monkeypatch.setattr(cs, "EUROC_CAM1", {k: v / 2 if k not in ("width", "height") else v // 2
+                                           for k, v in cs.EUROC_CAM1.items()})
+    monkeypatch.setattr(cs, "EUROC_CAM2", {k: v / 2 for k, v in cs.EUROC_CAM2.items()})
+
+    n = N_INERTIAL[mode]
+    times, twc, _, imu_rows, _ = cs.euroc_motion(n)
+    lefts, rights = cs.render_euroc(twc, torch.device("cpu"))
+    stereo = mode == "stereo-inertial"
+    mav, ts_file = cs.write_euroc(str(tmp_path), times, lefts, rights if stereo else None,
+                                  imu_rows)
+    settings = str(tmp_path / "euroc.yaml")
+    cs.euroc_settings_yaml(settings, 1200 if stereo else 1000, stereo=stereo)
+    slam, results, _ = t_driver.run(t_driver.parse_args(
+        [settings, mav, "--mode", mode, "--timestamps", ts_file, "--device", "cpu",
+         "--out-tum", str(tmp_path / "f.txt"), "--out-kf", str(tmp_path / "kf.txt")]))
+    assert slam.cfg.sensor == (t_cfg.IMU_STEREO if stereo else t_cfg.IMU_MONOCULAR)
+    assert (slam.rectifier is not None) == stereo
+    states = [r.state for r in results]
+    first = states.index(2)
+    assert (first == 0) == stereo and all(s == 2 for s in states[first:]), states
+    assert not slam.map.imu_initialized
+    m = slam.map
+    kfs = m.valid_kf_ids()
+    assert kfs.size >= 2
+    for a, b in zip(kfs[:-1], kfs[1:]):
+        assert int(m.kf_prev_imu[b]) == int(a)
+        assert abs(float(m.imu_preint[int(b)][0]) - (m.kf_timestamp[b] - m.kf_timestamp[a])) < 1e-4
+    rows = np.loadtxt(str(tmp_path / "f.txt"))
+    assert rows.shape[0] == n and np.isfinite(rows).all()
+
+
+def test_imu_extrinsic_follows_the_rectification(tmp_path):
+    """IMU_STEREO on a pair that needs rectifying: the body ← camera
+    extrinsic the system works with is ``IMU.T_b_c1`` · T_r1_u1⁻¹
+    (``Settings.cc``), T_r1_u1 the rotation of OpenCV's ``stereoRectify``
+    (``CALIB_ZERO_DISPARITY``, ``alpha=-1``), computed here in numpy and
+    OpenCV; 1e-9 (float64 throughout)."""
+    import cv2
+
+    import torch
+
+    import chip_smoke as cs
+    from orb_slam3_rgbl_tpu_torch import config as t_cfg
+    from orb_slam3_rgbl_tpu_torch.geometry import lie as t_lie
+    from orb_slam3_rgbl_tpu_torch.slam import imu_frontend
+    from orb_slam3_rgbl_tpu_torch.slam.system import System as TSystem
+
+    settings = str(tmp_path / "euroc.yaml")
+    cs.euroc_settings_yaml(settings, 1200, stereo=True)
+    cfg = t_cfg.load_config(settings, sensor=t_cfg.IMU_STEREO)
+    cam, st = cfg.camera, cfg.stereo
+    K1 = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]], np.float64)
+    K2 = np.array([[st.fx, 0, st.cx], [0, st.fy, st.cy], [0, 0, 1]], np.float64)
+    D1 = np.array([cam.k1, cam.k2, cam.p1, cam.p2, cam.k3], np.float64)
+    D2 = np.array([st.k1, st.k2, st.p1, st.p2, st.k3], np.float64)
+    T21 = np.linalg.inv(np.asarray(st.T_c1_c2, np.float64).reshape(4, 4))
+    size = (cam.width, cam.height)
+    R1 = cv2.stereoRectify(K1, D1, K2, D2, size, T21[:3, :3], T21[:3, 3].reshape(3, 1),
+                           flags=cv2.CALIB_ZERO_DISPARITY, alpha=-1, newImageSize=size)[0]
+    T_r1_u1 = np.eye(4)
+    T_r1_u1[:3, :3] = R1
+    T_bc = np.asarray(cfg.imu.T_body_cam, np.float64).reshape(4, 4)
+    expected = T_bc @ np.linalg.inv(T_r1_u1)
+
+    sysm = TSystem(cfg, device="cpu")
+    assert sysm.rectifier is not None
+    got = np.asarray(sysm.cfg.imu.T_body_cam, np.float64).reshape(4, 4)
+    np.testing.assert_allclose(got, expected, rtol=0, atol=1e-9)
+    assert np.abs(got - T_bc).max() > 1e-4            # the rectification does rotate it
+    # the tracker and the mapper take it from the config (a float32 SE3: 1e-6)
+    T = imu_frontend.body_cam_extrinsics(sysm.cfg)[0]
+    np.testing.assert_allclose(t_lie.quat_to_matrix(torch.as_tensor(T[:4])).numpy(),
+                               expected[:3, :3], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(T[4:7], expected[:3, 3], rtol=0, atol=1e-6)

@@ -1,7 +1,9 @@
 """The CUDA kernels K1, K2 and K3 against their plain versions, the loop-closing
 plane's solvers, the atlas weld, the tree vocabulary, the RGB-D fused step,
 keypoint undistortion, stereo matching and refinement, the two-view solve and
-the monocular fused step against their CPU runs, on the card. Marked
+the monocular fused step, K1 and K2 at the EuRoC camera's 752×480, the IMU
+preintegration and the visual-inertial solvers against their CPU runs, on
+the card. Marked
 ``gpu``; without a card each test skips from its fixture.
 
 The machine with the card has no JAX, so run this file without the
@@ -29,7 +31,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("h, w", [(4, 4), (93, 171), (128, 256), (105, 346), (376, 1241)])
+@pytest.mark.parametrize("h, w", [(4, 4), (93, 171), (128, 256), (105, 346), (376, 1241),
+                                  (480, 752)])
 def test_k1_matches_plain_version(cuda, h, w):
     rng = np.random.default_rng(h * w)
     for img in (np.round(rng.uniform(0, 255, (h, w))), rng.uniform(0, 255, (h, w))):
@@ -45,6 +48,7 @@ def test_k1_matches_plain_version(cuda, h, w):
 
 LEVEL_LISTS = {
     "kitti8": pyr_ops.level_sizes(376, 1241, 8, 1.2),
+    "euroc8": pyr_ops.level_sizes(480, 752, 8, 1.2),
     "one": ((93, 171),),
     "tiny": ((4, 4), (5, 7)),
     "three": ((128, 256), (107, 213), (89, 178)),
@@ -800,3 +804,141 @@ def test_mono_fused_step_matches_its_cpu_run(cuda):
     assert (g.feats.depth == -1).all() and (g.feats.u_right == -1).all()
     assert abs(int(g.n_inliers) - int(c.n_inliers)) <= 0.05 * int(c.n_inliers)
     assert (g.Tcw.cpu() - c.Tcw).abs().max() < 1e-3
+
+
+def test_k1_k2_at_euroc_width(cuda):
+    """The EuRoC camera's 752×480 at 8 levels of scale 1.2 and 1,200
+    keypoints: K1's one launch over the levels (scores and composite) and K2
+    on its composite equal to their plain versions."""
+    rng = np.random.default_rng(752)
+    img = torch.tensor(np.round(rng.uniform(0, 255, (480, 752))), dtype=torch.float32,
+                       device=cuda)
+    levels = [lv.contiguous() for lv in pyr_ops.build_pyramid(img, 480, 752, 8, 1.2)]
+    scores, _, comp, offs = frontend_cuda.fast_and_blur_levels(levels)
+    scores_p, _, comp_p, offs_p = frontend_cuda.fast_and_blur_levels_plain(levels)
+    torch.cuda.synchronize()
+    assert offs == offs_p and torch.equal(comp, comp_p)
+    for a, b in zip(scores, scores_p):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    Hc, Wc = comp.shape
+    N = 1200
+    uv = torch.tensor(np.stack([rng.integers(19, Wc - 160, N), rng.integers(19, Hc - 28, N)], 1),
+                      dtype=torch.int32, device=cuda)
+    ang = torch.tensor(rng.uniform(-np.pi, np.pi, N), dtype=torch.float32, device=cuda)
+    corners = (uv - brief_cuda.HALF).contiguous()
+    d = brief_cuda.brief_continuous(comp, corners, ang)
+    assert torch.equal(d, brief_cuda.brief_continuous_plain(
+        comp, corners, brief_cuda.continuous_index_tables(ang)))
+
+
+def _vi_problem(device):
+    """Keyframe body states of a body turning and accelerating at constant
+    body rates, their preintegrations (60 samples at 200 Hz a pair) and 300
+    landmarks seen from every state, on ``device``."""
+    from orb_slam3_rgbl_tpu_torch.geometry import lie
+    from orb_slam3_rgbl_tpu_torch.imu import preintegration as pre
+
+    rng = np.random.default_rng(3)
+    omega, acc_b, dt = np.array([0.05, -0.1, 0.15]), np.array([0.6, 0.2, -0.3]), 0.005
+    g = np.array([0.0, 0.0, -pre.GRAVITY])
+    R, v, p = np.eye(3), np.array([1.0, 0.0, 0.2]), np.zeros(3)
+    states, meas = [(R, v, p)], []
+    for _ in range(7):
+        acc, gyr = [], []
+        for _ in range(60):
+            a_w = R @ acc_b
+            acc.append(R.T @ (a_w - g))
+            gyr.append(omega + np.array([0.02, -0.01, 0.015]))
+            p, v = p + v * dt + 0.5 * a_w * dt * dt, v + a_w * dt
+            th = omega * dt
+            K = np.array([[0, -th[2], th[1]], [th[2], 0, -th[0]], [-th[1], th[0], 0]])
+            n = np.linalg.norm(th)
+            R = R @ (np.eye(3) + np.sin(n) / n * K + (1 - np.cos(n)) / n ** 2 * K @ K)
+        f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+        meas.append(pre.preintegrate(f(acc), f(gyr), torch.full((60,), dt, device=device),
+                                     pre.ImuBias.zero(device=device)))
+        states.append((R, v, p))
+    Twb = torch.stack([torch.cat([lie.matrix_to_quat(torch.tensor(R, dtype=torch.float32)),
+                                  torch.tensor(p, dtype=torch.float32)]) for R, _, p in states])
+    vel = torch.tensor(np.stack([v for _, v, _ in states]), dtype=torch.float32)
+    X = torch.tensor(rng.uniform([-10, -10, 15], [10, 10, 35], (300, 3)), dtype=torch.float32)
+    return Twb.to(device), vel.to(device), meas, X.to(device)
+
+
+def test_preintegration_on_the_card_matches_cpu(cuda):
+    from orb_slam3_rgbl_tpu_torch.imu import preintegration as pre
+
+    rng = np.random.default_rng(11)
+    acc = rng.normal(0, 0.5, (150, 3)).astype(np.float32) + np.float32([0, 0, 9.81])
+    gyr = rng.normal(0, 0.2, (150, 3)).astype(np.float32)
+    dts = rng.uniform(0.0045, 0.0055, 150).astype(np.float32)
+    bias = (np.float32([0.01, -0.02, 0.005]), np.float32([0.05, 0.0, -0.03]))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        out[dev.type] = pre.preintegrate(t(acc), t(gyr), t(dts), pre.ImuBias(t(bias[0]),
+                                                                            t(bias[1])))
+    for name, a, b in zip(pre.Preintegrated._fields[:10], out["cpu"][:10], out["cuda"][:10]):
+        a, b = a.double(), b.cpu().double()
+        assert float((a - b).abs().max()) <= 1e-5 * max(float(a.abs().max()), 1e-30), name
+
+
+def test_vi_solvers_on_the_card_without_a_wait(cuda):
+    """``inertial_pose_optimize_prior``, ``imu_initialization`` and
+    ``vi_bundle_adjust`` on the card with every wait for the device an
+    error, within 1e-4 (poses, velocities) of their CPU runs."""
+    from orb_slam3_rgbl_tpu_torch.geometry import lie
+    from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
+    from orb_slam3_rgbl_tpu_torch.imu import preintegration as pre
+    from orb_slam3_rgbl_tpu_torch.optim import inertial, inertial_ba
+    from orb_slam3_rgbl_tpu_torch.optim.pose_opt import PoseObs
+    from orb_slam3_rgbl_tpu_torch.slam import imu_frontend
+
+    cam = PinholeCamera(fx=458.654, fy=457.296, cx=367.215, cy=248.375, width=752, height=480,
+                        bf=50.0, th_depth=60.0)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        Twb, vel, meas, X = _vi_problem(dev)
+        K, M = Twb.shape[0], X.shape[0]
+        T_cb = lie.se3_identity(device=dev)
+        pc = lie.se3_apply(lie.se3_inv(Twb[1]), X)
+        uv = torch.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                          cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1)
+        obs = PoseObs(X, uv, torch.full((M,), -1.0, device=dev), torch.ones(M, device=dev),
+                      torch.ones(M, dtype=torch.bool, device=dev))
+        zero = pre.ImuBias.zero(device=dev)
+        prev = inertial.VIState(Twb[0], vel[0], zero)
+        cur = inertial.VIState(lie.se3_mul(lie.se3_exp(torch.full((6,), 0.01, device=dev)),
+                                           Twb[1]), vel[1], zero)
+        L = torch.eye(15, device=dev) * 10.0
+        stacked = imu_frontend.stack_preints([imu_frontend.preint_to_numpy(m) for m in meas], dev)
+        obs_kf = torch.arange(K, device=dev).expand(M, K).contiguous()
+        pcs = lie.se3_apply(lie.se3_inv(Twb)[None], X[:, None])
+        problem = inertial_ba.VIBAProblem(
+            Twb=Twb, vel=vel, bg=torch.zeros(K, 3, device=dev), ba=torch.zeros(K, 3, device=dev),
+            state_fixed=torch.arange(K, device=dev) == 0,
+            state_valid=torch.ones(K, dtype=torch.bool, device=dev), T_cb=T_cb, landmarks=X,
+            lm_valid=torch.ones(M, dtype=torch.bool, device=dev), obs_kf=obs_kf,
+            obs_uv=torch.stack([cam.fx * pcs[..., 0] / pcs[..., 2] + cam.cx,
+                                cam.fy * pcs[..., 1] / pcs[..., 2] + cam.cy], -1),
+            obs_ur=torch.full((M, K), -1.0, device=dev),
+            obs_inv_sigma2=torch.ones(M, K, device=dev),
+            obs_mask=torch.ones(M, K, dtype=torch.bool, device=dev),
+            pair_i=torch.arange(K - 1, device=dev), pair_j=torch.arange(1, K, device=dev),
+            pair_meas=stacked, pair_valid=torch.ones(K - 1, dtype=torch.bool, device=dev),
+            info_bg=torch.full((K - 1,), 1e6, device=dev),
+            info_ba=torch.full((K - 1,), 1e4, device=dev))
+        run = lambda: (  # noqa: E731
+            inertial.inertial_pose_optimize_prior(cur, prev, L, meas[0], obs, T_cb, cam),
+            inertial.imu_initialization(Twb, stacked, torch.ones(K - 1, dtype=torch.bool,
+                                                                 device=dev)),
+            inertial_ba.vi_bundle_adjust(problem, cam, iterations=6))
+        out[dev.type] = _no_sync(run) if dev.type == "cuda" else run()
+    (pc_, init_c, ba_c), (pg_, init_g, ba_g) = out["cpu"], out["cuda"]
+    close = lambda a, b, tol: float((a.cpu() - b.cpu()).abs().max()) < tol  # noqa: E731
+    assert close(pc_[0].Twb, pg_[0].Twb, 1e-4) and close(pc_[0].vw, pg_[0].vw, 1e-4)
+    assert int(pc_[2]) == int(pg_[2])
+    assert close(init_c["velocities"], init_g["velocities"], 1e-3)
+    assert close(init_c["bias"].bg, init_g["bias"].bg, 1e-5)
+    assert close(ba_c.Twb, ba_g.Twb, 1e-4) and close(ba_c.vel, ba_g.vel, 1e-3)
+    assert torch.equal(ba_c.obs_inlier, ba_g.obs_inlier.cpu())

@@ -43,6 +43,9 @@ PORT_MODULES = [
     "orb_slam3_rgbl_tpu_torch.io.euroc", "orb_slam3_rgbl_tpu_torch.examples.run_kitti_stereo",
     "orb_slam3_rgbl_tpu_torch.examples.run_euroc",
     "orb_slam3_rgbl_tpu_torch.examples.run_tum_rgbd",
+    "orb_slam3_rgbl_tpu_torch.imu", "orb_slam3_rgbl_tpu_torch.imu.preintegration",
+    "orb_slam3_rgbl_tpu_torch.slam.imu_frontend",
+    "orb_slam3_rgbl_tpu_torch.optim.inertial", "orb_slam3_rgbl_tpu_torch.optim.inertial_ba",
     "chip_smoke",
 ]
 
@@ -205,6 +208,7 @@ def test_device_none_never_answers_on_the_cpu():
         pre + "slam.local_mapping.LocalMapper.__init__":
             lambda: LocalMapper(cfg, small_map).dev_cache.d_uv,
         pre + "geometry.lie.sim3_identity": lambda: lie.sim3_identity(),
+        pre + "geometry.lie.quat_identity": lambda: lie.quat_identity(),
         pre + "synthetic.make_box_world": lambda: synthetic.make_box_world(0, tex_size=8).tex,
         pre + "convert.pose_graph_problem_from_numpy":
             lambda: convert.pose_graph_problem_from_numpy(pg).nodes,

@@ -243,10 +243,20 @@ def test_process_keyframe_matches_jax(state):
 
 
 def test_mapper_refuses_inertial_configs(state):
+    """An inertial sensor without an IMU configuration is refused; with one
+    the mapper starts with its inertial state (no IMU initialization, no
+    VIBA, the body ← camera extrinsic of ``cfg.imu``)."""
+    from orb_slam3_rgbl_tpu_torch.config import ImuConfig
+
     _, _, tcfg = state
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="cfg.imu"):
         t_lm.LocalMapper(dataclasses.replace(tcfg, sensor=5), t_ms.MapState.create(4, 16, 8),
                          device="cpu")
+    mapper = t_lm.LocalMapper(dataclasses.replace(tcfg, sensor=5, imu=ImuConfig()),
+                              t_ms.MapState.create(4, 16, 8), device="cpu")
+    assert not mapper.bad_imu and mapper._viba_stage == 0 and mapper._imu_init_time is None
+    np.testing.assert_array_equal(mapper._T_bc, t_lie.np_se3_identity())
+    assert mapper.maybe_initialize_imu() is None
 
 
 def test_matching_at_the_mappers_arguments_is_exact(state):
@@ -293,3 +303,50 @@ def test_matching_at_the_mappers_arguments_is_exact(state):
     np.testing.assert_array_equal(widx_t.numpy(), np.asarray(widx_j))
     np.testing.assert_array_equal(wd_t.numpy(), np.asarray(wd_j))
     assert (idx_t >= 0).sum() > 5 and t_match.TH_LOW == j_match.TH_LOW == 50
+
+
+def _four_rounds(remap):
+    """The JAX package's path compression of the Replace remap
+    (``LocalMapper._search_in_neighbors``): up to four rounds of
+    ``remap[remap]``."""
+    for _ in range(4):
+        nxt = remap[remap]
+        if np.array_equal(nxt, remap):
+            break
+        remap = nxt
+    return remap
+
+
+def test_settle_cycles_keeps_settled_remaps_and_chain_winners():
+    """A cycle-free remap whose chains are at most 16 links long comes out
+    of the four rounds settled, and ``_settle_cycles`` leaves it bit for bit
+    as the JAX package has it. A 40-link acyclic chain goes to its winner
+    (a large id, not the smallest); a planted 3-cycle with a tail goes to
+    the cycle's smallest id (the rounds themselves undo a 2-cycle: its two
+    members map to themselves); every other entry stays."""
+    rng = np.random.default_rng(3)
+    n = 400
+    remap = np.arange(n, dtype=np.int32)
+    perm = rng.permutation(n).astype(np.int32)
+    at = 0
+    while at < n - 17:                     # disjoint chains of 1–16 links
+        length = int(rng.integers(1, 17))
+        chain = perm[at:at + length + 1]
+        remap[chain[:-1]] = chain[1:]
+        at += length + 1
+    jax_like = _four_rounds(remap)
+    assert np.array_equal(jax_like[jax_like], jax_like)
+    out = t_lm._settle_cycles(jax_like)
+    assert out is jax_like
+
+    remap = np.arange(n, dtype=np.int32)
+    chain = np.arange(10, 51, dtype=np.int32)           # 10 → 11 → … → 50
+    remap[chain[:-1]] = chain[1:]
+    remap[[300, 200, 250]] = [200, 250, 300]            # 3-cycle 300 → 200 → 250 → 300
+    remap[[301, 302]] = [302, 300]                      # tail 301 → 302 → 300
+    out = t_lm._settle_cycles(_four_rounds(remap))
+    assert np.all(out[chain] == 50)
+    assert np.all(out[[200, 250, 300, 301, 302]] == 200)
+    assert np.array_equal(out[out], out)
+    rest = np.setdiff1d(np.arange(n), np.r_[chain, 200, 250, 300, 301, 302])
+    np.testing.assert_array_equal(out[rest], rest)

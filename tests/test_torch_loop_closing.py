@@ -312,6 +312,45 @@ def test_apply_gba_rejects_a_diverged_result(corrected):
     assert tc._apply_gba((window, lm_ids, nan, pose_before, gen_before)) is False
 
 
+def test_correct_loop_4dof_on_an_initialized_map(state):
+    """The same event on the map as an initialized inertial map (sensor
+    IMU_RGBD): the essential graph is the 4-DoF one on both packages —
+    every keyframe keeps the direction of the world's z axis in its camera
+    frame (roll and pitch, within 1e-5) — and the corrected keyframe
+    centres agree within 2e-3 m, as the Sim3 branch's do."""
+    from orb_slam3_rgbl_tpu.config import IMU_RGBD, ImuConfig
+
+    js, ev, kf_id, groups, pending, tcfg = state
+    jcfg = dataclasses.replace(js.cfg, sensor=IMU_RGBD, imu=ImuConfig())
+    jmap = copy_jax_map(js.map)
+    jmap.imu_initialized = True
+    jc = j_lc.LoopCloser(jcfg, jmap)
+    jc.db.vectors = js.loop_closer.db.vectors.copy()
+    jc.db.present = js.loop_closer.db.present.copy()
+    tc = port_closer(js, convert.config_from_dict(dataclasses.asdict(jcfg)), groups, jmap=jmap,
+                     jcloser=js.loop_closer)
+    assert tc.map.imu_initialized and tc.cfg.inertial
+    jc.run_gba = tc.run_gba = False
+    jc._pending_fusion = tuple(a.copy() for a in pending)
+    tc._pending_fusion = tuple(a.copy() for a in pending)
+    before = tc.map.kf_pose.copy()
+    with jax.enable_x64(False):
+        jc._correct_loop(ev)
+    tc._correct_loop(t_lc.LoopEvent(ev.kf_cur, ev.kf_matched, ev.n_inliers, ev.S12.copy()))
+    rec = tc.stats["events"][-1]
+    assert rec["pose_graph_dof"] == 4 and rec["pose_graph"] == "applied"
+    assert rec["pg_cost_after"] < rec["pg_cost_before"]
+    live = tc.map.valid_kf_ids()
+    z = np.tile(np.float32([0.0, 0.0, 1.0]), (live.size, 1))
+    z_before = t_lie.np_quat_rotate(before[live, :4], z)
+    z_after = t_lie.np_quat_rotate(tc.map.kf_pose[live, :4], z)
+    assert np.abs(z_after - z_before).max() < 1e-5, np.abs(z_after - z_before).max()
+    c_t = t_lie.np_se3_centers(tc.map.kf_pose[live])
+    c_j = t_lie.np_se3_centers(jc.map.kf_pose[live])
+    assert np.abs(c_t - c_j).max() < 2e-3, np.abs(c_t - c_j).max()
+    assert np.abs(c_j - t_lie.np_se3_centers(before[live])).max() > 0.05
+
+
 def test_closer_refuses_unported_branches(state, tmp_path):
     js, tcfg = state[0], state[5]
     tm = convert.map_state_from_numpy(js.map)

@@ -177,13 +177,49 @@ def test_merge_maps_and_fusion_match_jax():
     np.testing.assert_array_equal(mt.kf_lm_idx[rt.kf_remap[0], 2:4], rt.lm_remap[ids[[0, 1]]])
 
 
+def test_merge_maps_inertial_transport_matches_jax():
+    """The weld of an initialized inertial map: velocities rotate and
+    rescale into the archived frame (s·R·v), biases stay, the IMU chain and
+    its preintegration re-key through the keyframe remap, the welded map's
+    IMU counts as initialized; both packages alike."""
+    rng = np.random.default_rng(4)
+    vel = rng.normal(size=(2, 3)).astype(np.float32)
+    bg = rng.normal(0, 0.01, (2, 3)).astype(np.float32)
+    ba = rng.normal(0, 0.1, (2, 3)).astype(np.float32)
+    pre1 = tuple(rng.normal(size=sh).astype(np.float32) for sh in
+                 [(), (4,), (3,), (3,), (3, 3), (3, 3), (3, 3), (3, 3), (3, 3), (9, 9), (3,), (3,)])
+    res = {}
+    for name, pkg, mod in (("jax", JMapState, j_merging), ("port", t_ms.MapState, t_merging)):
+        old, active, S, *_ = _weld_maps(pkg)
+        active.kf_vel[:2], active.kf_bg[:2], active.kf_ba[:2] = vel, bg, ba
+        active.kf_prev_imu[1] = 0
+        active.imu_preint = {1: pre1}
+        active.imu_initialized = True
+        with jax.enable_x64(False):
+            res[name] = (mod.merge_maps(old, active, 1, S), S)
+    (rj, S), (rt, _) = res["jax"], res["port"]
+    mj, mt = rj.map, rt.map
+    new = rt.kf_remap[[0, 1]]
+    np.testing.assert_allclose(mt.kf_vel[new], mj.kf_vel[new], atol=1e-6)
+    np.testing.assert_allclose(mt.kf_vel[new], float(S[7]) * t_lie.np_quat_rotate(S[None, :4], vel),
+                               atol=1e-5)
+    np.testing.assert_array_equal(mt.kf_bg[new], bg)
+    np.testing.assert_array_equal(mt.kf_ba[new], ba)
+    np.testing.assert_array_equal(mt.kf_prev_imu[:3], mj.kf_prev_imu[:3])
+    assert int(mt.kf_prev_imu[new[1]]) == int(new[0]) and int(mt.kf_prev_imu[new[0]]) == -1
+    assert sorted(mt.imu_preint) == sorted(mj.imu_preint) == [int(new[1])]
+    assert all(a is b for a, b in zip(mt.imu_preint[int(new[1])], pre1))
+    assert mt.imu_initialized and mj.imu_initialized
+
+
 def test_map_capacity_grows_for_the_weld():
     """A weld that does not fit grows the archived map: keyframes to what
     it needs, landmarks through ``_grow_landmarks`` (doubling)."""
     old, active, S, *_ = _weld_maps(t_ms.MapState)
     old.kf_pose, old.kf_valid = old.kf_pose[:1].copy(), old.kf_valid[:1].copy()
     for a in ("kf_timestamp", "kf_frame_id", "kf_uv", "kf_octave", "kf_desc", "kf_depth",
-              "kf_ur", "kf_feat_valid", "kf_lm_idx", "kf_angle"):
+              "kf_ur", "kf_feat_valid", "kf_lm_idx", "kf_angle", "kf_vel", "kf_bg", "kf_ba",
+              "kf_prev_imu"):
         setattr(old, a, getattr(old, a)[:1].copy())
     old.n_lm = 60                              # 4 free landmark slots of 64
     r = t_merging.merge_maps(old, active, 0, S)

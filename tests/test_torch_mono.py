@@ -157,11 +157,10 @@ def _to_port(f):
                                              device="cpu")
 
 
-def test_monocular_initialization_on_jax_draws(monkeypatch):
-    """One reference frame and one frame four steps on: both trackers build
-    KF0 + KF1 from the same matches and the same two-view draws."""
-    cfg, feats, _ = _mono_frames(5)
-    cfg = dataclasses.replace(cfg, loop_closing=False)
+def same_two_view_draws(monkeypatch):
+    """Both trackers' two-view reconstructions on JAX's draws: the JAX
+    tracker's reconstruction runs on its real matches (unpadded) and its
+    draws go to the port's tracker."""
     rec = {}
     orig = j_tv.reconstruct_two_views
 
@@ -177,6 +176,14 @@ def test_monocular_initialization_on_jax_draws(monkeypatch):
     monkeypatch.setattr(j_tv, "reconstruct_two_views", on_real_matches)
     monkeypatch.setattr(t_trk.Tracker, "_two_view_draws",
                         lambda self, n: tuple(_t(d) for d in rec["draws"]))
+
+
+def test_monocular_initialization_on_jax_draws(monkeypatch):
+    """One reference frame and one frame four steps on: both trackers build
+    KF0 + KF1 from the same matches and the same two-view draws."""
+    cfg, feats, _ = _mono_frames(5)
+    cfg = dataclasses.replace(cfg, loop_closing=False)
+    same_two_view_draws(monkeypatch)
     js = JSystem(cfg, enable_mapping=False)
     ts = TSystem(convert.config_from_dict(dataclasses.asdict(cfg)), enable_mapping=False,
                  device="cpu")

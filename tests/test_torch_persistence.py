@@ -5,9 +5,10 @@ Both ``System``s (the default configuration: mapping and loop closing on)
 drive the 320×192 canyon's first 11 frames with a keyframe every 3 and save
 their atlas. Archives cross between the packages in both directions: the
 map arrays, counters and trajectory segments load exact, database rows to
-1e-6 (observed equal: the rows travel as f32). A JAX archive's inertial
-keys are ignored on a map whose IMU is not initialized; an initialized one
-is refused. Then a fresh System of each package loads the JAX archive and
+1e-6 (observed equal: the rows travel as f32). The inertial state (the
+velocity, bias and IMU-chain arrays, the preintegrations,
+``imu_initialized``) crosses both ways exact, an initialized inertial map
+included. Then a fresh System of each package loads the JAX archive and
 sees frame 7 again, later in time: both relocalize on that frame — the
 port's PnP RANSAC fed the integers JAX's key chain draws, since RANSAC
 decides the pose — to the same reference keyframe, poses within 1e-3 m
@@ -174,12 +175,56 @@ def test_vocabulary_guard_and_inertial_maps(saved, tmp_path, monkeypatch):
     np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
     atlas = t_ser.load_atlas(path, tcfg, device="cpu")
     assert np.array_equal(atlas.entries[0].map.kf_pose, js.map.kf_pose)
-    # an initialized inertial map: refused, naming the item that ports it
+    assert sorted(atlas.entries[0].map.imu_preint) == [1, 2]
+    assert not atlas.entries[0].map.imu_initialized
+    # an initialized inertial map: loaded, its IMU state with it
     meta["maps"][0]["imu_initialized"] = True
     path = str(tmp_path / "inertial.npz")
     np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t_ser.load_atlas(path, tcfg, device="cpu")
+    m = t_ser.load_atlas(path, tcfg, device="cpu").entries[0].map
+    assert m.imu_initialized and sorted(m.imu_preint) == [1, 2]
+    np.testing.assert_array_equal(m.imu_preint[2][5], np.ones(3, np.float32))
+
+
+def test_initialized_inertial_archive_both_ways(saved, tmp_path):
+    """An initialized inertial map (the JAX map given velocities, biases, a
+    temporal IMU chain and its preintegrations) saved by JAX loads in the
+    port, and the port's archive of it loads back in JAX: every inertial
+    array and preintegration exact, ``imu_initialized`` kept."""
+    cfg, tcfg, _, _, _, _, paths = saved
+    rng = np.random.default_rng(5)
+    with jax.enable_x64(False):
+        j_sys = JSystem(cfg)
+        j_sys.load_atlas(paths["jax"])
+    m = j_sys.map
+    kfs = m.valid_kf_ids()
+    m.kf_vel[kfs] = rng.normal(size=(kfs.size, 3)).astype(np.float32)
+    m.kf_bg[kfs] = rng.normal(0, 0.01, (kfs.size, 3)).astype(np.float32)
+    m.kf_ba[kfs] = rng.normal(0, 0.1, (kfs.size, 3)).astype(np.float32)
+    m.kf_prev_imu[kfs[1:]] = kfs[:-1]
+    shapes = [(), (4,), (3,), (3,), (3, 3), (3, 3), (3, 3), (3, 3), (3, 3), (9, 9), (3,), (3,)]
+    m.imu_preint = {int(k): tuple(rng.normal(size=sh).astype(np.float32) for sh in shapes)
+                    for k in kfs[1:]}
+    m.imu_initialized = True
+    pj, pt = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    with jax.enable_x64(False):
+        j_sys.save_atlas(pj)
+    t_sys = TSystem(tcfg, device="cpu")
+    t_sys.load_atlas(pj)
+    t_sys.save_atlas(pt)
+    with jax.enable_x64(False):
+        j_back = JSystem(cfg)
+        j_back.load_atlas(pt)
+    for loaded in (t_sys.map, j_back.map):
+        assert loaded.imu_initialized
+        for k in ("kf_vel", "kf_bg", "kf_ba", "kf_prev_imu"):
+            np.testing.assert_array_equal(getattr(loaded, k), getattr(m, k))
+        assert sorted(loaded.imu_preint) == sorted(m.imu_preint)
+        for k, t in m.imu_preint.items():
+            for a, b in zip(loaded.imu_preint[k], t):
+                np.testing.assert_array_equal(np.asarray(a), b)
+    with np.load(pj) as dj, np.load(pt) as dt:
+        assert set(dj.files) == set(dt.files)
 
 
 @pytest.fixture(scope="module")

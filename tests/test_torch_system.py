@@ -143,18 +143,25 @@ def test_classic_only_drive_matches_jax():
 
 
 @pytest.mark.parametrize("change, item", [
-    (dict(sensor=4), "item 15"),                           # IMU_STEREO
-    (dict(sensor=5), "item 15"),                           # IMU_RGBD
-    (dict(sensor=3), "item 15"),                           # IMU_MONOCULAR
+    (dict(sensor=4, camera_type="KannalaBrandt8"), "item 14"),   # IMU_STEREO fisheye (TUM-VI)
+    (dict(sensor=5, camera_type="KannalaBrandt8"), "item 14"),   # IMU_RGBD
+    (dict(sensor=3, camera_type="KannalaBrandt8"), "item 14"),   # IMU_MONOCULAR fisheye
     (dict(camera_type="KannalaBrandt8"), "item 14"),
     (dict(sensor=1, camera_type="KannalaBrandt8"), "item 14"),   # a stereo-fisheye pair
 ])
 def test_system_refuses_unported_configurations(change, item):
-    """The inertial sensors and the KannalaBrandt8 camera (the stereo-fisheye
-    pair with it) raise; RGBD, STEREO, MONOCULAR and a distorted PinHole
-    camera are ported (tests/test_torch_rgbd.py, tests/test_torch_stereo.py,
-    tests/test_torch_mono.py, tests/test_torch_config.py)."""
+    """The KannalaBrandt8 camera (the stereo-fisheye pair and the inertial
+    fisheye sensors with it) raises; RGBD, STEREO, MONOCULAR, the inertial
+    sensors on a pinhole camera and a distorted PinHole camera are ported
+    (tests/test_torch_rgbd.py, tests/test_torch_stereo.py,
+    tests/test_torch_mono.py, tests/test_torch_vi_system.py,
+    tests/test_torch_config.py); an inertial sensor without ``cfg.imu`` is
+    refused as a configuration error."""
     from orb_slam3_rgbl_tpu_torch import synthetic as t_syn
+    from orb_slam3_rgbl_tpu_torch.config import ImuConfig
+
+    if change.get("sensor", 0) >= 3:
+        change = dict(change, imu=ImuConfig())
 
     cfg = dataclasses.replace(t_syn.synthetic_rgbl_config(), loop_closing=False)
     cfg = dataclasses.replace(cfg, **change)
@@ -169,8 +176,11 @@ def test_system_refuses_unported_configurations(change, item):
     assert TSystem(default, device="cpu").loop_closer is None     # built on the first frame
     for ported in (dataclasses.replace(default, sensor=2), dataclasses.replace(default, sensor=1),
                    dataclasses.replace(default, sensor=0),
-                   dataclasses.replace(default, camera=dataclasses.replace(default.camera, k1=0.1))):
+                   dataclasses.replace(default, camera=dataclasses.replace(default.camera, k1=0.1)),
+                   *(dataclasses.replace(default, sensor=k, imu=ImuConfig()) for k in (3, 4, 5))):
         assert TSystem(ported, device="cpu").map is None
+    with pytest.raises(ValueError, match="cfg.imu"):
+        TSystem(dataclasses.replace(default, sensor=4), device="cpu")
 
 
 def test_map_state_queries_match_jax():
