@@ -104,8 +104,8 @@ kernels and the peak memory.
 Phase 13 drives the inertial sensors through ``run_euroc`` on a
 EuRoC-shaped sequence it writes (752×480 distorted stereo at 20 fps, a
 200 Hz IMU, the reference's EuRoC settings): stereo-inertial over 48
-frames, then monocular-inertial over 160, each with the host and the card
-to itself, after K1 and K2 are held to their plain versions at that width.
+frames, then monocular-inertial over 160 (``--phase13 MODE`` runs one),
+after K1 and K2 are held to their plain versions at that width.
 The stereo drive ends ~1.2 s after its IMU initialization and its VIBA1
 runs on the driven state (``LocalMapper.maybe_viba`` 5 s after the
 initialization); the monocular drive reaches its VIBA1.
@@ -116,6 +116,35 @@ gravity, ATE, speed and (monocular) scale against the ground truth; it
 prints host ms per kind of frame and of each solve, and the card's busy
 time (the union of its kernels' intervals) in three profiled solves.
 ``--phase13`` runs phase 13 alone.
+
+Phase 14 drives the KannalaBrandt8 fisheye pair through ``run_euroc`` on a
+TUM-VI-shaped sequence it writes: 512x512 fisheye stereo (the TUM-VI-like
+calibration of ``tests/test_fisheye_e2e.py``, the right camera 0.101 m to
+the side and turned by 0.5 degrees, unrectified) at 20 fps with a 200 Hz
+IMU, rendered here by casting KB8 rays through a 5 m room, and a
+``Camera.type: "KannalaBrandt8"`` settings file. K1 and K2 are held to their
+plain versions at 512x512 first. ``--mode stereo`` drives 40 frames (mapping
+and loop closing as the settings leave them), ``--mode stereo-inertial``
+ends a few frames after its IMU initialization. It checks every frame, 2 K1
++ 2 K2 launches a frame, the bindings after every mapping job, the
+off-axis landmarks' KB8 reprojection, ATE and the IMU initialization's frame,
+and the KB8 pose solve, local BA and inertial solves under
+``set_sync_debug_mode("error")``; it prints host ms per kind of frame,
+``attach_stereo_fisheye_depth``'s host ms, device ms and kernels, the share
+of valid left keypoints with a fisheye depth and the peak memory.
+``--phase14`` runs phase 14 alone.
+
+Without arguments the script runs phases 1-5 and then phases 6-14 in
+four processes of their own, started fresh side by side on the same card
+(``--loop-phases``: 6, 8 and 9; ``--canyon-phases``: 7, 10, 11 and 12;
+``--phase13 stereo-inertial --phase14``; ``--phase13 mono-inertial``),
+each with its share of the host's cores. Every phase is bound by its
+host's launch rate, with the card idle most of the time, and a process
+slows down as it ages, so the script ends well inside its time limit;
+phases 1-5 (the kernels' times, the main path's latency) have the host
+and the card to themselves, the others share them (any group alone, by
+its flags, has them to itself). Their output is relayed at the end; the
+script fails as soon as one fails, and kills the others.
 
 ``--mapping-drive N`` runs, instead of the phases, N frames tracking only
 and then with the mapping plane on (a keyframe every 4 in both): the
@@ -131,12 +160,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import atexit
 import ctypes
 import dataclasses
 import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import struct
 import subprocess
@@ -541,15 +572,17 @@ def bits_equal(a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def phase1_kernels(cfg, device, device_times: bool = True) -> dict:
-    """K1, K2 and K3 against their plain versions at the main path's shapes;
-    without ``device_times``, event times only (no profiler trace: late in
-    this process the profiler stops recording K1's device time)."""
+def phase1_kernels(cfg, device, device_times: bool = True, image=None) -> dict:
+    """K1, K2 and K3 against their plain versions at the main path's shapes,
+    on ``image`` (by default a rendered frame of the canyon); without
+    ``device_times``, event times only (no profiler trace: late in this
+    process the profiler stops recording K1's device time)."""
     dev_ms = kernel_device_ms if device_times else (lambda fn, name, iters=20: float("nan"))
     cam, o = cfg.camera, cfg.orb
-    _, frames = render_drive(cfg, 1, device, n_az=64, n_el=8)
+    if image is None:
+        image = render_drive(cfg, 1, device, n_az=64, n_el=8)[1][0][0]
     levels = [lv.contiguous() for lv in pyr_ops.build_pyramid(
-        frames[0][0], cam.height, cam.width, o.n_levels, o.scale_factor)]
+        image, cam.height, cam.width, o.n_levels, o.scale_factor)]
     budgets = fast_ops.features_per_level(o.n_features, o.n_levels, o.scale_factor)
     n_px = sum(lv.numel() for lv in levels)
     shapes = [tuple(lv.shape) for lv in levels]
@@ -2832,6 +2865,53 @@ def render_euroc(twc, device, seed: int = SEED):
 
 
 @contextlib.contextmanager
+def sync_checked(rec: dict, solvers):
+    """Run each ``(module, name)`` function of ``solvers`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` for the duration, counting
+    its calls in ``rec["sync_free"]``."""
+    originals = {(m, n): getattr(m, n) for m, n in solvers}
+
+    def sync_free(fn, name):
+        def wrapper(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                rec.setdefault("sync_free", collections.Counter())[name] += 1
+        return wrapper
+
+    for (m, n), fn in originals.items():
+        setattr(m, n, sync_free(fn, n))
+    try:
+        yield
+    finally:
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def binding_checked(rec: dict, phase: str):
+    """``check_binding_consistency`` after every mapping job for the
+    duration (a failure ends the script); the jobs counted in ``rec["jobs"]``."""
+    orig_job = LocalMapper.process_keyframe
+
+    def job(self, kf_id, *a, **k):
+        out = orig_job(self, kf_id, *a, **k)
+        issues = map_mod.check_binding_consistency(self.map)
+        if issues:
+            fail(f"{phase}: bindings inconsistent after the job of keyframe {kf_id}: {issues[:3]}")
+        rec["jobs"] = rec.get("jobs", 0) + 1
+        return out
+
+    LocalMapper.process_keyframe = job
+    try:
+        yield
+    finally:
+        LocalMapper.process_keyframe = orig_job
+
+
+@contextlib.contextmanager
 def spy_inertial(rec: dict):
     """Per frame of an inertial drive: host ms (synchronized), keyframe,
     the map's IMU state; the host ms of every ``_vi_refine``,
@@ -2847,10 +2927,9 @@ def spy_inertial(rec: dict):
              "full_inertial_ba": (LocalMapper, "full_viba"),
              "maybe_initialize_imu": (LocalMapper, "imu_init")}
     originals = {n: getattr(c, n) for n, (c, _) in timed.items()}
-    solvers = {(inertial_mod, "inertial_pose_optimize_prior"), (inertial_mod, "imu_initialization"),
-               (inertial_ba, "vi_bundle_adjust")}
-    solver_fns = {(m, n): getattr(m, n) for m, n in solvers}
-    orig_post, orig_job = System._post_track, LocalMapper.process_keyframe
+    solvers = [(inertial_mod, "inertial_pose_optimize_prior"),
+               (inertial_mod, "imu_initialization"), (inertial_ba, "vi_bundle_adjust")]
+    orig_post = System._post_track
 
     def timing(key, fn):
         def wrapper(self, *a, **k):
@@ -2864,16 +2943,6 @@ def spy_inertial(rec: dict):
             return out
         return wrapper
 
-    def sync_free(fn, name):
-        def wrapper(*a, **k):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return fn(*a, **k)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-                rec.setdefault("sync_free", collections.Counter())[name] += 1
-        return wrapper
-
     def post(self, res):
         out = orig_post(self, res)
         rec.setdefault("frames", []).append(
@@ -2881,27 +2950,16 @@ def spy_inertial(rec: dict):
              int(self.mapper._viba_stage) if self.mapper is not None else 0))
         return out
 
-    def job(self, kf_id, *a, **k):
-        out = orig_job(self, kf_id, *a, **k)
-        issues = map_mod.check_binding_consistency(self.map)
-        if issues:
-            fail(f"phase 13: bindings inconsistent after the job of keyframe {kf_id}: {issues[:3]}")
-        rec["jobs"] = rec.get("jobs", 0) + 1
-        return out
-
     for n, (c, key) in timed.items():
         setattr(c, n, timing(key, originals[n]))
-    for (m, n), fn in solver_fns.items():
-        setattr(m, n, sync_free(fn, n))
-    System._post_track, LocalMapper.process_keyframe = post, job
+    System._post_track = post
     try:
-        yield
+        with sync_checked(rec, solvers), binding_checked(rec, "phase 13"):
+            yield
     finally:
         for n, (c, _) in timed.items():
             setattr(c, n, originals[n])
-        for (m, n), fn in solver_fns.items():
-            setattr(m, n, fn)
-        System._post_track, LocalMapper.process_keyframe = orig_post, orig_job
+        System._post_track = orig_post
 
 
 def _angle_deg(a: np.ndarray, b: np.ndarray) -> float:
@@ -3078,22 +3136,22 @@ def phase13_files(workdir: str, mode: str):
             os.path.join(workdir, f"{mode}.yaml"))
 
 
-def phase13(device, card: str):
+def phase13(device, card: str, modes=tuple(EUROC_MODES)):
     """The inertial sensors: a EuRoC-shaped sequence (752×480 distorted
     stereo, 200 Hz IMU, 20 fps) written to disk and run through
-    ``run_euroc`` in both inertial modes; K1 and K2 held to their plain
-    versions at 752×480 first. The two modes run one after the other, each
-    with the host and the card to itself; the stereo-inertial drive's solves
-    are profiled before the monocular-inertial drive starts."""
+    ``run_euroc`` in the inertial ``modes``, one after the other. With the
+    stereo-inertial mode, K1 and K2 are held to their plain versions at
+    752×480 first and the drive's solves are profiled after it."""
     t0 = time.perf_counter()
-    log(f"phase 13 on {card}")
-    k_cfg = dataclasses.replace(
-        kitti_synthetic_config(),
-        camera=dataclasses.replace(kitti_synthetic_config().camera, **EUROC_CAM1),
-        orb=dataclasses.replace(kitti_synthetic_config().orb, n_features=1200))
-    # event times only: here, late in the process, the profiler records no
-    # device time for K1 (the device times at this width: `--phase13`)
-    phase1_kernels(k_cfg, device, device_times="--phase13" in sys.argv[1:])
+    log(f"phase 13 ({', '.join(modes)}) on {card}")
+    if "stereo-inertial" in modes:
+        k_cfg = dataclasses.replace(
+            kitti_synthetic_config(),
+            camera=dataclasses.replace(kitti_synthetic_config().camera, **EUROC_CAM1),
+            orb=dataclasses.replace(kitti_synthetic_config().orb, n_features=1200))
+        # phase 13 leads its process, where the profiler still records K1's
+        # device time
+        phase1_kernels(k_cfg, device)
     times, twc, vel, imu_rows, g_world = euroc_motion(N_EUROC)
     lefts, rights = render_euroc(twc, device)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_euroc_")
@@ -3102,30 +3160,489 @@ def phase13(device, card: str):
         mav, ts_file = write_euroc(workdir, times, lefts, rights, imu_rows)
         log(f"phase 13: wrote {N_EUROC} stereo pairs at {EUROC_CAM1['width']}x"
             f"{EUROC_CAM1['height']} and {len(imu_rows)} IMU samples at {IMU_HZ} Hz in "
-            f"{time.perf_counter() - t1:.1f} s (render and motion "
-            f"{t1 - t0:.1f} s with the 752x480 kernel checks)")
+            f"{time.perf_counter() - t1:.1f} s (render and motion {t1 - t0:.1f} s)")
         del lefts, rights
         np.savez(os.path.join(workdir, "gt.npz"), twc=twc, vel=vel, g=g_world)
         for mode, nf in EUROC_MODES.items():
             euroc_settings_yaml(phase13_files(workdir, mode)[2], nf,
                                 stereo=mode == "stereo-inertial")
-        t1 = time.perf_counter()
-        slam, rec = phase13_mode("stereo-inertial", *phase13_files(workdir, "stereo-inertial"),
-                                 twc, vel, g_world, device, workdir)
-        t2 = time.perf_counter()
-        profile_inertial(slam, rec, "stereo-inertial")
-        del slam, rec
-        t3 = time.perf_counter()
-        phase13_mode("mono-inertial", *phase13_files(workdir, "mono-inertial"), twc, vel,
-                     g_world, device, workdir)
-        log(f"phase 13: the stereo-inertial drive {t2 - t1:.1f} s, its three profiled calls "
-            f"{t3 - t2:.1f} s (the traces' processing included), the mono-inertial drive "
-            f"{time.perf_counter() - t3:.1f} s")
+        for mode in modes:
+            t1 = time.perf_counter()
+            slam, rec = phase13_mode(mode, *phase13_files(workdir, mode), twc, vel, g_world,
+                                     device, workdir)
+            t2 = time.perf_counter()
+            if mode == "stereo-inertial":
+                profile_inertial(slam, rec, mode)
+            log(f"phase 13: the {mode} drive {t2 - t1:.1f} s"
+                + (f", its three profiled calls {time.perf_counter() - t2:.1f} s (the traces' "
+                   f"processing included)" if mode == "stereo-inertial" else ""))
+            del slam, rec
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s on {card}")
 
 
+
+# ---- phase 14: the KannalaBrandt8 fisheye pair on a TUM-VI-shaped sequence ----
+# the TUM-VI-like fisheye of tests/test_fisheye_e2e.py (cam0) and of
+# tests/test_kb8_stereo.py's right camera (cam1); KB8's k0..k3 are the
+# settings' Camera1.k1..k4
+TUMVI_CAM1 = dict(fx=190.978, fy=190.973, cx=254.932, cy=256.897)
+TUMVI_KB8_1 = dict(k1=0.00348, k2=0.000715, k3=-0.0020532, k4=0.000202)
+TUMVI_CAM2 = dict(fx=190.44, fy=190.44, cx=252.07, cy=254.95)
+TUMVI_KB8_2 = dict(k1=0.0034, k2=0.0008, k3=-0.0021, k4=0.0002)
+TUMVI_SIZE = 512
+TUMVI_BASELINE = 0.101
+TUMVI_RIGHT_TURN_DEG = 0.5    # cam1 turned about its y axis: an unrectified pair
+TUMVI_FEATURES = 1000
+# the IMU noise of the reference's Examples/Stereo-Inertial/TUM-VI.yaml;
+# the body <- camera extrinsic is phase 13's (euroc_motion builds the IMU
+# samples through it)
+TUMVI_IMU = {"IMU.NoiseGyro": 0.00016, "IMU.NoiseAcc": 0.0028, "IMU.GyroWalk": 0.000022,
+             "IMU.AccWalk": 0.00086, "IMU.Frequency": 200.0}
+# an indoor room: over the 0.101 m baseline the triangulation's parallax
+# gate (cos < 0.9998, 1.15 deg) passes points closer than ~5 m
+TUMVI_ROOM_HALF = 2.5
+TUMVI_START = np.array([0.0, 0.0, -1.2])   # cam0's first position in the room
+N_TUMVI = 40                  # frames written (2 s at 20 fps)
+# frames each mode drives: the stereo pair all 40; stereo-inertial ends a
+# few frames after its IMU initialization (a frame after it costs ~2 s of
+# host time, phase 13)
+TUMVI_MODE_FRAMES = {"stereo": 40, "stereo-inertial": 30}
+# bounds from both packages' CPU rehearsals at this size
+# (tests/rehearse_phase14.py, PERF.md section 6): the IMU initialized on
+# frame 25 in both (the first OK frame 0); SE3-aligned ATE, ~3x the worse of
+# the two: stereo 0.0795 (port) and 0.0801 m (JAX) over the 40 frames,
+# stereo-inertial 0.0109 and 0.0113 m after the initialization
+TUMVI_IMU_INIT_BY = 25        # frames after the first OK frame
+TUMVI_MAX_ATE_M = {"stereo": 0.24, "stereo-inertial": 0.034}
+OFF_AXIS_DEG = 30.0           # test_fisheye_e2e's off-axis landmarks
+MIN_OFF_AXIS = 20
+MAX_OFF_AXIS_MEDIAN_PX = 2.0
+
+
+def tumvi_cameras():
+    """(cam0, cam1) as KannalaBrandt8Camera."""
+    from orb_slam3_rgbl_tpu_torch.geometry.camera import KannalaBrandt8Camera
+
+    return tuple(KannalaBrandt8Camera(**cam, k0=kb["k1"], k1=kb["k2"], k2=kb["k3"], k3=kb["k4"],
+                                      width=TUMVI_SIZE, height=TUMVI_SIZE)
+                 for cam, kb in ((TUMVI_CAM1, TUMVI_KB8_1), (TUMVI_CAM2, TUMVI_KB8_2)))
+
+
+def tumvi_T_c1_c2() -> np.ndarray:
+    a = np.deg2rad(TUMVI_RIGHT_TURN_DEG)
+    T = np.eye(4)
+    T[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    T[0, 3] = TUMVI_BASELINE
+    return T
+
+
+def render_kb8(world, Twc, cam, ss: int = 2) -> torch.Tensor:
+    """(H, W) view of ``world`` from camera pose Twc (7,) through the
+    KannalaBrandt8 camera ``cam``, supersampled ``ss``x per axis: each
+    subpixel's ray is ``kb8_unproject``'s z = 1 bearing, turned back where
+    the subpixel sees past 90 deg (there tan(theta) < 0 mirrors the bearing),
+    cast through the synthetic world's planes and shaded by its textures."""
+    from orb_slam3_rgbl_tpu_torch.geometry import camera as cam_mod
+
+    dev = world.tex.device
+    Twc = torch.as_tensor(np.asarray(Twc, np.float32), device=dev)
+    H, W = cam.height, cam.width
+    ys = (torch.arange(H * ss, dtype=torch.float32, device=dev) + 0.5) / ss
+    xs = (torch.arange(W * ss, dtype=torch.float32, device=dev) + 0.5) / ss
+    v, u = torch.meshgrid(ys, xs, indexing="ij")
+    rays = cam_mod.kb8_unproject(cam, torch.stack([u, v], dim=-1))
+    t2 = (np.pi / 2) ** 2
+    d90 = np.pi / 2 * (1 + t2 * (cam.k0 + t2 * (cam.k1 + t2 * (cam.k2 + t2 * cam.k3))))
+    past = torch.hypot((u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy) > d90
+    rays = torch.where(past[..., None], -rays, rays)
+    d_w = torch.einsum("ij,hwj->hwi", lie.quat_to_matrix(Twc[:4]), rays)
+    o = Twc[4:7].expand(d_w.shape)
+    t, plane, hit = syn._cast(world, o, d_w)
+    img = torch.where(hit, syn._shade(world, o + torch.where(hit, t, 0.0)[..., None] * d_w,
+                                      plane), 0.0)
+    if ss > 1:
+        img = img.reshape(H, ss, W, ss).mean(dim=(1, 3))
+    return img.contiguous()
+
+
+def render_tumvi(twc, device, seed: int = SEED):
+    """cam0 and cam1 images of the room through the fisheye pair."""
+    world = syn.make_box_world(seed, tex_size=512, half=TUMVI_ROOM_HALF, device=device)
+    cam0, cam1 = tumvi_cameras()
+    T12 = tumvi_T_c1_c2()
+    return ([render_kb8(world, Tw, cam0) for Tw in twc],
+            [render_kb8(world, compose_pose(Tw, T12), cam1) for Tw in twc])
+
+
+def tumvi_settings_yaml(path: str):
+    """A KannalaBrandt8 settings file in the reference's format
+    (``File.version: "1.0"``, ``Camera.type: "KannalaBrandt8"``, ``Camera1``
+    and ``Camera2`` with k1..k4, ``Stereo.T_c1_c2``, ``IMU.T_b_c1``)."""
+    def matrix(name, M):
+        return [f"{name}: !!opencv-matrix", "  rows: 4", "  cols: 4", "  dt: f",
+                "  data: [" + ", ".join(repr(float(v)) for v in M.reshape(-1)) + "]"]
+
+    lines = ["%YAML:1.0", 'File.version: "1.0"', 'Camera.type: "KannalaBrandt8"']
+    for k, cam, kb in (("Camera1", TUMVI_CAM1, TUMVI_KB8_1), ("Camera2", TUMVI_CAM2, TUMVI_KB8_2)):
+        lines += [f"{k}.{p}: {v}" for p, v in {**cam, **kb}.items()]
+    lines += [f"Camera.width: {TUMVI_SIZE}", f"Camera.height: {TUMVI_SIZE}",
+              f"Camera.fps: {EUROC_FPS}", "Camera.RGB: 1", "Stereo.ThDepth: 40.0"]
+    lines += matrix("Stereo.T_c1_c2", tumvi_T_c1_c2())
+    lines += matrix("IMU.T_b_c1", EUROC_T_B_C1)
+    lines += [f"{k}: {v}" for k, v in TUMVI_IMU.items()]
+    lines += [f"ORBextractor.nFeatures: {TUMVI_FEATURES}", "ORBextractor.scaleFactor: 1.2",
+              "ORBextractor.nLevels: 8", "ORBextractor.iniThFAST: 20",
+              "ORBextractor.minThFAST: 7"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def tumvi_motion(n_frames: int):
+    """Phase 13's hand-held motion and IMU, moved into the fisheye room:
+    cam0 starts at ``TUMVI_START`` (the IMU samples do not change)."""
+    times, twc, vel, imu_rows, g_world = euroc_motion(n_frames)
+    twc = twc.copy()
+    twc[:, 4:7] += (TUMVI_START - twc[0, 4:7]).astype(np.float32)
+    return times, twc, vel, imu_rows, g_world
+
+
+@contextlib.contextmanager
+def spy_fisheye(rec: dict):
+    """Per frame of a fisheye drive: host ms is the driver's; here the
+    frame's keyframe and IMU state; per ``attach_stereo_fisheye_depth``:
+    host ms (synchronized), valid left keypoints and those with a fisheye
+    depth, and the last call's arguments; ``check_binding_consistency``
+    after every mapping job; the KB8 pose solve, local BA and inertial
+    solves under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from orb_slam3_rgbl_tpu_torch.optim import inertial as inertial_mod, inertial_ba
+    from orb_slam3_rgbl_tpu_torch.optim import pose_opt
+
+    solvers = [(pose_opt, "pose_optimize"), (local_ba, "bundle_adjust"),
+               (inertial_mod, "inertial_pose_optimize"),
+               (inertial_mod, "inertial_pose_optimize_prior"),
+               (inertial_mod, "imu_initialization"), (inertial_ba, "vi_bundle_adjust")]
+    orig_attach = frame_mod.attach_stereo_fisheye_depth
+    orig_post = System._post_track
+
+    def attach(feats_l, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_attach(feats_l, *a, **k)
+        torch.cuda.synchronize()
+        rec.setdefault("attach_ms", []).append((time.perf_counter() - t) * 1e3)
+        rec.setdefault("depth_share", []).append(
+            float((out.depth > 0).sum()) / max(int(feats_l.valid.sum()), 1))
+        rec["attach_args"] = (feats_l,) + a, k
+        return out
+
+    def post(self, res):
+        out = orig_post(self, res)
+        rec.setdefault("frames", []).append((bool(res.created_kf), bool(self.map.imu_initialized)))
+        return out
+
+    frame_mod.attach_stereo_fisheye_depth = attach
+    System._post_track = post
+    try:
+        with sync_checked(rec, solvers), binding_checked(rec, "phase 14"):
+            yield
+    finally:
+        frame_mod.attach_stereo_fisheye_depth = orig_attach
+        System._post_track = orig_post
+
+
+def off_axis_reprojection(slam):
+    """(count, median px): landmarks more than ``OFF_AXIS_DEG`` off the
+    optical axis of the last keyframe and bound there, reprojected through
+    the KB8 model against their keypoints (test_fisheye_e2e's check)."""
+    from orb_slam3_rgbl_tpu_torch.geometry.camera import np_geo_project
+
+    m = slam.map
+    kf = int(m.valid_kf_ids()[-1])
+    row = m.kf_lm_idx[kf]
+    feat = np.nonzero(row >= 0)[0]
+    pc = lie.np_se3_apply(m.kf_pose[kf], m.lm_pos[row[feat]])
+    theta = np.degrees(np.arctan2(np.linalg.norm(pc[:, :2], axis=1), pc[:, 2]))
+    off = theta > OFF_AXIS_DEG
+    errs = np.linalg.norm(np_geo_project(slam.tracker.geo_cam, pc[off]) - m.kf_uv[kf, feat[off]],
+                          axis=1)
+    return int(off.sum()), float(np.median(errs)) if off.any() else float("inf")
+
+
+def phase14_mode(mode: str, mav: str, ts_file: str, settings: str, twc_gt, device,
+                 workdir: str):
+    """One mode of ``run_euroc`` over the fisheye sequence, held to its
+    checks; returns its record."""
+    from orb_slam3_rgbl_tpu_torch.examples import run_euroc
+    from orb_slam3_rgbl_tpu_torch.geometry.camera import is_fisheye
+
+    n = min(len(twc_gt), TUMVI_MODE_FRAMES[mode])
+    twc_gt = twc_gt[:n]
+    argv = [settings, mav, "--mode", mode, "--timestamps", ts_file, "--frames", str(n),
+            "--out-tum", os.path.join(workdir, f"{mode}_f.txt"),
+            "--out-kf", os.path.join(workdir, f"{mode}_kf.txt"), "--device", device.type]
+    rec = {}
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with spy_fisheye(rec):
+        slam, results, times = run_euroc.run(run_euroc.parse_args(argv))
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not (is_fisheye(slam.tracker.geo_cam) and is_fisheye(slam.mapper.geo_cam)
+            and slam.rectifier is None):
+        fail(f"phase 14 {mode}: the System did not take the KB8 camera unrectified")
+    frames = rec["frames"]
+    states = [r.state for r in results]
+    inliers = [r.n_inliers for r in results]
+    first_ok = states.index(trk.OK) if trk.OK in states else None
+    if first_ok is None:
+        fail(f"phase 14 {mode}: no frame OK: {[trk.STATE_NAMES[s] for s in states]}")
+    init = next((i for i, f in enumerate(frames) if f[1]), None)
+    if mode == "stereo":
+        bad = [i for i in range(1, n) if states[i] != trk.OK or inliers[i] < MIN_INLIERS]
+        if states[0] != trk.OK or bad:
+            fail(f"phase 14 stereo: frames {bad} not OK with >= {MIN_INLIERS} inliers: states "
+                 f"{[trk.STATE_NAMES[s] for s in states]}, inliers {inliers}")
+        sel = np.arange(n)
+    else:
+        if init is None:
+            fail(f"phase 14 {mode}: the IMU never initialized over {n} frames")
+        if init - first_ok > TUMVI_IMU_INIT_BY:
+            fail(f"phase 14 {mode}: IMU initialized {init - first_ok} frames after the first OK "
+                 f"frame {first_ok} (bound {TUMVI_IMU_INIT_BY})")
+        bad = [i for i in range(first_ok, n) if states[i] != trk.OK]
+        if bad:
+            fail(f"phase 14 {mode}: frames {bad} not OK: {[trk.STATE_NAMES[s] for s in states]}")
+        sel = np.arange(init, n)
+    if counts.get("fast_and_blur") != 2 * n or counts.get("brief_continuous") != 2 * n:
+        fail(f"phase 14 {mode}: launch counts {counts} over {n} frames; expected 2 K1 and 2 K2 a "
+             f"frame")
+    if len(rec.get("attach_ms", [])) != n:
+        fail(f"phase 14 {mode}: attach_stereo_fisheye_depth ran {len(rec.get('attach_ms', []))} "
+             f"times over {n} frames")
+    need = ["pose_optimize", "bundle_adjust"] + (
+        ["imu_initialization", "inertial_pose_optimize_prior"] if mode != "stereo" else [])
+    for name in need:
+        if not rec.get("sync_free", {}).get(name):
+            fail(f"phase 14 {mode}: {name} never ran under set_sync_debug_mode('error')")
+    n_off, med_off = off_axis_reprojection(slam)
+    if n_off <= MIN_OFF_AXIS or not med_off < MAX_OFF_AXIS_MEDIAN_PX:
+        fail(f"phase 14 {mode}: {n_off} landmarks over {OFF_AXIS_DEG:.0f} deg off the axis bound "
+             f"in the last keyframe (need > {MIN_OFF_AXIS}), KB8 reprojection median {med_off:.3f} "
+             f"px (bound {MAX_OFF_AXIS_MEDIAN_PX})")
+    est = slam.trajectory()
+    if est.shape != (n, 7) or not np.isfinite(est).all():
+        fail(f"phase 14 {mode}: trajectory() gave {est.shape}")
+    a = align.horn_align(torch.as_tensor(est[sel, 4:7]), torch.as_tensor(twc_gt[sel, 4:7]))
+    ate = float(a.rmse)
+    if not ate < TUMVI_MAX_ATE_M[mode]:
+        fail(f"phase 14 {mode}: SE3-aligned ATE {ate:.4f} m (bound {TUMVI_MAX_ATE_M[mode]})")
+    ms = np.asarray(times) * 1e3
+    kf = [f[0] for f in frames]
+    first = 1 if init is None else init + 1
+    kinds = {"no keyframe": [i for i in range(first, n) if not kf[i]],
+             "keyframe (its synchronous job)": [i for i in range(first, n) if kf[i]]}
+    if init is not None:
+        kinds = {"before the IMU initialization": list(range(1, init)), **{
+            f"after it, {k}": v for k, v in kinds.items()}}
+    for kind, idx in kinds.items():
+        if idx:
+            log(f"phase 14 {mode}: host ms/frame, {kind}: {_median_p90([ms[i] for i in idx])}")
+    share = np.asarray(rec["depth_share"])
+    log(f"phase 14 {mode}: {n} frames, first OK {first_ok}"
+        + (f", IMU initialized on frame {init} ({ms[init]:.1f} ms host, its frame)"
+           if init is not None else "")
+        + f"; inliers min {min(inliers[1:])} median {int(np.median(inliers[1:]))}; "
+        f"{slam.map.n_kf} keyframes ({len(slam.map.valid_kf_ids())} live), {rec.get('jobs', 0)} "
+        f"mapping jobs (bindings consistent after each), {int(slam.map.lm_valid.sum())} "
+        f"landmarks; launches {counts} (2 K1 + 2 K2 a frame); valid left keypoints with a "
+        f"fisheye depth {share.mean():.4f} mean ({share.min():.4f}-{share.max():.4f}); "
+        f"attach_stereo_fisheye_depth host ms {_median_p90(rec['attach_ms'])}; {n_off} "
+        f"landmarks > {OFF_AXIS_DEG:.0f} deg off the axis bound in the last keyframe, KB8 "
+        f"reprojection median {med_off:.3f} px; SE3-aligned ATE {ate:.4f} m (bound "
+        f"{TUMVI_MAX_ATE_M[mode]}); solvers sync-free {dict(rec.get('sync_free', {}))}; peak "
+        f"memory {peak:.0f} MiB; driver wall {wall:.1f} s")
+    return slam, rec
+
+
+def phase14(device, card: str):
+    """The KannalaBrandt8 fisheye pair: K1 and K2 held to their plain
+    versions at 512x512, then a TUM-VI-shaped sequence (512x512 unrectified
+    fisheye stereo at 20 fps, 200 Hz IMU) written to disk and run through
+    ``run_euroc --mode stereo`` and ``--mode stereo-inertial``."""
+    t0 = time.perf_counter()
+    log(f"phase 14 on {card}")
+    times, twc, _, imu_rows, _ = tumvi_motion(N_TUMVI)
+    lefts, rights = render_tumvi(twc, device)
+    base = kitti_synthetic_config()
+    k_cfg = dataclasses.replace(
+        base, camera=dataclasses.replace(base.camera, **TUMVI_CAM1, width=TUMVI_SIZE,
+                                         height=TUMVI_SIZE),
+        orb=dataclasses.replace(base.orb, n_features=TUMVI_FEATURES))
+    # device times only when the phase runs alone (`--phase14`), as phase 13:
+    # after phase 13 in the same process the profiler records none for K1
+    k = phase1_kernels(k_cfg, device, device_times=sys.argv[1:] == ["--phase14"],
+                       image=lefts[0])
+    log(f"phase 14: K1 {k['fast_and_blur']['ms']:.4f} ms (events), "
+        f"{k['fast_and_blur']['device_ms']:.4f} ms (device), bound "
+        f"{k['fast_and_blur']['bound'][0] * 1e3:.3f} us ({k['fast_and_blur']['bound'][1]}); "
+        f"K2 {k['brief_continuous']['ms']:.4f} ms (events), "
+        f"{k['brief_continuous']['device_ms']:.4f} ms (device), bound "
+        f"{k['brief_continuous']['bound'][0] * 1e3:.3f} us ({k['brief_continuous']['bound'][1]}) "
+        f"at {TUMVI_SIZE}x{TUMVI_SIZE}, {TUMVI_FEATURES} features")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tumvi_")
+    try:
+        t1 = time.perf_counter()
+        mav, ts_file = write_euroc(workdir, times, lefts, rights, imu_rows)
+        del lefts, rights
+        settings = os.path.join(workdir, "tumvi.yaml")
+        tumvi_settings_yaml(settings)
+        log(f"phase 14: wrote {N_TUMVI} fisheye pairs at {TUMVI_SIZE}x{TUMVI_SIZE} and "
+            f"{len(imu_rows)} IMU samples in {time.perf_counter() - t1:.1f} s (render and the "
+            f"kernel checks {t1 - t0:.1f} s)")
+        t1 = time.perf_counter()
+        slam, rec = phase14_mode("stereo", mav, ts_file, settings, twc, device, workdir)
+        args, kwargs = rec["attach_args"]
+        dev_ms, kernels = profile_call(lambda: frame_mod.attach_stereo_fisheye_depth(*args,
+                                                                                    **kwargs))
+        with _profile() as prof:
+            frame_mod.attach_stereo_fisheye_depth(*args, **kwargs)
+            torch.cuda.synchronize()
+        by_name = collections.Counter(e.name[:60] for e in prof.events() if _on_device(e))
+        n_l, n_r = args[0].uv.shape[0], args[1].uv.shape[0]
+        log(f"phase 14: attach_stereo_fisheye_depth ({n_l} x {n_r} Hamming table, the last "
+            f"frame's features): {dev_ms:.4f} ms device in {kernels:.0f} kernels; the most "
+            f"launched: " + "; ".join(f"{n} x {k}" for k, n in by_name.most_common(6)))
+        del slam, rec
+        t2 = time.perf_counter()
+        phase14_mode("stereo-inertial", mav, ts_file, settings, twc, device, workdir)
+        log(f"phase 14: the stereo drive {t2 - t1:.1f} s (with the profiled call), the "
+            f"stereo-inertial drive {time.perf_counter() - t2:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s on {card}")
+
+
+# flags that run one group of phases in a process of its own; without
+# arguments the script runs phases 1-5 and then starts one process for each
+# group (``run_children``): each is bound by its host's launch rate, with the
+# card idle most of the time, and a process slows down as it ages (§7 of
+# PERF.md), so the groups run fresh and side by side
+CHILD_FLAGS = ("--loop-phases", "--canyon-phases", "--phase13", "--phase14")
+
+
+def flag_value(argv, flag: str):
+    """The argument after ``flag``, unless it is missing or another flag."""
+    i = argv.index(flag) + 1
+    return argv[i] if i < len(argv) and not argv[i].startswith("--") else None
+
+
+def run_children(children):
+    """Run ``chip_smoke.py <args>`` for every (what, args) of ``children``,
+    all at once on this card, each with its share of the host's cores, and
+    relay their output in order once all have ended. Fails as soon as one
+    fails; the others are killed when this process exits (``atexit``;
+    SIGTERM exits through it)."""
+    threads = str(max(1, (os.cpu_count() or 1) // len(children)))
+    env = dict(os.environ, OMP_NUM_THREADS=threads)
+    runs = []
+    for what, args in children:
+        fd_out, out_path = tempfile.mkstemp(prefix="chip_smoke_child_", suffix=".out")
+        fd_err, err_path = tempfile.mkstemp(prefix="chip_smoke_child_", suffix=".err")
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args],
+                                stdout=fd_out, stderr=fd_err, env=env)
+        os.close(fd_out)
+        os.close(fd_err)
+        runs.append((what, proc, out_path, err_path))
+
+    def stop():
+        for _, proc, out_path, err_path in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for path in (out_path, err_path):
+                if os.path.exists(path):
+                    os.remove(path)
+
+    def relay(run):
+        _, _, out_path, err_path = run
+        with open(out_path) as f:
+            sys.stdout.write(f.read())
+        with open(err_path) as f:
+            sys.stderr.write(f.read())
+        sys.stdout.flush()
+        sys.stderr.flush()
+
+    atexit.register(stop)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    log(f"started at {time.perf_counter() - T_START:.1f} s, {threads} threads each: "
+        + "; ".join(f"{what} (pid {proc.pid})" for what, proc, *_ in runs))
+    pending = list(runs)
+    while pending:
+        time.sleep(1.0)
+        for run in [r for r in pending if r[1].poll() is not None]:
+            pending.remove(run)
+            log(f"{run[0]}: ended at {time.perf_counter() - T_START:.1f} s")
+            if run[1].returncode != 0:
+                relay(run)
+                fail(f"{run[0]} exited with {run[1].returncode}")
+    for run in runs:
+        relay(run)
+
+
+def loop_phases(device, card: str):
+    """Phases 6, 8 and 9 on one rendered loop drive: the loop-closing plane
+    and relocalization, the tree vocabulary, the asynchronous planes."""
+    t_start = time.perf_counter()
+    loop_cfg = loop_closing_config()
+    loop_traj, loop_frames = render_loop_drive(loop_cfg, device)
+    torch.cuda.synchronize()
+    log(f"rendered {N_LOOP} frames of the loop drive in {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 6: the loop-closing plane ------------------------------------
+    loop_run = phase6_loop(loop_cfg, loop_traj, loop_frames[:N_LOOP_SHORT], device, 0)
+    if loop_run is None:
+        loop_run = phase6_loop(loop_cfg, loop_traj, loop_frames, device, KF_EVERY)
+    if loop_run is None:
+        fail("no loop was closed over the loop drive")
+    loop_sys, sync_loop = loop_run
+    # ---- phase 8, first half: a tree vocabulary trained on that map ----------
+    vocab_path = phase8_vocabulary(loop_cfg, loop_sys, loop_traj, loop_frames, device)
+    phase6_relocalization(loop_cfg, loop_sys, loop_frames, device)
+    loop_sys.shutdown()
+    del loop_sys
+    log(f"phases 6 and 8's vocabulary: {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 8, second half: the loop drive with vocab_path set ------------
+    phase8_vocab_drive(loop_cfg, loop_traj, loop_frames[:N_LOOP_SHORT], vocab_path, device)
+    # ---- phase 9: the asynchronous planes on phase 6's frames ----------------
+    phase9_async(loop_cfg, loop_traj, loop_frames, device, sync_loop)
+    log(f"phases 6, 8 and 9: {time.perf_counter() - t_start:.1f} s on {card}")
+
+
+def canyon_phases(device, card: str, id_depth):
+    """Phases 7, 10, 11 and 12 on phase 2's canyon, rendered again;
+    ``id_depth`` is phase 2's ``track.depth`` span (host ms, device busy
+    ms, kernels), which phase 10 prints beside its own."""
+    t_start = time.perf_counter()
+    cfg = kitti_synthetic_config()
+    traj, frames = render_drive(cfg, N_DRIVE + N_BLANK + N_AFTER, device)
+    # ---- phase 7: the atlas weld ---------------------------------------------
+    phase7(loop_closing_config(), traj, frames, device)
+    # ---- phase 10: the two other LiDAR upsamplers on the fused step ----------
+    phase10_upsamplers(cfg, traj, frames, device, id_depth)
+    log(f"phases 7 and 10: {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 11: the KITTI drivers on a sequence written to disk ------------
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
+    try:
+        phase11_kitti(cfg, traj, frames[:N_KITTI], device, workdir)
+        # ---- phase 12: the stereo and monocular sensors (and the stereo driver
+        # on phase 11's sequence) ---------------------------------------------
+        phase12(traj, frames[:N_DRIVE], device, workdir, card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phases 7, 10, 11 and 12: {time.perf_counter() - t_start:.1f} s on {card}")
 
 def long_mapping_drive(cfg, device, n_frames: int):
     """``--mapping-drive N``: N frames of the canyon (the far wall stands
@@ -3194,8 +3711,17 @@ def main():
                 + ", ".join(f"{op} {n}" for op, n in sass.most_common(12)))
 
     cfg = kitti_synthetic_config()
-    if "--phase13" in sys.argv[1:]:
-        phase13(device, card)
+    argv = sys.argv[1:]
+    if any(flag in argv for flag in CHILD_FLAGS):
+        if "--loop-phases" in argv:
+            loop_phases(device, card)
+        if "--canyon-phases" in argv:
+            value = flag_value(argv, "--canyon-phases")
+            canyon_phases(device, card, json.loads(value) if value else (0.0, 0.0, 0))
+        if "--phase13" in argv:
+            phase13(device, card, tuple(m for m in EUROC_MODES if m in argv) or tuple(EUROC_MODES))
+        if "--phase14" in argv:
+            phase14(device, card)
         log(card)
         return
     if "--mapping-drive" in sys.argv[1:]:
@@ -3374,61 +3900,17 @@ def main():
         f"{len(late_ms)} frames, median {statistics.median(late_ms):.2f}, all "
         f"{' '.join(f'{x:.1f}' for x in late_ms)}")
 
-    # ---- phase 6: the loop-closing plane ------------------------------------
-    del late
-    loop_cfg = loop_closing_config()
-    t0 = time.perf_counter()
-    loop_traj, loop_frames = render_loop_drive(loop_cfg, device)
-    torch.cuda.synchronize()
-    log(f"rendered {N_LOOP} frames of the loop drive in {time.perf_counter() - t0:.1f} s")
-    loop_run = phase6_loop(loop_cfg, loop_traj, loop_frames[:N_LOOP_SHORT], device, 0)
-    if loop_run is None:
-        loop_run = phase6_loop(loop_cfg, loop_traj, loop_frames, device, KF_EVERY)
-    if loop_run is None:
-        fail("no loop was closed over the loop drive")
-    loop_sys, sync_loop = loop_run
-    # ---- phase 8, first half: a tree vocabulary trained on that map ----------
-    vocab_path = phase8_vocabulary(loop_cfg, loop_sys, loop_traj, loop_frames, device)
-    phase6_relocalization(loop_cfg, loop_sys, loop_frames, device)
-    loop_sys.shutdown()
-    del loop_sys
-    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
-
-    # ---- phase 7: the atlas weld ---------------------------------------------
-    phase7(loop_cfg, traj, frames, device)
-    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
-
-    # ---- phase 10: the two other LiDAR upsamplers on the fused step ----------
+    # ---- phases 6-14: four processes of their own on this card, each started
+    # fresh (phases 1-5, the kernels' times and the main path's latency, had
+    # the host and the card to themselves) -------------------------------------
+    del late, frames
     id_depth = prof_stats[0][3].get("track.depth", (0.0, 0.0, 0)) if prof_stats else (0.0, 0.0, 0)
-    phase10_upsamplers(cfg, traj, frames, device, id_depth)
-    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
-
-    # ---- phase 11: the KITTI drivers on a sequence written to disk ------------
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
-    try:
-        phase11_kitti(cfg, traj, frames[:N_KITTI], device, workdir)
-        log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
-        # ---- phase 12: the stereo and monocular sensors (and the stereo driver
-        # on phase 11's sequence) ---------------------------------------------
-        phase12(traj, frames[:N_DRIVE], device, workdir, card)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    del frames
-    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
-
-    # ---- phase 13: the inertial sensors through the EuRoC driver (before the
-    # asynchronous planes of phase 9: after them this process's profiler has
-    # recorded no device time in a run of the whole script) -----------------
-    phase13(device, card)
-    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
-
-    # ---- phase 8, second half: the loop drive with vocab_path set ------------
-    phase8_vocab_drive(loop_cfg, loop_traj, loop_frames[:N_LOOP_SHORT], vocab_path, device)
-    log(f"command time so far: {time.perf_counter() - T_START:.1f} s")
-
-    # ---- phase 9: the asynchronous planes on phase 6's frames ----------------
-    phase9_async(loop_cfg, loop_traj, loop_frames, device, sync_loop)
-    del loop_frames
+    run_children([
+        ("phases 6, 8 and 9 (the loop drive)", ["--loop-phases"]),
+        ("phases 7, 10, 11 and 12 (the canyon)", ["--canyon-phases", json.dumps(list(id_depth))]),
+        ("phase 13 stereo-inertial and phase 14", ["--phase13", "stereo-inertial", "--phase14"]),
+        ("phase 13 mono-inertial", ["--phase13", "mono-inertial"]),
+    ])
     log(f"command time: {time.perf_counter() - T_START:.1f} s")
 
     kernels = [

@@ -19,7 +19,7 @@ from typing import Optional
 
 import numpy as np
 
-from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
+from orb_slam3_rgbl_tpu_torch.geometry.camera import KannalaBrandt8Camera, PinholeCamera
 
 # Sensor modes — superset of the reference enum (RGBL=6 is the fork's).
 MONOCULAR = 0
@@ -151,10 +151,16 @@ class SlamConfig:
 
     @property
     def geo_camera(self):
-        """The geometric camera of the residuals. Only the pinhole is
-        ported; KannalaBrandt8 waits for the other-sensors slice."""
+        """The geometric camera of matching and of the solvers' residuals
+        (the reference's ``GeometricCamera``): a ``KannalaBrandt8Camera``
+        when ``Camera.type`` is KannalaBrandt8 (its k0..k3 ride in the
+        k1, k2, k3 and p2 slots of ``camera``, the order of the settings'
+        Camera.k1..k4), else the pinhole itself."""
         if self.camera_type == "KannalaBrandt8":
-            raise NotImplementedError("KannalaBrandt8 camera is not ported yet")
+            c = self.camera
+            return KannalaBrandt8Camera(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, k0=c.k1, k1=c.k2,
+                                        k2=c.k3, k3=c.p2, width=c.width, height=c.height,
+                                        bf=c.bf, th_depth=c.th_depth)
         return self.camera
 
 

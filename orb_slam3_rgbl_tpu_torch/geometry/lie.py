@@ -121,6 +121,11 @@ def so3_hat(w: torch.Tensor) -> torch.Tensor:
     return m.reshape(w.shape[:-1] + (3, 3))
 
 
+def so3_vee(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) skew-symmetric matrix → (..., 3), the inverse of ``so3_hat``."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
+
+
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Axis-angle (..., 3) → unit quaternion (..., 4)."""
     theta_sq = torch.sum(w * w, dim=-1, keepdim=True)
@@ -167,6 +172,21 @@ def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
     return so3_left_jacobian(-w)
 
 
+def so3_inv_left_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SO3 at tangent ``w`` — (..., 3, 3):
+    I − Ω/2 + c Ω² with c = 1/θ² − (1 + cos θ) / (2 θ sin θ)."""
+    theta_sq = torch.sum(w * w, dim=-1)[..., None, None]
+    theta = torch.sqrt(theta_sq + _EPS * _EPS)
+    omega = so3_hat(w)
+    small = theta_sq < _EPS
+    safe_sq = torch.where(small, 1.0, theta_sq)
+    safe = torch.where(small, 1.0, theta)
+    c = torch.where(small, 1.0 / 12.0 + theta_sq / 720.0,
+                    1.0 / safe_sq - (1.0 + torch.cos(safe)) / (2.0 * safe * torch.sin(safe)))
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(omega.shape)
+    return eye - 0.5 * omega + c * (omega @ omega)
+
+
 # ---------------------------------------------------------------------------
 # SE3
 # ---------------------------------------------------------------------------
@@ -174,6 +194,11 @@ def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
 def se3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
     """Identity pose on ``device`` (default ``cuda``)."""
     return torch.tensor([1.0, 0, 0, 0, 0, 0, 0], dtype=dtype, device=resolve(device))
+
+
+def se3(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) and translation (..., 3) → SE3 (..., 7)."""
+    return torch.cat([q, t], dim=-1)
 
 
 def se3_rot(T: torch.Tensor) -> torch.Tensor:
@@ -206,6 +231,14 @@ def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     q = so3_exp(w)
     t = torch.einsum("...ij,...j->...i", so3_left_jacobian(w), rho)
     return torch.cat([q, t], dim=-1)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """SE3 (..., 7) → tangent ``[rho, omega]`` (..., 6), the inverse of
+    ``se3_exp``."""
+    w = so3_log(T[..., :4])
+    rho = torch.einsum("...ij,...j->...i", so3_inv_left_jacobian(w), T[..., 4:7])
+    return torch.cat([rho, w], dim=-1)
 
 
 def se3_to_matrix(T: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,7 @@
 ``orb_slam3_rgbl_tpu.geometry.triangulation``; reference
 ``GeometricTools::Triangulate`` and ``GeometricTools::ComputeF12``).
 
-All functions are batched: leading axes broadcast. The bearing-side
-epipolar helpers of the fisheye model wait for that camera's slice.
+All functions are batched: leading axes broadcast.
 """
 
 from __future__ import annotations
@@ -124,3 +123,22 @@ def epipolar_distance_sq(F12, uv1, uv2) -> torch.Tensor:
     num = torch.einsum("...i,...i->...", x2, line)
     den = line[..., 0] ** 2 + line[..., 1] ** 2
     return num * num / torch.where(den < 1e-12, 1e-12, den)
+
+
+def essential_from_poses(Tc1w, Tc2w) -> torch.Tensor:
+    """E12 on z = 1 bearings, x1ᵀ E12 x2 = 0: the calibration-free half of
+    ``fundamental_from_poses``. Under KB8 distortion the epipolar lines
+    are curves in the image, so the fisheye gate works on bearings."""
+    T12 = lie.se3_mul(Tc1w, lie.se3_inv(Tc2w))              # camera 2 → camera 1
+    return lie.so3_hat(lie.se3_trans(T12)) @ lie.quat_to_matrix(T12[..., :4])
+
+
+def bearing_sampson_sq(E12, x1, x2, f_scale: float) -> torch.Tensor:
+    """First-order (Sampson) squared epipolar error of bearing pairs
+    (..., 3), scaled by ``f_scale``² (a focal length) into pixel² units, so
+    that the pinhole gate dist² < 3.84 σ² applies unchanged."""
+    Ex2 = torch.einsum("...ij,...j->...i", E12, x2)
+    Etx1 = torch.einsum("...ji,...j->...i", E12, x1)
+    num = torch.einsum("...i,...i->...", x1, Ex2)
+    den = Ex2[..., 0] ** 2 + Ex2[..., 1] ** 2 + Etx1[..., 0] ** 2 + Etx1[..., 1] ** 2
+    return (f_scale * f_scale) * num * num / torch.where(den < 1e-12, 1e-12, den)

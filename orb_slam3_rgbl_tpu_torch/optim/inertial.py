@@ -96,6 +96,8 @@ def _project(obs: _Obs, Twb, T_cb, cam):
     uvh = geo_project(cam, pc)
     u, v = uvh[:, 0], uvh[:, 1]
     is_stereo = obs.u_right >= 0
+    if is_fisheye(cam):                  # fisheye observations are always mono
+        is_stereo = torch.zeros_like(is_stereo)
     ur = u - cam.bf / z
     return u, v, ur, is_stereo, pc[:, 2]
 
@@ -163,7 +165,6 @@ def inertial_pose_optimize(state0: VIState, prev: VIState, meas: pre.Preintegrat
     The camera pose is T_cb · Twb⁻¹. Returns (VIState, n_visual_inliers,
     H_cur (15, 15)): the current state's Hessian at the solution, the seed
     of the marginalization-prior chain (``ConstraintPoseImu``)."""
-    is_fisheye(cam)
     dtype, dev = state0.Twb.dtype, state0.Twb.device
     o = _f32_obs(obs, dtype)
     w_tail = torch.cat([_inertial_info(meas),
@@ -202,7 +203,6 @@ def inertial_pose_optimize_prior(state0: VIState, prev0: VIState, prior_sqrt_inf
     Returns (current VIState, previous VIState, n_visual_inliers, H_marg
     (15, 15)): the current state's marginal Hessian with the previous state
     Schur-eliminated, the next frame's prior (``Optimizer::Marginalize``)."""
-    is_fisheye(cam)
     dtype, dev = state0.Twb.dtype, state0.Twb.device
     o = _f32_obs(obs, dtype)
     w_tail = torch.cat([_inertial_info(meas),

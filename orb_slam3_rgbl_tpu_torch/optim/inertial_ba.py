@@ -88,6 +88,8 @@ def _visual_linearize(P: VIBAProblem, cam, use_huber: bool, obs_active: torch.Te
     uv_hat = geo_project(cam, pc)
     u_hat, v_hat = uv_hat[..., 0], uv_hat[..., 1]
     is_stereo = P.obs_ur >= 0
+    if is_fisheye(cam):                  # fisheye observations are always mono
+        is_stereo = torch.zeros_like(is_stereo)
     ur_hat = u_hat - cam.bf * inv_z
     r = torch.stack([P.obs_uv[..., 0] - u_hat, P.obs_uv[..., 1] - v_hat,
                      torch.where(is_stereo, P.obs_ur - ur_hat, 0.0)], dim=-1)
@@ -254,7 +256,6 @@ def vi_bundle_adjust(problem: VIBAProblem, cam: PinholeCamera, iterations: int =
     (LM accept/reject), the reference's protocol: a robust phase, an
     outlier cull, a final chi² classification. Nothing in it waits for the
     card; the caller downloads the result once."""
-    is_fisheye(cam)
     dtype, dev = problem.Twb.dtype, problem.Twb.device
     chi2_th = torch.where(problem.obs_ur >= 0, CHI2_STEREO, CHI2_MONO)
 

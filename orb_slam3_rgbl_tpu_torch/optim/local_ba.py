@@ -67,8 +67,8 @@ def _linearize(problem: BAProblem, cam, use_huber: bool, obs_active: torch.Tenso
 
     Returns r (M, D, 3), Jp (M, D, 3, 6), Jl (M, D, 3, 3), weights w
     (M, D), chi2 (M, D), the per-observation active mask and the robust
-    cost."""
-    is_fisheye(cam)
+    cost. ``cam`` is any camera model; fisheye observations carry no
+    pseudo-stereo row."""
     P = problem
     T_obs = P.poses[P.obs_kf]                                   # (M, D, 7)
     pc = lie.se3_apply(T_obs, P.landmarks[:, None, :])          # (M, D, 3)
@@ -79,6 +79,8 @@ def _linearize(problem: BAProblem, cam, use_huber: bool, obs_active: torch.Tenso
     u_hat, v_hat = uv_hat[..., 0], uv_hat[..., 1]
 
     is_stereo = P.obs_ur >= 0
+    if is_fisheye(cam):
+        is_stereo = torch.zeros_like(is_stereo)
     ur_hat = u_hat - cam.bf * inv_z
     r = torch.stack([P.obs_uv[..., 0] - u_hat, P.obs_uv[..., 1] - v_hat,
                      torch.where(is_stereo, P.obs_ur - ur_hat, 0.0)], dim=-1)

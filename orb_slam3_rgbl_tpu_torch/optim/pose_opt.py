@@ -52,14 +52,16 @@ class PoseOptResult(NamedTuple):
 def _residuals_and_jac(Tcw: torch.Tensor, obs: PoseObs, cam: PinholeCamera):
     """Per-observation residual [u, v, uR] (uR row zeroed for mono) and
     its (M, 3, 6) Jacobian w.r.t. the left-multiplicative SE3 tangent
-    (``EdgeSE3ProjectXYZOnlyPose`` + ``EdgeStereoSE3ProjectXYZOnlyPose``)."""
-    is_fisheye(cam)
+    (``EdgeSE3ProjectXYZOnlyPose`` + ``EdgeStereoSE3ProjectXYZOnlyPose``).
+    ``cam`` is any camera model; fisheye observations are always mono."""
     pc = lie.se3_apply(Tcw, obs.Xw)
     z = pc[:, 2]
     safe_z = torch.where(z.abs() < 1e-6, torch.full_like(z, 1e-6), z)
     uv_hat = geo_project(cam, pc)
     u_hat, v_hat = uv_hat[:, 0], uv_hat[:, 1]
     is_stereo = obs.u_right >= 0
+    if is_fisheye(cam):
+        is_stereo = torch.zeros_like(is_stereo)
     ur_hat = u_hat - cam.bf / safe_z
     r = torch.stack([obs.uv[:, 0] - u_hat, obs.uv[:, 1] - v_hat,
                      torch.where(is_stereo, obs.u_right - ur_hat, 0.0)], dim=-1)

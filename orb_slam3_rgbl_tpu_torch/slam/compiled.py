@@ -38,9 +38,7 @@ STEP_SPANS = ("track.extract", "track.depth", "track.motion_match", "track.motio
 
 def lidar_projection(cfg: SlamConfig, device) -> torch.Tensor:
     """The (3, 4) LiDAR projection K·T_velo→cam of ``cfg`` on ``device``."""
-    cam = cfg.camera
-    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]], np.float32)
-    P = depth_ops.lidar_projection_matrix(K, np.asarray(cfg.lidar.T_velo_cam))
+    P = depth_ops.lidar_projection_matrix(cfg.camera.K, np.asarray(cfg.lidar.T_velo_cam))
     return torch.from_numpy(P).to(device)
 
 

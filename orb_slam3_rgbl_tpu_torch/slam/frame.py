@@ -14,10 +14,12 @@ from typing import NamedTuple, Tuple
 import torch
 
 from orb_slam3_rgbl_tpu_torch.device import resolve
+from orb_slam3_rgbl_tpu_torch.geometry import camera as cam_mod
 from orb_slam3_rgbl_tpu_torch.ops import brief_cuda
 from orb_slam3_rgbl_tpu_torch.ops import depth as depth_ops
 from orb_slam3_rgbl_tpu_torch.ops import fast as fast_ops
 from orb_slam3_rgbl_tpu_torch.ops import frontend_cuda
+from orb_slam3_rgbl_tpu_torch.ops import matching
 from orb_slam3_rgbl_tpu_torch.ops import orb as orb_ops
 from orb_slam3_rgbl_tpu_torch.ops import pyramid as pyr_ops
 
@@ -150,6 +152,29 @@ def attach_stereo_depth(feats_l: FrameFeatures, feats_r: FrameFeatures, bf: floa
     good = (u_right >= 0) & (disp > 1e-3)
     depth = torch.where(good, bf / torch.where(good, disp, 1.0), -1.0)
     return feats_l._replace(depth=depth, u_right=torch.where(good, u_right, -1.0))
+
+
+def attach_stereo_fisheye_depth(feats_l: FrameFeatures, feats_r: FrameFeatures, cam_l, cam_r,
+                                T_lr: torch.Tensor, scale_factor: float = 1.2) -> FrameFeatures:
+    """Stereo-fisheye, two unrectified KannalaBrandt8 cameras
+    (``Frame::ComputeStereoFishEyeMatches`` + ``KannalaBrandt8::
+    TriangulateMatches``): mutual best matches over the full left × right
+    Hamming table (ratio 0.8, TH_LOW, rotation check), then both rays
+    triangulated with the per-octave σ² (``geometry.camera.
+    kb8_triangulate_matches``; T_lr the right camera's pose in the left
+    frame). Depth only: fisheye features keep ``u_right`` −1, so every
+    residual treats them as mono, and a keyframe mints landmarks from the
+    depth. The JAX function's ``bf`` and ``n_levels`` arguments, which it
+    does not use, are not carried."""
+    d = matching.distance_table(feats_l.desc, feats_r.desc, feats_l.valid, feats_r.valid)
+    idx, _ = matching.mutual_best_match(d, feats_l.angle, feats_r.angle, th=matching.TH_LOW,
+                                        ratio=0.8, check_rotation=True)
+    uv_r = feats_r.uv[idx.clamp(0, feats_r.uv.shape[0] - 1).long()]
+    s2 = torch.tensor(scale_factor, dtype=torch.float32, device=feats_l.uv.device) ** (
+        2.0 * feats_l.octave.to(torch.float32))
+    _, z, ok = cam_mod.kb8_triangulate_matches(cam_l, cam_r, T_lr, feats_l.uv, uv_r, s2, s2)
+    good = (idx >= 0) & ok & feats_l.valid
+    return feats_l._replace(depth=torch.where(good, z, -1.0))
 
 
 def _nanmedian_of(values: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:

@@ -265,8 +265,8 @@ def _triangulate_batch(cam, scale_factor: float, kf_idx, T1, unbound1, nb_idx, T
     ascending feature order (a stable sort). Returns (f1 (NB, C) current
     feature index, f2 (NB, C) neighbor feature index, X (NB, C, 3) points,
     cnt (NB,) accepted count)."""
-    cam_mod.is_fisheye(cam)
-    K = cam_mod.intrinsics(cam, dtype=d_uv.dtype, device=d_uv.device)
+    fisheye = cam_mod.is_fisheye(cam)
+    K = None if fisheye else cam_mod.intrinsics(cam, dtype=d_uv.dtype, device=d_uv.device)
     uv1, desc1, ang1, oct1 = d_uv[kf_idx], d_desc[kf_idx], d_angle[kf_idx], d_oct[kf_idx]
     N = uv1.shape[0]
     xn1 = cam_mod.geo_unproject(cam, uv1)
@@ -285,8 +285,14 @@ def _triangulate_batch(cam, scale_factor: float, kf_idx, T1, unbound1, nb_idx, T
         uv2, oct2 = d_uv[k2], d_oct[k2]
         d = matching.distance_table(desc1, d_desc[k2], unbound1, unbound2s[a])
         sigma2 = scale_factor ** (2.0 * oct2.to(torch.float32))
-        F12 = triangulation.fundamental_from_poses(K, K, T1, T2)
-        ep = triangulation.epipolar_distance_sq(F12, uv1[:, None, :], uv2[None, :, :])
+        if fisheye:
+            # epipolar lines are curves under KB8: the gate works on bearings
+            E12 = triangulation.essential_from_poses(T1, T2)
+            ep = triangulation.bearing_sampson_sq(
+                E12, xn1[:, None, :], cam_mod.geo_unproject(cam, uv2)[None, :, :], cam.fx)
+        else:
+            F12 = triangulation.fundamental_from_poses(K, K, T1, T2)
+            ep = triangulation.epipolar_distance_sq(F12, uv1[:, None, :], uv2[None, :, :])
         d = torch.where(ep < 3.84 * sigma2[None, :], d, 256.0)
         idx, _ = matching.mutual_best_match(
             d, ang1, d_angle[k2], th=matching.TH_LOW, ratio=0.8, check_rotation=True)

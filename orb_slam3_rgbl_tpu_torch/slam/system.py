@@ -71,9 +71,18 @@ motion-starved initialization (``LocalMapper.bad_imu``) resets the active
 map, and so does a forward timestamp jump of more than 1 s (a new map once
 VIBA2 has run). Inertial configurations stay synchronous even with
 ``async_mapping = True``, as in the JAX package: the IMU initialization and
-VIBA interleave with the tracking state. The KannalaBrandt8 camera (and
-with it the stereo-fisheye pair) raises ``NotImplementedError`` naming the
-ROADMAP Queue 1 item that ports it.
+VIBA interleave with the tracking state.
+
+A KannalaBrandt8 camera (``camera_type``) is accepted with every sensor:
+matching and every solver's residuals project through ``cfg.geo_camera``,
+and a stereo-fisheye pair (a ``Camera2`` section) is neither rectified nor
+undistorted: ``track_stereo`` matches the two fisheye images' features over
+the full table and triangulates each match (depth only). What the JAX
+package keeps on the pinhole ``cfg.camera`` (whose distortion slots then
+hold the KB8 coefficients) the port keeps there too: the loop closer's Sim3
+and global BA, the weld, the monocular two-view initialization and DLT
+relocalization, and the fused step of the monocular, RGB-D and RGB-L
+sensors.
 """
 
 from __future__ import annotations
@@ -137,10 +146,6 @@ class System:
             raise ValueError(f"sensor {SENSOR_NAMES[config.sensor]} needs cfg.imu (ImuConfig)")
         if config.sensor not in SENSOR_NAMES:
             raise ValueError(f"unknown sensor {config.sensor!r}")
-        if config.camera_type == "KannalaBrandt8":
-            raise NotImplementedError(
-                "the KannalaBrandt8 camera (and the stereo-fisheye pair) is not ported yet "
-                "(ROADMAP Queue 1 item 14)")
         # a stereo pair with a second camera that needs it is rectified
         # (the reference's Settings maps) and the system works on the
         # rectified camera; a distorted pinhole otherwise works on
@@ -173,6 +178,21 @@ class System:
         self.cfg = config
         self.cam = config.camera
         self.device = resolve(device)
+        # a stereo-fisheye pair: both KB8 cameras (k0..k3 from the k1, k2,
+        # k3 and p2 slots) and the right camera's pose in the left frame
+        self._fisheye_pair = None
+        if config.camera_type == "KannalaBrandt8" and config.stereo is not None:
+            c, st = config.camera, config.stereo
+            T = np.asarray(st.T_c1_c2, np.float32).reshape(4, 4)
+            q = lie.matrix_to_quat(torch.as_tensor(T[:3, :3], device=self.device))
+            self._fisheye_pair = (
+                cam_mod.KannalaBrandt8Camera(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, k0=c.k1,
+                                             k1=c.k2, k2=c.k3, k3=c.p2, width=c.width,
+                                             height=c.height, bf=c.bf),
+                cam_mod.KannalaBrandt8Camera(fx=st.fx, fy=st.fy, cx=st.cx, cy=st.cy, k0=st.k1,
+                                             k1=st.k2, k2=st.k3, k3=st.p2, width=c.width,
+                                             height=c.height, bf=c.bf),
+                torch.cat([q, torch.as_tensor(T[:3, 3], device=self.device)]))
         self._enable_mapping = enable_mapping
         # components materialize on the first frame
         self.atlas: Optional[Atlas] = None
@@ -340,16 +360,23 @@ class System:
         (``System::TrackStereo``): rectified first when the system has a
         rectifier; both extracted; the left features' depth from row
         matching against the right ones (disparity ≤ bf / 0.5, z ≥ 0.5 m),
-        refined by SAD on the level-0 images; then the classic ladder
-        (``imu``: the samples since the previous frame, IMU_STEREO)."""
+        refined by SAD on the level-0 images, or, for a stereo-fisheye pair,
+        by triangulating mutual best matches (``frame.
+        attach_stereo_fisheye_depth``); then the classic ladder (``imu``:
+        the samples since the previous frame, IMU_STEREO)."""
         self._check_timestamp_jump(timestamp)
         img_l = torch.as_tensor(gray_l, dtype=torch.float32, device=self.device)
         img_r = torch.as_tensor(gray_r, dtype=torch.float32, device=self.device)
         if self.rectifier is not None:
             img_l, img_r = self.rectifier.remap(img_l, img_r)
         o = self.cfg.orb
+        feats_l, feats_r = self._extract(img_l), self._extract(img_r)
+        if self._fisheye_pair is not None:
+            feats = frame_mod.attach_stereo_fisheye_depth(feats_l, feats_r, *self._fisheye_pair,
+                                                          scale_factor=o.scale_factor)
+            return self._track(feats, timestamp, imu)
         feats = frame_mod.attach_stereo_depth(
-            self._extract(img_l), self._extract(img_r), self.cam.bf, min_disp=0.0,
+            feats_l, feats_r, self.cam.bf, min_disp=0.0,
             max_disp=self.cam.bf / 0.5, n_levels=o.n_levels, scale_factor=o.scale_factor)
         feats = frame_mod.refine_stereo_subpixel(feats, img_l, img_r, self.cam.bf)
         return self._track(self._undistort_feats(feats), timestamp, imu)

@@ -160,6 +160,22 @@ def render_image(world: World, Twc, fx: float, fy: float, cx: float, cy: float,
     return img
 
 
+def render_depth(world: World, Twc, fx: float, fy: float, cx: float, cy: float,
+                 height: int, width: int) -> torch.Tensor:
+    """(H, W) z-depth image from camera pose Twc (7,), one ray per pixel
+    centre, 0 where no plane is hit: the RGB-D sensor's analogue (the rays
+    have z = 1, so the depth is the ray parameter)."""
+    dev = world.tex.device
+    Twc = _pose(Twc, dev)
+    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    v, u = torch.meshgrid(ys, xs, indexing="ij")
+    d_cam = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)], dim=-1)
+    d_w = torch.einsum("ij,hwj->hwi", lie.quat_to_matrix(Twc[:4]), d_cam)
+    t, _, hit = _cast(world, Twc[4:7].expand(d_w.shape), d_w)
+    return torch.where(hit, t, 0.0)
+
+
 def lidar_scan(world: World, Twc, n_az: int = 512, n_el: int = 64, az_fov: float = 1.2,
                el_lo: float = -0.42, el_hi: float = 0.05) -> torch.Tensor:
     """Velodyne-frame scan (n_az·n_el, 4): forward-sector azimuth sweep ×

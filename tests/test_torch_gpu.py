@@ -1,9 +1,10 @@
 """The CUDA kernels K1, K2 and K3 against their plain versions, the loop-closing
 plane's solvers, the atlas weld, the tree vocabulary, the RGB-D fused step,
 keypoint undistortion, stereo matching and refinement, the two-view solve and
-the monocular fused step, K1 and K2 at the EuRoC camera's 752×480, the IMU
-preintegration and the visual-inertial solvers against their CPU runs, on
-the card. Marked
+the monocular fused step, K1 and K2 at the EuRoC camera's 752×480 and at
+TUM-VI's 512×512, the IMU preintegration, the visual-inertial solvers and
+the KannalaBrandt8 pose solve and local BA against their CPU runs, on the
+card. Marked
 ``gpu``; without a card each test skips from its fixture.
 
 The machine with the card has no JAX, so run this file without the
@@ -806,14 +807,13 @@ def test_mono_fused_step_matches_its_cpu_run(cuda):
     assert (g.Tcw.cpu() - c.Tcw).abs().max() < 1e-3
 
 
-def test_k1_k2_at_euroc_width(cuda):
-    """The EuRoC camera's 752×480 at 8 levels of scale 1.2 and 1,200
-    keypoints: K1's one launch over the levels (scores and composite) and K2
-    on its composite equal to their plain versions."""
-    rng = np.random.default_rng(752)
-    img = torch.tensor(np.round(rng.uniform(0, 255, (480, 752))), dtype=torch.float32,
-                       device=cuda)
-    levels = [lv.contiguous() for lv in pyr_ops.build_pyramid(img, 480, 752, 8, 1.2)]
+def _k1_k2_at(cuda, h: int, w: int, n: int):
+    """K1's one launch over the 8 levels of scale 1.2 of an (h, w) frame
+    (scores and composite) and K2 on n keypoints of its composite, equal to
+    their plain versions."""
+    rng = np.random.default_rng(w)
+    img = torch.tensor(np.round(rng.uniform(0, 255, (h, w))), dtype=torch.float32, device=cuda)
+    levels = [lv.contiguous() for lv in pyr_ops.build_pyramid(img, h, w, 8, 1.2)]
     scores, _, comp, offs = frontend_cuda.fast_and_blur_levels(levels)
     scores_p, _, comp_p, offs_p = frontend_cuda.fast_and_blur_levels_plain(levels)
     torch.cuda.synchronize()
@@ -821,14 +821,73 @@ def test_k1_k2_at_euroc_width(cuda):
     for a, b in zip(scores, scores_p):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     Hc, Wc = comp.shape
-    N = 1200
-    uv = torch.tensor(np.stack([rng.integers(19, Wc - 160, N), rng.integers(19, Hc - 28, N)], 1),
+    uv = torch.tensor(np.stack([rng.integers(19, Wc - 160, n), rng.integers(19, Hc - 28, n)], 1),
                       dtype=torch.int32, device=cuda)
-    ang = torch.tensor(rng.uniform(-np.pi, np.pi, N), dtype=torch.float32, device=cuda)
+    ang = torch.tensor(rng.uniform(-np.pi, np.pi, n), dtype=torch.float32, device=cuda)
     corners = (uv - brief_cuda.HALF).contiguous()
     d = brief_cuda.brief_continuous(comp, corners, ang)
     assert torch.equal(d, brief_cuda.brief_continuous_plain(
         comp, corners, brief_cuda.continuous_index_tables(ang)))
+
+
+def test_k1_k2_at_euroc_width(cuda):
+    """The EuRoC camera's 752×480 and 1,200 keypoints."""
+    _k1_k2_at(cuda, 480, 752, 1200)
+
+
+def test_k1_k2_at_tum_vi_width(cuda):
+    """TUM-VI's square 512×512 fisheye (levels 512 … 143) and 1,000
+    keypoints."""
+    _k1_k2_at(cuda, 512, 512, 1000)
+
+
+def test_kb8_pose_solve_and_local_ba_on_the_card_without_a_wait(cuda):
+    """``pose_optimize`` and ``bundle_adjust`` with a KannalaBrandt8 camera
+    on the card, every wait for the device an error, within 1e-4 of their
+    CPU runs with the same inlier masks."""
+    from orb_slam3_rgbl_tpu_torch.geometry import camera as cam_mod, lie
+    from orb_slam3_rgbl_tpu_torch.optim import local_ba, pose_opt
+
+    cam = cam_mod.KannalaBrandt8Camera(fx=190.978, fy=190.973, cx=254.932, cy=256.897,
+                                       k0=0.00348, k1=0.000715, k2=-0.0020532, k3=0.000202,
+                                       width=512, height=512, bf=19.29)
+    rng = np.random.default_rng(8)
+    K, M = 6, 200
+    X = np.stack([rng.uniform(-3, 3, M), rng.uniform(-2, 1.5, M), rng.uniform(1, 6, M)], 1)
+    poses = np.zeros((K, 7), np.float32)
+    poses[:, 0] = 1.0
+    poses[:, 4] = -0.2 * np.arange(K)
+    obs_kf = np.tile(np.arange(K), (M, 1))
+    pc = lie.np_se3_apply(poses[obs_kf], X[:, None, :].astype(np.float32))
+    uv = cam_mod.np_geo_project(cam, pc) + rng.normal(0, 0.5, (M, K, 2))
+    start = poses.copy()
+    start[2:, 4:] += rng.normal(0, 0.03, (K - 2, 3))
+    f = np.float32
+    arrays = dict(poses=start, pose_fixed=np.arange(K) < 2, pose_valid=np.ones(K, bool),
+                  landmarks=(X + rng.normal(0, 0.05, X.shape)).astype(f),
+                  lm_valid=np.ones(M, bool), obs_kf=obs_kf, obs_uv=uv.astype(f),
+                  obs_ur=np.full((M, K), 5.0, f), obs_inv_sigma2=np.ones((M, K), f),
+                  obs_mask=np.ones((M, K), bool))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        t = lambda a, dt=None: torch.tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
+        obs = pose_opt.PoseObs(t(X, torch.float32), t(uv[:, 3], torch.float32),
+                               t(np.full(M, 5.0), torch.float32), t(np.ones(M), torch.float32),
+                               t(np.ones(M, bool)))
+        problem = local_ba.BAProblem(**{k: t(v, torch.int64 if k == "obs_kf" else None)
+                                        for k, v in arrays.items()})
+        T0 = t(start[3])
+        run = lambda: (  # noqa: E731
+            pose_opt.pose_optimize(T0, obs, cam),
+            local_ba.bundle_adjust(problem, cam, iterations=10))
+        out[dev.type] = _no_sync(run) if dev.type == "cuda" else run()
+    (pose_c, ba_c), (pose_g, ba_g) = out["cpu"], out["cuda"]
+    assert float((pose_c.Tcw - pose_g.Tcw.cpu()).abs().max()) < 1e-4
+    assert torch.equal(pose_c.inliers, pose_g.inliers.cpu())
+    assert float((pose_c.Tcw[4:] - torch.tensor(poses[3, 4:])).abs().max()) < 0.02
+    assert float((ba_c.poses - ba_g.poses.cpu()).abs().max()) < 1e-4
+    assert float((ba_c.landmarks - ba_g.landmarks.cpu()).abs().max()) < 1e-3
+    assert torch.equal(ba_c.obs_inlier, ba_g.obs_inlier.cpu())
 
 
 def _vi_problem(device):

@@ -49,17 +49,20 @@ def _rot_gap(Ta, Tb) -> float:
     return float(2 * np.arcsin(min(np.linalg.norm(d[1:4].astype(np.float64)), 1.0)))
 
 
-def _run(P, iterations, huber_iters):
+def _run(P, iterations, huber_iters, cams=None):
+    """Both solves of ``P``; ``cams`` (JAX camera, port camera), by default
+    the KITTI pinhole."""
+    cam_j, cam_t = cams or (tiba.CAM, TCAM)
     with jax.enable_x64(False):
-        rj = jviba.vi_bundle_adjust(P, tiba.CAM, iterations=iterations, huber_iters=huber_iters)
+        rj = jviba.vi_bundle_adjust(P, cam_j, iterations=iterations, huber_iters=huber_iters)
         rj = jax.tree_util.tree_map(np.asarray, rj)
-    rt = tviba.vi_bundle_adjust(t_problem(P), TCAM, iterations=iterations,
+    rt = tviba.vi_bundle_adjust(t_problem(P), cam_t, iterations=iterations,
                                 huber_iters=huber_iters)
     return rj, rt
 
 
-def _compare(P, iterations, huber_iters):
-    rj, rt = _run(P, iterations, huber_iters)
+def _compare(P, iterations, huber_iters, cams=None):
+    rj, rt = _run(P, iterations, huber_iters, cams)
     K = rj.Twb.shape[0]
     assert np.abs(rt.Twb[:, 4:].numpy() - rj.Twb[:, 4:]).max() < 2e-4
     assert max(_rot_gap(rt.Twb[k].numpy(), rj.Twb[k]) for k in range(K)) < 1e-4

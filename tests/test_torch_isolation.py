@@ -86,7 +86,7 @@ def test_port_imports_no_opencv_or_pil():
 def test_entry_points_never_fall_back_to_cpu():
     import numpy as np
     from orb_slam3_rgbl_tpu_torch import device, synthetic
-    from orb_slam3_rgbl_tpu_torch.config import MONOCULAR, STEREO
+    from orb_slam3_rgbl_tpu_torch.config import MONOCULAR, STEREO, StereoConfig
     from orb_slam3_rgbl_tpu_torch.slam import compiled, frame
     from orb_slam3_rgbl_tpu_torch.slam.system import System
 
@@ -95,6 +95,9 @@ def test_entry_points_never_fall_back_to_cpu():
     tracking_only = dataclasses.replace(cfg, loop_closing=False)
     img = np.zeros((cfg.camera.height, cfg.camera.width), np.float32)
     cloud = np.zeros((16, 4), np.float32)
+    c = cfg.camera
+    fisheye_pair = dataclasses.replace(cfg, sensor=STEREO, camera_type="KannalaBrandt8",
+                                       stereo=StereoConfig(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy))
     calls = [lambda: device.resolve(None), lambda: synthetic.make_world(0, tex_size=8),
              lambda: compiled.make_track_step(cfg),
              lambda: frame.extract_features(torch.zeros(64, 64), 64, 64, n_levels=1),
@@ -102,7 +105,8 @@ def test_entry_points_never_fall_back_to_cpu():
              lambda: System(tracking_only).track_rgbl(img, cloud, 0.0),
              lambda: System(cfg).track_rgbl(img, cloud, 0.0),      # the default configuration
              lambda: System(dataclasses.replace(cfg, sensor=STEREO)).track_stereo(img, img, 0.0),
-             lambda: System(dataclasses.replace(cfg, sensor=MONOCULAR)).track_monocular(img, 0.0)]
+             lambda: System(dataclasses.replace(cfg, sensor=MONOCULAR)).track_monocular(img, 0.0),
+             lambda: System(fisheye_pair).track_stereo(img, img, 0.0)]
     for call in calls:
         if torch.cuda.is_available():
             call()

@@ -114,6 +114,27 @@ def _check_drive(log, traj, max_err):
     assert np.linalg.norm(c_t - gt, axis=1).max() < max_err
 
 
+def test_render_depth_matches_jax():
+    """The port's ``synthetic.render_depth`` against the JAX function that
+    renders this file's depth frames, on the same canyon (its planes; the
+    depth reads no texture) from three poses: the same hits, depths within
+    2e-5 relative (an einsum and a division in each library's order)."""
+    from orb_slam3_rgbl_tpu_torch import synthetic as t_syn
+
+    cam = _config().camera
+    traj = j_syn.straight_trajectory(3, step=4.0, weave=1.0, yaw_rate=0.2)
+    world_t = t_syn.make_world(0, tex_size=8, device="cpu")
+    with jax.enable_x64(False):
+        world_j = j_syn.make_world(0, tex_size=8)
+        for Twc in traj:
+            args = (Twc, cam.fx, cam.fy, cam.cx, cam.cy, cam.height, cam.width)
+            d_j = np.asarray(j_syn.render_depth(world_j, jnp.asarray(Twc), *args[1:]))
+            d_t = t_syn.render_depth(world_t, *args).numpy()
+            np.testing.assert_array_equal(d_t > 0, d_j > 0)
+            np.testing.assert_allclose(d_t, d_j, rtol=2e-5, atol=0)
+            assert (d_t > 0).mean() > 0.9
+
+
 def test_attach_depth_map_exact():
     rng = np.random.default_rng(2)
     N, H, W = 500, 48, 80

@@ -91,3 +91,29 @@ def test_sim3_log_differentiates_under_vmap(elems):
         J_j = np.asarray(jax.vmap(jax.jacfwd(j_lie.sim3_log))(jnp.asarray(S.numpy())))
     assert J_t.dtype == torch.float32 and torch.isfinite(J_t).all()
     np.testing.assert_allclose(J_t.numpy(), J_j, atol=2e-5)
+
+
+def test_se3_leaf_functions_match_jax(elems):
+    """``se3``, ``se3_log`` (the inverse of ``se3_exp``), ``so3_vee`` and
+    ``so3_inv_left_jacobian`` (``tests/test_lie.py``'s functions), through the
+    Taylor guard at θ → 0 too. Tolerance TOL; ``se3_log`` round trips
+    2e-6 (f32 arctan2 near π)."""
+    tau, _ = elems
+    tau6 = tau[:, :6]
+    with jax.enable_x64(False):
+        T_j = np.asarray(j_lie.se3_exp(jnp.asarray(tau6)))
+        log_j = np.asarray(j_lie.se3_log(jnp.asarray(T_j)))
+        w = jnp.asarray(tau6[:, 3:])
+        jinv_j = np.asarray(j_lie.so3_inv_left_jacobian(w))
+        jl_j = np.asarray(j_lie.so3_left_jacobian(w))
+        vee_j = np.asarray(j_lie.so3_vee(j_lie.so3_hat(w)))
+        se3_j = np.asarray(j_lie.se3(jnp.asarray(T_j[:, :4]), jnp.asarray(T_j[:, 4:])))
+    log_t = t_lie.se3_log(_t(T_j)).numpy()
+    np.testing.assert_allclose(log_t, log_j, rtol=0, atol=TOL)
+    np.testing.assert_allclose(log_t, tau6, rtol=0, atol=2e-6)
+    jinv_t = t_lie.so3_inv_left_jacobian(_t(tau6[:, 3:])).numpy()
+    np.testing.assert_allclose(jinv_t, jinv_j, rtol=0, atol=TOL)
+    # the inverse of the left Jacobian
+    np.testing.assert_allclose(jinv_t @ jl_j, np.broadcast_to(np.eye(3), jl_j.shape), atol=2e-6)
+    np.testing.assert_array_equal(t_lie.so3_vee(t_lie.so3_hat(_t(tau6[:, 3:]))).numpy(), vee_j)
+    np.testing.assert_array_equal(t_lie.se3(_t(T_j[:, :4]), _t(T_j[:, 4:])).numpy(), se3_j)

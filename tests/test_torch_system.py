@@ -1,8 +1,8 @@
 """Port vs JAX: ``System.track_rgbl`` in the tracking-only configuration
 (``enable_mapping=False``, ``loop_closing=False``, ``CLOUD_CAP = 16384``)
 on the 320×192 synthetic canyon, frame by frame: forced keyframes, a
-backward timestamp, the classic-only branch, the configurations that are
-refused, and the map queries. The natural-policy drive with its blank
+backward timestamp, the classic-only branch, the KannalaBrandt8 camera
+with every sensor, and the map queries. The natural-policy drive with its blank
 stretch is in test_torch_system_lost.py, the ladder's stages on identical
 state in test_torch_ladder.py; both import the helpers here.
 
@@ -142,35 +142,47 @@ def test_classic_only_drive_matches_jax():
     assert np.abs(_centers([r[1] for r in log]) - _centers([r[0] for r in log])).max() < POSE_TOL_M
 
 
-@pytest.mark.parametrize("change, item", [
-    (dict(sensor=4, camera_type="KannalaBrandt8"), "item 14"),   # IMU_STEREO fisheye (TUM-VI)
-    (dict(sensor=5, camera_type="KannalaBrandt8"), "item 14"),   # IMU_RGBD
-    (dict(sensor=3, camera_type="KannalaBrandt8"), "item 14"),   # IMU_MONOCULAR fisheye
-    (dict(camera_type="KannalaBrandt8"), "item 14"),
-    (dict(sensor=1, camera_type="KannalaBrandt8"), "item 14"),   # a stereo-fisheye pair
+@pytest.mark.parametrize("change", [
+    dict(sensor=4),     # IMU_STEREO fisheye (TUM-VI)
+    dict(sensor=5),     # IMU_RGBD
+    dict(sensor=3),     # IMU_MONOCULAR fisheye
+    dict(),             # RGB-L
+    dict(sensor=1),     # a stereo-fisheye pair
 ])
-def test_system_refuses_unported_configurations(change, item):
-    """The KannalaBrandt8 camera (the stereo-fisheye pair and the inertial
-    fisheye sensors with it) raises; RGBD, STEREO, MONOCULAR, the inertial
-    sensors on a pinhole camera and a distorted PinHole camera are ported
-    (tests/test_torch_rgbd.py, tests/test_torch_stereo.py,
-    tests/test_torch_mono.py, tests/test_torch_vi_system.py,
-    tests/test_torch_config.py); an inertial sensor without ``cfg.imu`` is
-    refused as a configuration error."""
+def test_system_accepts_kannala_brandt8_for_every_sensor(change):
+    """A KannalaBrandt8 camera constructs a ``System`` with every sensor
+    (mapping on and off), and the tracker's and the mapper's ``geo_cam`` is
+    a ``KannalaBrandt8Camera`` equal field by field to the JAX config's
+    ``geo_camera``; the configurations without it (RGBD, STEREO, MONOCULAR,
+    the inertial sensors on a pinhole camera, a distorted PinHole camera)
+    construct too, and an inertial sensor without ``cfg.imu`` is refused as
+    a configuration error."""
+    from orb_slam3_rgbl_tpu import synthetic as j_syn_cfg
+    from orb_slam3_rgbl_tpu.config import ImuConfig as JImuConfig
     from orb_slam3_rgbl_tpu_torch import synthetic as t_syn
     from orb_slam3_rgbl_tpu_torch.config import ImuConfig
+    from orb_slam3_rgbl_tpu_torch.geometry.camera import KannalaBrandt8Camera
 
-    if change.get("sensor", 0) >= 3:
-        change = dict(change, imu=ImuConfig())
-
-    cfg = dataclasses.replace(t_syn.synthetic_rgbl_config(), loop_closing=False)
-    cfg = dataclasses.replace(cfg, **change)
-    # with the mapping plane on (the default) and with it off
+    kb8 = dict(k1=0.00348, k2=0.000715, k3=-0.0020532, p2=0.000202)
+    jcfg = dataclasses.replace(j_syn_cfg.synthetic_rgbl_config(loop_closing=False),
+                               camera_type="KannalaBrandt8", **change)
+    jcfg = dataclasses.replace(jcfg, camera=dataclasses.replace(jcfg.camera, **kb8))
+    if jcfg.sensor >= 3:
+        jcfg = dataclasses.replace(jcfg, imu=JImuConfig())
+    cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    want = dataclasses.asdict(jcfg.geo_camera)
+    assert type(jcfg.geo_camera).__name__ == "KannalaBrandt8Camera"
+    assert dataclasses.asdict(cfg.geo_camera) == want
     for enable_mapping in (True, False):
-        with pytest.raises(NotImplementedError, match=item):
-            TSystem(cfg, enable_mapping=enable_mapping, device="cpu")
-    # loop closing, the atlas weld and the tree vocabulary are ported: the default
-    # configuration constructs (tests/test_torch_merge.py, tests/test_torch_tree_vocab.py)
+        sysm = TSystem(cfg, enable_mapping=enable_mapping, device="cpu")
+        sysm._spawn_components(sysm._frame_capacity())
+        planes = [sysm.tracker] + ([sysm.mapper] if enable_mapping else [])
+        assert enable_mapping == (sysm.mapper is not None)
+        for plane in planes:
+            assert isinstance(plane.geo_cam, KannalaBrandt8Camera)
+            assert dataclasses.asdict(plane.geo_cam) == want
+        assert sysm.rectifier is None and sysm._undistort_cam is None
+    # the configurations without a fisheye construct as before
     default = t_syn.synthetic_rgbl_config()
     assert default.loop_closing and not default.vocab_path
     assert TSystem(default, device="cpu").loop_closer is None     # built on the first frame
