@@ -134,10 +134,28 @@ and the KB8 pose solve, local BA and inertial solves under
 of valid left keypoints with a fisheye depth and the peak memory.
 ``--phase14`` runs phase 14 alone.
 
-Without arguments the script runs phases 1-5 and then phases 6-14 in
+Phase 15 drives the users' host-side surface on phase 2's canyon written as
+a KITTI sequence (41 frames, RGB PNGs through all five row filters,
+131,072-point clouds): (a) ``io/native_loader.NativeKittiSequence`` against
+``KittiSequence`` on every frame, then the RGB-L driver, which loads
+through it (the PNGs decoded ahead in worker processes); (b) ``tools/kitti_publisher.publish`` into an
+``io/online.OnlineSlamNode`` at full speed into a queue that holds every
+frame, then at KITTI's 10 Hz into the default queue of 4 with the
+asynchronous planes; (c) ``tools/project_velodyne`` (then the RGB-D driver
+on its depth PNGs), ``tools/train_vocabulary`` and ``tools/evaluate_ate``.
+It checks every frame, the launches (and that the node's worker thread,
+tracking on a stream other than the default, launches K1 and K2 there and
+an asynchronous System takes that stream for tracking), the frames bit for
+bit, the node's poses against the driver's, that no loader worker
+outlives ``close()``, the tools' files against the same computation in
+process; it prints the driver loop's wall, tracking and load-wait ms per
+frame beside ``KittiSequence``'s in-process decode, the node's drops,
+latency and states, and each tool's ms. ``--phase15`` runs phase 15 alone.
+
+Without arguments the script runs phases 1-5 and then phases 6-15 in
 four processes of their own, started fresh side by side on the same card
 (``--loop-phases``: 6, 8 and 9; ``--canyon-phases``: 7, 10, 11 and 12;
-``--phase13 stereo-inertial --phase14``; ``--phase13 mono-inertial``),
+``--phase13 stereo-inertial --phase14 --phase15``; ``--phase13 mono-inertial``),
 each with its share of the host's cores. Every phase is bound by its
 host's launch rate, with the card idle most of the time, and a process
 slows down as it ages, so the script ends well inside its time limit;
@@ -169,13 +187,11 @@ import re
 import shutil
 import signal
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -185,6 +201,7 @@ from orb_slam3_rgbl_tpu_torch import cuda_build
 from orb_slam3_rgbl_tpu_torch import synthetic as syn
 from orb_slam3_rgbl_tpu_torch.config import MONOCULAR, STEREO, kitti_rgbl_config
 from orb_slam3_rgbl_tpu_torch.geometry import align, lie
+from orb_slam3_rgbl_tpu_torch.io.png import write_png
 from orb_slam3_rgbl_tpu_torch.ops import brief_cuda, depth as depth_ops, fast as fast_ops
 from orb_slam3_rgbl_tpu_torch.ops import frontend_cuda
 from orb_slam3_rgbl_tpu_torch.ops.matching import stereo_row_match
@@ -420,43 +437,6 @@ def brief_blocks_bytes(comp, corners, block_bins) -> float:
     idx = brief_cuda._tables(comp.device)[brief_cuda._slot_bins(block_bins, S)]
     return (4.0 * sampled_pixels(comp, corners, idx) + brief_cuda.binned_pattern_tables().nbytes
             + corners.numel() * 4.0 + block_bins.numel() * 4.0 + 32.0 * S)
-
-
-def write_png(path: str, arr: np.ndarray, filters=(1,)):
-    """A non-interlaced PNG of ``arr`` — (H, W) gray, (H, W, 2) gray-alpha,
-    (H, W, 3) RGB or (H, W, 4) RGBA; uint8 or uint16 — with the standard
-    library: row r filtered by ``filters[r % len(filters)]`` (0 None, 1
-    Sub, 2 Up, 3 Average, 4 Paeth), zlib-compressed."""
-    arr = np.asarray(arr)
-    h, w = arr.shape[:2]
-    ch = 1 if arr.ndim == 2 else arr.shape[2]
-    depth = 16 if arr.dtype == np.uint16 else 8
-    raw = (arr.astype(">u2") if depth == 16 else arr.astype(np.uint8)).tobytes()
-    bpp = ch * depth // 8
-    x = np.frombuffer(raw, np.uint8).reshape(h, w * bpp).astype(np.int16)
-    a = np.zeros_like(x)
-    a[:, bpp:] = x[:, :-bpp]
-    b = np.zeros_like(x)
-    b[1:] = x[:-1]
-    c = np.zeros_like(x)
-    c[1:, bpp:] = x[:-1, :-bpp]
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
-    ft = np.array([filters[r % len(filters)] for r in range(h)], np.uint8)
-    body = np.concatenate([ft[:, None], ((x - preds[ft, np.arange(h)]) & 255).astype(np.uint8)],
-                          axis=1).tobytes()
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(body, 6)) + chunk(b"IEND", b""))
 
 
 def kitti_synthetic_config():
@@ -1112,11 +1092,11 @@ def spy_loop(rec: dict, traj, prof_ctx, device):
             self.generator.set_state(keep[1])
         return ev
 
-    def timed_apply(self, event):
+    def timed_apply(self, event, **kw):
         rec["kf_err"]["before"] = kf_centre_errors(self.map, traj)
         _synchronize(device)
         t = time.perf_counter()
-        orig_apply(self, event)
+        orig_apply(self, event, **kw)
         _synchronize(device)
         rec["apply_ms"] = (time.perf_counter() - t) * 1e3
 
@@ -1792,9 +1772,9 @@ def phase9_async(cfg, traj, frames, device, sync_run):
     def job(self, kf_id, defer_merge):
         return timed("mapping", orig["job"])(self, kf_id, defer_merge)
 
-    def apply_event(self, ev):
+    def apply_event(self, ev, **kw):
         t0 = time.perf_counter()
-        out = orig["apply"](self, ev)
+        out = orig["apply"](self, ev, **kw)
         marks["applied"].append((now["frame"], threading.current_thread().name,
                                  round((time.perf_counter() - t0) * 1e3, 1)))
         return out
@@ -2126,9 +2106,10 @@ def distort(cfg, images, depths):
 
 @contextlib.contextmanager
 def spy_drivers(rec: dict):
-    """Per frame of a driver run: the tracking stages it ran, the images it
-    decoded (gray, with ms), the depth PNGs it read (ms); ``on_first``
-    (called once with the System after its first frame)."""
+    """Per frame of a driver run: the tracking stages it ran, the image it
+    gave the System, the images it decoded in this process (gray, with ms),
+    the depth PNGs it read (ms); ``on_first`` (called once with the System
+    after its first frame)."""
     from orb_slam3_rgbl_tpu_torch.io import kitti as kitti_mod, png as png_mod
 
     calls = []
@@ -2138,6 +2119,7 @@ def spy_drivers(rec: dict):
     def tracked(fn):
         def wrapper(self, *a, **k):
             calls.clear()
+            rec["given"].append(a[0])
             res = fn(self, *a, **k)
             rec["frame_calls"].append(list(calls))
             if len(rec["frame_calls"]) == 1 and rec.get("on_first") is not None:
@@ -2172,7 +2154,7 @@ def spy_drivers(rec: dict):
 def run_driver(module, argv, device, on_first=None):
     """One driver run under ``spy_drivers``, the launch counts set to 0 just
     before it: (System, TrackResults, host s, record, launch counts)."""
-    rec = {"frame_calls": [], "gray": [], "depth_ms": [], "on_first": on_first}
+    rec = {"frame_calls": [], "given": [], "gray": [], "depth_ms": [], "on_first": on_first}
     cuda_build.reset_launch_counts()
     with spy_drivers(rec):
         slam, results, times = module.run(module.parse_args(argv + ["--device", device.type]))
@@ -2183,8 +2165,8 @@ def check_run(what: str, results, rec, counts, expect_gray, traj, first: int,
               fused_from, check_fused: bool = True):
     """Phase 11's hard checks of one driver run: every frame OK with at
     least ``MIN_INLIERS``, fused from frame ``fused_from`` on (never with
-    None; unchecked without ``check_fused``), 1 K1 + 1 K2 a frame, decoded
-    images equal to ``expect_gray``,
+    None; unchecked without ``check_fused``), 1 K1 + 1 K2 a frame, the
+    images given to the System equal to ``expect_gray`` (unless None),
     the error against ground truth (frames ``first``..) under the bound, one
     finite pose a line in ``CameraTrajectory.txt``."""
     n = len(results)
@@ -2201,8 +2183,8 @@ def check_run(what: str, results, rec, counts, expect_gray, traj, first: int,
              f"{fused_from}..{n - 1}")
     if counts.get("fast_and_blur") != n or counts.get("brief_continuous") != n:
         fail(f"{what}: launch counts {counts} over {n} frames; expected 1 K1 and 1 K2 a frame")
-    if len(rec["gray"]) != n or any(not np.array_equal(g, e) for (g, _), e in
-                                    zip(rec["gray"], expect_gray)):
+    if expect_gray is not None and (len(rec["given"]) != n or any(
+            not np.array_equal(g, e) for g, e in zip(rec["given"], expect_gray))):
         fail(f"{what}: a decoded image differs from the numpy RGB -> gray of its PNG")
     est = np.stack([lie.np_se3_centers(r.pose) for r in results])
     errs = np.linalg.norm(est - (traj[first:first + n, 4:7] - traj[0, 4:7]), axis=1)
@@ -2260,10 +2242,12 @@ def phase11_kitti(cfg, traj, frames, device, workdir: str):
     if rows.shape != (n, 12) or not np.isfinite(rows).all():
         fail(f"RGB-L driver: CameraTrajectory.txt holds {rows.shape}, expected ({n}, 12) finite")
     ms = np.asarray(times) * 1e3
+    load_ms = np.asarray(slam.timer.samples["load"]) * 1e3
     log(f"RGB-L driver: {n} frames, all OK, fused from frame 2, {slam.map.n_kf} keyframes, "
         f"launches {counts}; host ms/frame median {np.median(ms):.2f} mean {ms.mean():.2f}; max "
-        f"trans err {errs.max():.3f} m; decode ms/PNG (RGB, filters {RGB_FILTERS}) median "
-        f"{statistics.median([m for _, m in rec['gray']]):.2f}")
+        f"trans err {errs.max():.3f} m; the wait for the prefetching loader's frame (RGB PNGs, "
+        f"filters {RGB_FILTERS}, decoded in worker processes) ms median "
+        f"{np.median(load_ms):.2f}, frame 0 {load_ms[0]:.2f}")
     log("  StageTimer (--stats):")
     for line in open(stats).read().splitlines():
         log("    " + line)
@@ -3526,12 +3510,311 @@ def phase14(device, card: str):
     log(f"phase 14: {time.perf_counter() - t0:.1f} s on {card}")
 
 
+# ---- phase 15: the users' host-side surface --------------------------------
+N_TOOLS = 41                  # frames of phase 15's sequence (phase 2's canyon)
+NODE_MAX_QUEUE = 4            # OnlineSlamNode's default queue: a live node drops its oldest
+VOCAB_K, VOCAB_DEPTH = 8, 3   # phase 8's tree
+MAX_NODE_DRIFT_M = 5e-3       # the node's poses against the driver's (the CPU tests' 5 mm)
+
+
+@contextlib.contextmanager
+def spy_kernel_streams(rec: list):
+    """Record (thread, CUDA stream) of every K1 and K2 launch."""
+    getters = {frontend_cuda: frontend_cuda._kernel, brief_cuda: brief_cuda._kernel}
+
+    def wrap(get):
+        def getter():
+            fn = get()
+
+            def launch(*a):
+                rec.append((threading.get_ident(), a[-1]))
+                return fn(*a)
+            return launch
+        return getter
+
+    for mod, get in getters.items():
+        mod._kernel = wrap(get)
+    try:
+        yield
+    finally:
+        for mod, get in getters.items():
+            mod._kernel = get
+
+
+def _ms_stats(xs) -> str:
+    xs = np.asarray(xs, np.float64)
+    return f"median {np.median(xs):.2f} mean {xs.mean():.2f}"
+
+
+def phase15_loader(seq: str, settings: str, workdir: str, traj, expect, device):
+    """(a) ``NativeKittiSequence`` against ``KittiSequence`` on every frame,
+    then the RGB-L driver, which loads through it: the images it gives the
+    System equal to the PNGs' (``check_run``)."""
+    from orb_slam3_rgbl_tpu_torch.examples import run_kitti_rgbl
+    from orb_slam3_rgbl_tpu_torch.io.kitti import KittiSequence
+    from orb_slam3_rgbl_tpu_torch.io.native_loader import NativeKittiSequence
+
+    t0 = time.perf_counter()
+    loader, plain = NativeKittiSequence(seq), KittiSequence(seq)
+    workers = list(loader._workers)
+    n = len(plain)
+    decode_ms = []
+    for i in range(n):
+        got = loader.next_frame()
+        t1 = time.perf_counter()
+        want = plain.frame(i)
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+        if not (all(np.array_equal(a, b) and a.dtype == b.dtype for a, b in zip(got[:3], want[:3]))
+                and got[3] == want[3]):
+            fail(f"phase 15: NativeKittiSequence frame {i} differs from KittiSequence.frame({i})")
+    if loader.next_frame() is not None:
+        fail("phase 15: NativeKittiSequence gave a frame past the sequence's end")
+    loader.close()
+    alive = [w.pid for w in workers if w.poll() is None]
+    if alive:
+        fail(f"phase 15: loader workers {alive} alive after close()")
+    log(f"phase 15 (a): NativeKittiSequence equal to KittiSequence.frame(i) bit for bit on all "
+        f"{n} frames ({len(workers)} worker processes, all ended after close()); "
+        f"KittiSequence.frame(i) in this process (PNG decode and cloud) ms/frame "
+        f"{_ms_stats(decode_ms)}; both loaders side by side {time.perf_counter() - t0:.1f} s")
+
+    out = os.path.join(workdir, "rgbl.txt")
+    slam, results, times, rec, counts = run_driver(
+        run_kitti_rgbl, [settings, seq, "--out", out], device)
+    errs, _ = check_run("RGB-L driver", results, rec, counts, expect, traj, 0, 2)
+    load_ms = np.asarray(slam.timer.samples["load"]) * 1e3
+    track_ms = np.asarray(times) * 1e3
+    log(f"phase 15 (a): the RGB-L driver: {n} frames, all OK, fused from frame 2, the images "
+        f"given to the System equal to the PNGs', {slam.map.n_kf} keyframes, launches {counts}, "
+        f"max trans err {errs.max():.3f} m; loop wall ms/frame (load + track) "
+        f"{_ms_stats(load_ms + track_ms)}; tracking ms/frame {_ms_stats(track_ms)}; the wait in "
+        f"next_frame() ms/frame {_ms_stats(load_ms)} (frame 0: {load_ms[0]:.2f}; after it: "
+        f"{_ms_stats(load_ms[1:])})")
+    return slam, results, out
+
+
+def phase15_node(seq: str, settings: str, driver_results, device):
+    """(b) The online node fed by the publisher: every frame at full speed
+    into a queue that holds them all (held to the driver's poses), then at
+    KITTI's real time into the default queue."""
+    from orb_slam3_rgbl_tpu_torch.config import RGBL, load_config
+    from orb_slam3_rgbl_tpu_torch.io.online import OnlineSlamNode
+    from orb_slam3_rgbl_tpu_torch.tools.kitti_publisher import publish
+
+    n = len(driver_results)
+    cuda = device.type == "cuda"
+    # the node's worker tracks on a stream of its own, not the default: the
+    # extraction kernels must launch there, and an asynchronous System must
+    # take it as its tracking stream
+    worker_stream = torch.cuda.Stream(device) if cuda else None
+
+    class Node(OnlineSlamNode):
+        def _run(self):
+            if not cuda:
+                return super()._run()
+            worker_stream.wait_stream(torch.cuda.default_stream(device))
+            with torch.cuda.stream(worker_stream):
+                super()._run()
+            worker_stream.synchronize()
+
+    sysm = System(load_config(settings, sensor=RGBL), device=device)
+    poses, streams, launches = [], [], []
+    t0 = time.perf_counter()
+
+    def on_pose(t, res):
+        poses.append((t, res))
+        if cuda:
+            streams.append((threading.get_ident(), torch.cuda.current_stream(device).cuda_stream))
+
+    node = Node(sysm, mode="rgbl", on_pose=on_pose, max_queue=n + 1)
+    cuda_build.reset_launch_counts()
+    with spy_kernel_streams(launches):
+        published = publish(seq, node, rate=0.0, log=log)
+        node.stop()
+    counts = dict(cuda_build.launch_counts)
+    sysm.shutdown()
+    if len(poses) != n or published != n or node.dropped_frames != 0:
+        fail(f"phase 15 (b): published {published}, tracked {len(poses)}, dropped "
+             f"{node.dropped_frames}; expected all {n} tracked")
+    if any(r.state != trk.OK for _, r in poses):
+        fail(f"phase 15 (b): node states {[trk.STATE_NAMES[r.state] for _, r in poses]}")
+    if counts.get("fast_and_blur") != n or counts.get("brief_continuous") != n:
+        fail(f"phase 15 (b): launch counts {counts} over {n} frames; expected 1 K1 + 1 K2 a frame")
+    d = np.linalg.norm(np.stack([lie.np_se3_centers(a.pose) - lie.np_se3_centers(b.pose)
+                                 for (_, a), b in zip(poses, driver_results)]), axis=-1)
+    if not d.max() < MAX_NODE_DRIFT_M:
+        fail(f"phase 15 (b): the node's centres {d.max():.4f} m from the driver's")
+    worker = {tid for tid, _ in streams}
+    if cuda and ({tid for tid, _ in launches} != worker or len(worker) != 1
+                 or {s for _, s in launches} != {worker_stream.cuda_stream}
+                 or {s for _, s in streams} != {worker_stream.cuda_stream}
+                 or worker_stream.cuda_stream == torch.cuda.default_stream(device).cuda_stream):
+        fail(f"phase 15 (b): K1 / K2 launched on threads / streams "
+             f"{sorted({x for x in launches})}, the node's worker tracks on {sorted(set(streams))}"
+             f"; its stream is {worker_stream.cuda_stream}")
+    log(f"phase 15 (b): publish(rate=0) into an RGB-L node (queue {n + 1}): {n} frames tracked, "
+        f"all OK, dropped 0, launches {counts} on the node's worker thread and on the stream it "
+        f"tracks on, not the default ({sorted(set(streams))}); centres within "
+        f"{d.max() * 1e3:.3f} mm of the driver's; {time.perf_counter() - t0:.1f} s")
+
+    # KITTI's 10 Hz in real time, the default queue, the asynchronous planes
+    sysm = System(load_config(settings, sensor=RGBL), device=device)
+    sysm.async_mapping = True
+    fed, done, states = {}, {}, collections.Counter()
+
+    def on_pose_timed(t, res):
+        done[t] = time.perf_counter()
+        states[trk.STATE_NAMES[res.state]] += 1
+
+    node = Node(sysm, mode="rgbl", on_pose=on_pose_timed, max_queue=NODE_MAX_QUEUE)
+    feed_cloud = node.feed_cloud
+
+    def timed_feed(t, cloud):
+        fed[t] = time.perf_counter()
+        feed_cloud(t, cloud)
+
+    node.feed_cloud = timed_feed
+    t0 = time.perf_counter()
+    published = publish(seq, node, rate=1.0, log=log)
+    t_fed = time.perf_counter() - t0
+    node.stop()
+    stopped_at = time.perf_counter() - t0
+    tracker_stream = sysm._tracker_stream
+    sysm.shutdown()
+    if node._thread.is_alive() or node.error is not None:
+        fail(f"phase 15 (b): stop() left the worker alive or it failed: {node.error!r}")
+    if published != len(done) + node.dropped_frames:
+        fail(f"phase 15 (b): published {published} != tracked {len(done)} + dropped "
+             f"{node.dropped_frames}")
+    if cuda and tracker_stream is not None and tracker_stream.cuda_stream != worker_stream.cuda_stream:
+        fail(f"phase 15 (b): the asynchronous System took its tracking stream "
+             f"{tracker_stream} and not the node's worker's ({worker_stream.cuda_stream})")
+    lat = [(done[t] - fed[t]) * 1e3 for t in done]
+    taken = ("the worker thread's own (not the default)" if tracker_stream is not None
+             else "not taken (no keyframe job)")
+    log(f"phase 15 (b): publish(rate=1.0, KITTI's 10 Hz) into an RGB-L node (queue "
+        f"{NODE_MAX_QUEUE}, async_mapping): published {published} in {t_fed:.2f} s, tracked "
+        f"{len(done)}, dropped {node.dropped_frames}; states {dict(states)}; feed-to-pose ms p50 "
+        f"{np.percentile(lat, 50):.2f} p90 {np.percentile(lat, 90):.2f}; tracking stream "
+        f"{taken}; stop() returned at {stopped_at:.2f} s with the worker ended")
+
+
+def phase15_tools(cfg, seq: str, settings: str, workdir: str, traj, expect, slam, traj_out,
+                  device):
+    """(c) ``project_velodyne`` (then the RGB-D driver on its PNGs),
+    ``train_vocabulary`` and ``evaluate_ate`` on the sequence."""
+    from orb_slam3_rgbl_tpu_torch.examples import run_kitti_rgbd
+    from orb_slam3_rgbl_tpu_torch.io import kitti as kitti_mod, png as png_mod
+    from orb_slam3_rgbl_tpu_torch.io import trajectory as traj_io
+    from orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab import TreeVocabulary
+    from orb_slam3_rgbl_tpu_torch.tools import evaluate_ate, project_velodyne, train_vocabulary
+
+    n = len(expect)
+    dev = device.type
+    # project_velodyne into a copy of the sequence whose depth/ it writes
+    pv = os.path.join(workdir, "seq_pv")
+    os.makedirs(pv)
+    for name in ("image_2", "velodyne", "times.txt", "calib.txt"):
+        os.symlink(os.path.join(seq, name), os.path.join(pv, name))
+    t0 = time.perf_counter()
+    paths = project_velodyne.run(project_velodyne.parse_args(
+        [pv, "--method", "InverseDilation", "--device", dev]))
+    pv_ms = (time.perf_counter() - t0) * 1e3 / n
+    P = project_velodyne.projection(pv)
+    clouds = kitti_mod.list_velodyne(pv)
+    h, w = cfg.camera.height, cfg.camera.width
+    differ = []
+    for i, path in enumerate(paths):
+        pts, mask = kitti_mod.load_pointcloud(clouds[i], max_points=131072)
+        want = project_velodyne.depth_png(pts, mask, P, h, w, "InverseDilation", 256.0, 5.0,
+                                          200.0, device)
+        got = png_mod.read_png(path)
+        if got.dtype != np.uint16 or not np.array_equal(got, want):
+            fail(f"phase 15 (c): {path} differs from the same projection done in process")
+        ref = png_mod.read_png(os.path.join(seq, "depth", os.path.basename(path)))
+        differ.append(float(np.mean(got != ref)))
+    log(f"phase 15 (c): project_velodyne --method InverseDilation: {len(paths)} 16-bit depth "
+        f"PNGs, each equal to the computation in process; {pv_ms:.2f} ms/frame; pixels unlike "
+        f"the driver's own depth PNGs (rounded, from the settings' projection) mean "
+        f"{np.mean(differ):.4f}")
+    slam_d, results, times, rec, counts = run_driver(
+        run_kitti_rgbd, [settings, pv, "--out", os.path.join(workdir, "rgbd_pv.txt")], device)
+    errs, _ = check_run("RGB-D driver on project_velodyne's PNGs", results, rec, counts, expect,
+                        traj, 0, 2)
+    log(f"phase 15 (c): the RGB-D driver on them: {n} frames, all OK, fused from frame 2, "
+        f"launches {counts}, max trans err {errs.max():.3f} m; host ms/frame "
+        f"{_ms_stats(np.asarray(times) * 1e3)}")
+    del slam_d
+
+    vpath = os.path.join(workdir, "vocab.npz")
+    t0 = time.perf_counter()
+    voc = train_vocabulary.run(train_vocabulary.parse_args(
+        [os.path.join(seq, "image_2"), "--out", vpath, "--k", str(VOCAB_K), "--depth",
+         str(VOCAB_DEPTH), "--device", dev]))
+    tv_ms = (time.perf_counter() - t0) * 1e3 / n
+    loaded = TreeVocabulary.load(vpath, device=device)
+    docs = train_vocabulary.image_descriptors(kitti_mod.list_images(seq)[:1], 1000, device)
+    d0 = torch.as_tensor(docs[0].view(np.int32), device=device)
+    if loaded.checksum() != voc.checksum() or not torch.equal(loaded.words(d0), voc.words(d0)):
+        fail("phase 15 (c): the saved vocabulary gives other words than the one in memory")
+    log(f"phase 15 (c): train_vocabulary k={VOCAB_K} depth={VOCAB_DEPTH} on {n} images: "
+        f"{tv_ms:.2f} ms/image (decode, extraction, training, save); the saved file gives "
+        f"frame 0's {d0.shape[0]} descriptors the same words (checksum {voc.checksum()})")
+
+    gt_path = os.path.join(workdir, "gt.txt")
+    gt = traj[:n].copy()
+    gt[:, 4:7] -= traj[0, 4:7]
+    traj_io.save_kitti(gt_path, gt)
+    t0 = time.perf_counter()
+    ate = evaluate_ate.run(evaluate_ate.parse_args([gt_path, traj_out, "--device", dev]))
+    ea_ms = (time.perf_counter() - t0) * 1e3
+    est = slam.trajectory()
+    inproc = float(align.ate_rmse(torch.as_tensor(gt[:, 4:7], device=device),
+                                  torch.as_tensor(est[:, 4:7], device=device)))
+    if ate["frames"] != n or not abs(ate["ate_rmse_m"] - inproc) < 1e-6 \
+            or not ate["ate_rmse_m"] < MAX_TRANS_ERR_M:
+        fail(f"phase 15 (c): evaluate_ate {ate} against ate_rmse in process {inproc:.7f}")
+    log(f"phase 15 (c): evaluate_ate on the driver's trajectory: {ate['frames']} frames, ATE "
+        f"{ate['ate_rmse_m']:.6f} m (in process {inproc:.6f}); {ea_ms:.2f} ms")
+
+
+def phase15(device, card: str):
+    """The users' host-side surface on the canyon written as a KITTI
+    sequence: (a) the prefetching loader and the RGB-L driver on it; (b) the online node fed by the publisher;
+    (c) ``project_velodyne``, ``train_vocabulary`` and ``evaluate_ate``."""
+    t0 = time.perf_counter()
+    log(f"phase 15 on {card}")
+    cfg = kitti_synthetic_config()
+    traj, frames = render_drive(cfg, N_TOOLS, device)
+    depths = dense_depths(cfg, frames, device)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        seq = os.path.join(workdir, "seq")
+        expect = write_sequence(seq, cfg, frames, depths, [i * 0.1 for i in range(N_TOOLS)])
+        del frames, depths
+        settings = os.path.join(workdir, "settings.yaml")
+        settings_yaml(cfg, settings)
+        log(f"phase 15: rendered and wrote a {N_TOOLS}-frame KITTI sequence in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        slam, results, traj_out = phase15_loader(seq, settings, workdir, traj, expect, device)
+        t2 = time.perf_counter()
+        phase15_node(seq, settings, results, device)
+        t3 = time.perf_counter()
+        phase15_tools(cfg, seq, settings, workdir, traj, expect, slam, traj_out, device)
+        log(f"phase 15: (a) {t2 - t1:.1f} s, (b) {t3 - t2:.1f} s, (c) "
+            f"{time.perf_counter() - t3:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s on {card}")
+
+
 # flags that run one group of phases in a process of its own; without
 # arguments the script runs phases 1-5 and then starts one process for each
 # group (``run_children``): each is bound by its host's launch rate, with the
 # card idle most of the time, and a process slows down as it ages (§7 of
 # PERF.md), so the groups run fresh and side by side
-CHILD_FLAGS = ("--loop-phases", "--canyon-phases", "--phase13", "--phase14")
+CHILD_FLAGS = ("--loop-phases", "--canyon-phases", "--phase13", "--phase14", "--phase15")
 
 
 def flag_value(argv, flag: str):
@@ -3722,6 +4005,8 @@ def main():
             phase13(device, card, tuple(m for m in EUROC_MODES if m in argv) or tuple(EUROC_MODES))
         if "--phase14" in argv:
             phase14(device, card)
+        if "--phase15" in argv:
+            phase15(device, card)
         log(card)
         return
     if "--mapping-drive" in sys.argv[1:]:
@@ -3908,7 +4193,8 @@ def main():
     run_children([
         ("phases 6, 8 and 9 (the loop drive)", ["--loop-phases"]),
         ("phases 7, 10, 11 and 12 (the canyon)", ["--canyon-phases", json.dumps(list(id_depth))]),
-        ("phase 13 stereo-inertial and phase 14", ["--phase13", "stereo-inertial", "--phase14"]),
+        ("phase 13 stereo-inertial, phases 14 and 15",
+         ["--phase13", "stereo-inertial", "--phase14", "--phase15"]),
         ("phase 13 mono-inertial", ["--phase13", "mono-inertial"]),
     ])
     log(f"command time: {time.perf_counter() - T_START:.1f} s")

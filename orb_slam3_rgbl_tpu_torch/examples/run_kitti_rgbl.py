@@ -5,7 +5,13 @@ times, and save ``CameraTrajectory.txt`` in KITTI format.
 
     python -m orb_slam3_rgbl_tpu_torch.examples.run_kitti_rgbl <settings.yaml> \\
         <sequence_dir> [--out CameraTrajectory.txt] [--frames N] [--stats FILE] \\
-        [--async-mapping] [--device cuda|cpu]
+        [--async-mapping] [--native-loader] [--device cuda|cpu]
+
+The frames are decoded ahead of the loop in worker processes
+(``io/native_loader.NativeKittiSequence``), so the tracking thread never
+shares the interpreter lock with the PNG decoder; the stage table's ``load``
+row is the loop's wait for each frame. ``--native-loader`` is accepted for
+the JAX driver's command line and changes nothing.
 
 The sequence directory is KITTI odometry's layout (``image_2/*.png``,
 ``velodyne/*.bin``, ``times.txt``); the settings file is the reference's
@@ -31,6 +37,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--stats", default="", help="write per-stage timing stats (ExecMean-style)")
     ap.add_argument("--async-mapping", action="store_true",
                     help="run mapping and loop closing on the worker planes")
+    ap.add_argument("--native-loader", action="store_true",
+                    help="accepted for the JAX driver's command line: the frames are "
+                         "always decoded ahead of the loop in worker processes")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -40,7 +49,7 @@ def run(args: argparse.Namespace):
     host seconds). A frame's time ends when the System's stream has
     finished its work."""
     from orb_slam3_rgbl_tpu_torch.config import RGBL, load_config
-    from orb_slam3_rgbl_tpu_torch.io.kitti import KittiSequence
+    from orb_slam3_rgbl_tpu_torch.io.native_loader import NativeKittiSequence
     from orb_slam3_rgbl_tpu_torch.slam.system import System
     from orb_slam3_rgbl_tpu_torch.utils.profiling import StageTimer, save_stats
 
@@ -49,23 +58,28 @@ def run(args: argparse.Namespace):
     timer = StageTimer()
     slam.timer = timer
     slam.async_mapping = bool(args.async_mapping)
-    seq = KittiSequence(args.sequence)
+    seq = NativeKittiSequence(args.sequence)
     n = len(seq) if args.frames <= 0 else min(args.frames, len(seq))
 
     results, times = [], []
-    for i in range(n):
-        img, pcd, mask, t = seq.frame(i)
-        t0 = time.perf_counter()
-        res = slam.track_rgbl(img, pcd, t, cloud_mask=mask)
-        if slam.device.type == "cuda":
-            torch.cuda.current_stream(slam.device).synchronize()
-        dt = time.perf_counter() - t0
-        results.append(res)
-        times.append(dt)
-        timer.record("track_total", dt)
-        if i % 50 == 0:
-            print(f"[{i}/{n}] state={res.state} inliers={res.n_inliers} {dt * 1e3:.1f} ms",
-                  file=sys.stderr)
+    try:
+        for i in range(n):
+            t0 = time.perf_counter()
+            img, pcd, mask, t = seq.next_frame()
+            t1 = time.perf_counter()
+            res = slam.track_rgbl(img, pcd, t, cloud_mask=mask)
+            if slam.device.type == "cuda":
+                torch.cuda.current_stream(slam.device).synchronize()
+            dt = time.perf_counter() - t1
+            results.append(res)
+            times.append(dt)
+            timer.record("load", t1 - t0)
+            timer.record("track_total", dt)
+            if i % 50 == 0:
+                print(f"[{i}/{n}] state={res.state} inliers={res.n_inliers} {dt * 1e3:.1f} ms",
+                      file=sys.stderr)
+    finally:
+        seq.close()
 
     arr = np.asarray(times)
     # the reference prints these two numbers (rgbl_kitti.cc)

@@ -1,4 +1,5 @@
-"""PNG decoding with the standard library (``zlib`` + ``struct``) and numpy.
+"""PNG decoding and encoding with the standard library (``zlib`` + ``struct``)
+and numpy.
 
 The JAX package reads KITTI frames with ``cv2.imread``; the machine with the
 card has no OpenCV, so the port decodes PNG itself. ``load_gray`` gives what
@@ -19,6 +20,11 @@ depend on the byte to its left, so a file that uses them is unfiltered by
 anti-diagonals: every pixel of one diagonal depends only on the diagonal
 before it, which takes H + W − 1 vectorized steps in place of H·W scalar
 ones.
+
+``write_png`` encodes the same kinds of image (8- and 16-bit gray,
+gray-alpha, RGB, RGBA), each row under a chosen filter, so that the tools
+can write depth maps and tests can write every filter the decoder reads.
+``image_size`` reads only a file's header.
 """
 
 from __future__ import annotations
@@ -149,3 +155,55 @@ def to_gray(px: np.ndarray) -> np.ndarray:
 def load_gray(path: str) -> np.ndarray:
     """(H, W) uint8 gray image of a PNG file (``cv2.IMREAD_GRAYSCALE``)."""
     return to_gray(read_png(path))
+
+
+def image_size(path: str) -> tuple:
+    """(height, width) of a PNG file from its IHDR chunk alone."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    w, h = struct.unpack(">II", head[16:24])
+    return int(h), int(w)
+
+
+def write_png(path: str, arr: np.ndarray, filters=(1,)):
+    """A non-interlaced PNG of ``arr`` — (H, W) gray, (H, W, 2) gray-alpha,
+    (H, W, 3) RGB or (H, W, 4) RGBA; uint8 or uint16 — with the standard
+    library: row r filtered by ``filters[r % len(filters)]`` (0 None, 1
+    Sub, 2 Up, 3 Average, 4 Paeth), zlib-compressed."""
+    arr = np.asarray(arr)
+    if arr.dtype not in (np.uint8, np.uint16) or arr.ndim not in (2, 3) or (
+            arr.ndim == 3 and arr.shape[2] not in (2, 3, 4)):
+        raise ValueError(f"{path}: cannot write a {arr.dtype} array of shape {arr.shape} as PNG")
+    if any(f not in range(5) for f in filters):
+        raise ValueError(f"{path}: row filters {tuple(filters)}; each must be 0..4")
+    h, w = arr.shape[:2]
+    ch = 1 if arr.ndim == 2 else arr.shape[2]
+    depth = 16 if arr.dtype == np.uint16 else 8
+    raw = (arr.astype(">u2") if depth == 16 else arr).tobytes()
+    bpp = ch * depth // 8
+    x = np.frombuffer(raw, np.uint8).reshape(h, w * bpp).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    ft = np.array([filters[r % len(filters)] for r in range(h)], np.uint8)
+    body = np.concatenate([ft[:, None], ((x - preds[ft, np.arange(h)]) & 255).astype(np.uint8)],
+                          axis=1).tobytes()
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    with open(path, "wb") as f:
+        f.write(SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(body, 6)) + chunk(b"IEND", b""))

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import logging
 import threading
 from typing import NamedTuple
 
@@ -54,9 +53,8 @@ from orb_slam3_rgbl_tpu_torch.slam import imu_frontend
 from orb_slam3_rgbl_tpu_torch.slam.frame import inv_scale_sigma2
 from orb_slam3_rgbl_tpu_torch.slam.map_state import (MapState, apply_scaled_rotation,
                                                      dedup_kf_bindings)
+from orb_slam3_rgbl_tpu_torch.utils.logging import log
 from orb_slam3_rgbl_tpu_torch.utils.profiling import stage
-
-log = logging.getLogger(__name__)
 
 BA_POSES_CAP = 24       # optimized + fixed window sizes
 BA_LM_CAP = 8192
@@ -719,8 +717,8 @@ class LocalMapper:
             n = int(cnt_b[a])
             if n > TRI_CAP:
                 # no silent caps: compaction dropped the tail
-                log.info("triangulation: %d accepted pairs beyond the %d download cap dropped",
-                         n - TRI_CAP, TRI_CAP)
+                log("triangulation: %d accepted pairs beyond the %d download cap dropped"
+                    % (n - TRI_CAP, TRI_CAP))
                 n = TRI_CAP
             if n == 0:
                 continue
@@ -819,8 +817,8 @@ class LocalMapper:
         if self.map.last_dropped_obs:
             # no silent caps: dense covisibility exceeded the D-per-landmark
             # budget (the reference local BA keeps every observer)
-            log.info("local BA: %d observations beyond the %d-per-landmark cap dropped",
-                     self.map.last_dropped_obs, self.obs_cap)
+            log("local BA: %d observations beyond the %d-per-landmark cap dropped"
+                % (self.map.last_dropped_obs, self.obs_cap))
             self.counts["lba_dropped_obs"] += int(self.map.last_dropped_obs)
         # observation pixels, pseudo-stereo columns and weights gather from
         # the device feature mirror; only the index tables are uploaded
@@ -915,8 +913,8 @@ class LocalMapper:
         if dist > 0.05:
             self._t_init += float(m.kf_timestamp[kfs[-1]] - m.kf_timestamp[kfs[-2]])
         if self._t_init < 10.0 and dist < 0.02:
-            log.warning("not enough motion for the IMU initialization: the map is flagged "
-                        "for reset (bad IMU)")
+            log("not enough motion for the IMU initialization: the map is flagged for reset "
+                "(bad IMU)")
             self.bad_imu = True
 
     def _temporal_chain(self, kf_id: int, length: int) -> np.ndarray:
@@ -1001,8 +999,8 @@ class LocalMapper:
         anchors on its oldest retained state, logged), its first state fixed."""
         chain = self._temporal_chain(kf_id, FULL_VIBA_MAX_STATES)
         if len(chain) == FULL_VIBA_MAX_STATES:
-            log.info("full inertial BA: the temporal chain hit the %d-state cap; older states "
-                     "anchor", FULL_VIBA_MAX_STATES)
+            log("full inertial BA: the temporal chain hit the %d-state cap; older states "
+                "anchor" % FULL_VIBA_MAX_STATES)
         if len(chain) < 4:
             return
         with record_function("map.full_inertial_ba"):

@@ -41,7 +41,6 @@ essential graph (translation and yaw; ``optimize_pose_graph_4dof``).
 from __future__ import annotations
 
 import dataclasses
-import logging
 import threading
 import time
 from typing import Optional
@@ -62,8 +61,7 @@ from orb_slam3_rgbl_tpu_torch.slam import ba_assembly
 from orb_slam3_rgbl_tpu_torch.slam.frame import inv_scale_sigma2
 from orb_slam3_rgbl_tpu_torch.slam.local_mapping import DeviceKfCache, _i32_words
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState, dedup_kf_bindings
-
-log = logging.getLogger(__name__)
+from orb_slam3_rgbl_tpu_torch.utils.logging import log
 
 LOOP_SPANS = ("loop.index", "loop.detect", "loop.verify", "loop.fuse", "loop.pose_graph",
               "loop.gba")
@@ -154,11 +152,11 @@ class LoopCloser:
             "detect_ms": (time.perf_counter() - t1) * 1e3, "index_only": index_only})
         return event
 
-    def apply_event(self, event: LoopEvent):
+    def apply_event(self, event: LoopEvent, run_pose_graph: bool = True):
         """Correction half: mutates the whole map, so it runs serialized
         with every other map mutation (the reference stops LocalMapping for
         CorrectLoop)."""
-        self._correct_loop(event)
+        self._correct_loop(event, run_pose_graph=run_pose_graph)
         self.last_loop_kf = event.kf_cur
         self.events.append(event)
 
@@ -554,11 +552,14 @@ class LoopCloser:
             edge_weight=self._dev(np.asarray(w, np.float32), torch.float32),
             edge_valid=torch.ones(E, dtype=torch.bool, device=self.device))
 
-    def _correct_loop(self, ev: LoopEvent):
+    def _correct_loop(self, ev: LoopEvent, run_pose_graph: bool = True):
         """Reference ``CorrectLoop`` (LoopClosing.cc:969-1214): fuse the
         loop-side landmarks into the Sim3-corrected covisible window,
         optimize the essential graph over the full accumulated edge set,
-        re-anchor landmarks, record the constraint for future graphs."""
+        re-anchor landmarks, record the constraint for future graphs.
+        ``run_pose_graph=False`` keeps the keyframe poses as they are (the
+        fusion, the landmark writeback, the recorded edge and the global BA
+        still run): ``tools/triage_ate.py``'s ``nopg`` mode."""
         m = self.map
         t0 = time.perf_counter()
         rec = {"kf_cur": int(ev.kf_cur), "kf_matched": int(ev.kf_matched),
@@ -578,29 +579,31 @@ class LoopCloser:
         old_nodes = nodes.copy()
         ei, ej, Sij, w = self._essential_edges(valid, slot, ev)
         rec["nodes"], rec["edges"] = int(K), len(ei)
-        with record_function("loop.pose_graph"):
-            problem = self._pose_graph_problem(nodes, slot[ev.kf_matched], ei, ej, Sij, w)
-            if self.cfg.inertial and m.imu_initialized:
-                # gravity makes roll, pitch and scale observable: translation
-                # and yaw only (OptimizeEssentialGraph4DoF, LoopClosing.cc:1183)
-                out = pose_graph.optimize_pose_graph_4dof(problem, iterations=20)
-                rec["pose_graph_dof"] = 4
-            else:
-                out = pose_graph.optimize_pose_graph(problem, iterations=20,
-                                                     fix_scale=self.fix_scale)
-            costs = torch.stack([pose_graph.pose_graph_cost(problem, problem.nodes),
-                                 pose_graph.pose_graph_cost(problem, out)])
-            down = torch.cat([out.reshape(-1), costs]).cpu().numpy()
-        new_nodes = down[:-2].reshape(K, 8).astype(np.float32)
-        rec["pg_cost_before"], rec["pg_cost_after"] = float(down[-2]), float(down[-1])
-        rec["pose_graph"] = "applied"
+        new_nodes, rec["pose_graph"] = old_nodes, "skipped"
+        if run_pose_graph:
+            with record_function("loop.pose_graph"):
+                problem = self._pose_graph_problem(nodes, slot[ev.kf_matched], ei, ej, Sij, w)
+                if self.cfg.inertial and m.imu_initialized:
+                    # gravity makes roll, pitch and scale observable: translation
+                    # and yaw only (OptimizeEssentialGraph4DoF, LoopClosing.cc:1183)
+                    out = pose_graph.optimize_pose_graph_4dof(problem, iterations=20)
+                    rec["pose_graph_dof"] = 4
+                else:
+                    out = pose_graph.optimize_pose_graph(problem, iterations=20,
+                                                         fix_scale=self.fix_scale)
+                costs = torch.stack([pose_graph.pose_graph_cost(problem, problem.nodes),
+                                     pose_graph.pose_graph_cost(problem, out)])
+                down = torch.cat([out.reshape(-1), costs]).cpu().numpy()
+            new_nodes = down[:-2].reshape(K, 8).astype(np.float32)
+            rec["pg_cost_before"], rec["pg_cost_after"] = float(down[-2]), float(down[-1])
+            rec["pose_graph"] = "applied"
         # last line of defence: never write a diverged f32 solve into the
         # map. A correction moves poses by about the loop drift, not by
         # orders of magnitude: reject wholesale and keep the detected edge
         drift_bound = 10.0 * (1.0 + np.abs(old_nodes[:, 4:7]).max())
         if (not np.isfinite(new_nodes).all()
                 or np.abs(new_nodes[:, 4:7] - old_nodes[:, 4:7]).max() > drift_bound):
-            log.warning("loop correction REJECTED: pose-graph result out of bounds")
+            log("loop correction REJECTED: pose-graph result out of bounds")
             rec["pose_graph"] = "rejected"
             new_nodes = old_nodes
         rec["pose_graph_ms"] = (time.perf_counter() - t1) * 1e3
@@ -702,7 +705,7 @@ class LoopCloser:
         bound = 10.0 * (1.0 + np.abs(pose_before[window][:, 4:7]).max())
         if (not np.isfinite(new_poses).all() or not np.isfinite(new_lms).all()
                 or np.abs(new_poses[:, 4:7] - pose_before[window][:, 4:7]).max() > bound):
-            log.warning("GBA result REJECTED: out of bounds")
+            log("GBA result REJECTED: out of bounds")
             rec["gba"] = "rejected"
             return False
         in_window = np.zeros(m.capacity_kf, bool)

@@ -89,7 +89,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import logging
 import threading
 import traceback
 from collections import deque
@@ -118,9 +117,8 @@ from orb_slam3_rgbl_tpu_torch.slam.loop_closing import LoopCloser
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker, TrackResult
 from orb_slam3_rgbl_tpu_torch.utils import serialization
+from orb_slam3_rgbl_tpu_torch.utils.logging import log
 from orb_slam3_rgbl_tpu_torch.utils.profiling import stage
-
-log = logging.getLogger(__name__)
 
 GBA_ITERATIONS = 16   # LM iterations of the global BA after a loop correction
 
@@ -171,10 +169,10 @@ class System:
             config = dataclasses.replace(config, camera=dataclasses.replace(
                 config.camera, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0))
             if config.sensor in (RGBL, STEREO, IMU_STEREO):
-                log.warning("distorted PinHole configuration with sensor %s: keypoints are "
-                            "undistorted per frame, but stereo row matching and the LiDAR "
-                            "projection assume rectified images; give rectified input or a "
-                            "Camera2 section", SENSOR_NAMES[config.sensor])
+                log("WARNING: distorted PinHole configuration with sensor %s: keypoints are "
+                    "undistorted per frame, but stereo row matching and the LiDAR projection "
+                    "assume rectified images; give rectified input or a Camera2 section"
+                    % SENSOR_NAMES[config.sensor])
         self.cfg = config
         self.cam = config.camera
         self.device = resolve(device)
@@ -273,10 +271,10 @@ class System:
             return
         last = self.tracker.traj_time[-1]
         if timestamp < last:
-            log.error("frame timestamp older than previous frame — starting a new map")
+            log("ERROR: frame timestamp older than previous frame — starting a new map")
             self._create_map_in_atlas()
         elif timestamp > last + 1.0 and self.cfg.inertial:
-            log.warning("timestamp jump of %.2f s: resetting", timestamp - last)
+            log("timestamp jump of %.2f s: resetting" % (timestamp - last))
             viba2_done = self.mapper is not None and self.mapper._viba_stage >= 2
             if self.map.imu_initialized and viba2_done:
                 self._create_map_in_atlas()
@@ -666,8 +664,9 @@ class System:
                 with self._on_plane("loop"), stage(self.timer, "pr"):
                     ev = lc.detect_only(kf_id, index_only=index_only)
             except Exception:
-                log.exception("loop detection of keyframe %d failed", kf_id)
-                self.worker_errors.append(traceback.format_exc())
+                tb = traceback.format_exc()
+                log("loop detection of keyframe %d failed:\n%s" % (kf_id, tb))
+                self.worker_errors.append(tb)
                 continue
             if index_only:
                 self._last_shed_kf = kf_id
@@ -879,8 +878,8 @@ class System:
                     self.mapper.full_inertial_ba(res.kf_cur_new)
                 else:
                     self.mapper.local_bundle_adjustment(res.kf_cur_new)
-        log.info("merge: welded map %d into map %d (%d keyframes transported, scale %.4f)",
-                 active_map_id, old.map_id, len(res.appended_kfs), s)
+        log("merge: welded map %d into map %d (%d keyframes transported, scale %.4f)"
+            % (active_map_id, old.map_id, len(res.appended_kfs), s))
 
     def _track(self, feats, timestamp, imu=None) -> TrackResult:
         if self.map is None:
@@ -903,7 +902,7 @@ class System:
                 self._inertial_schedule(res.timestamp)
         if self.mapper is not None and self.mapper.bad_imu:
             # a motion-starved IMU initialization (Tracking.cc:1839-1844)
-            log.warning("resetting the active map (bad IMU)")
+            log("resetting the active map (bad IMU)")
             self.reset_active_map()
             return res
         if res.state == trk.LOST:

@@ -4,7 +4,7 @@ through the port's own PNG reader where the JAX package calls
 
 * ``EurocSequence`` (mono, stereo + IMU, an external timestamp list),
   ``load_cam_index``, ``load_imu`` and ``TumRgbdSequence`` on sequences
-  written by the test with ``chip_smoke.write_png``: exact against the JAX
+  written by the test with ``io/png.write_png``: exact against the JAX
   loaders (images, depth, timestamps, IMU windows; the port's IMU windows
   stay float64, EuRoC's ~1.4e9 s stamps being 128 s coarse in float32, and
   equal the JAX float32 windows once cast).
@@ -37,8 +37,9 @@ import pytest
 from orb_slam3_rgbl_tpu import synthetic as j_syn
 from orb_slam3_rgbl_tpu.io import euroc as j_euroc
 from orb_slam3_rgbl_tpu_torch.io import euroc as t_euroc
+from orb_slam3_rgbl_tpu_torch.io.png import write_png
 
-from chip_smoke import settings_yaml, write_png
+from chip_smoke import settings_yaml
 from test_torch_stereo import render_pairs
 from test_torch_system import one_torch_thread  # noqa: F401  (module fixture)
 

@@ -46,6 +46,13 @@ PORT_MODULES = [
     "orb_slam3_rgbl_tpu_torch.imu", "orb_slam3_rgbl_tpu_torch.imu.preintegration",
     "orb_slam3_rgbl_tpu_torch.slam.imu_frontend",
     "orb_slam3_rgbl_tpu_torch.optim.inertial", "orb_slam3_rgbl_tpu_torch.optim.inertial_ba",
+    "orb_slam3_rgbl_tpu_torch.utils.logging", "orb_slam3_rgbl_tpu_torch.io.native_loader",
+    "orb_slam3_rgbl_tpu_torch.io.online", "orb_slam3_rgbl_tpu_torch.tools",
+    "orb_slam3_rgbl_tpu_torch.tools.kitti_publisher",
+    "orb_slam3_rgbl_tpu_torch.tools.project_velodyne",
+    "orb_slam3_rgbl_tpu_torch.tools.train_vocabulary",
+    "orb_slam3_rgbl_tpu_torch.tools.evaluate_ate", "orb_slam3_rgbl_tpu_torch.tools.triage_ate",
+    "orb_slam3_rgbl_tpu_torch.tools.pg_probe",
     "chip_smoke",
 ]
 
@@ -83,6 +90,47 @@ def test_port_imports_no_opencv_or_pil():
     assert [p for p in sources if pattern.search(open(p).read())] == []
 
 
+def test_decoder_workers_import_neither_torch_nor_jax():
+    """``io/native_loader``'s workers run ``python -m
+    orb_slam3_rgbl_tpu_torch.io.native_loader``: the package, ``io/png.py``
+    and ``io/kitti.py`` import numpy only."""
+    code = ("import importlib, sys\n"
+            "importlib.import_module('orb_slam3_rgbl_tpu_torch.io.native_loader')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'cv2'))\n"
+            "print('LEAKED', bad) if bad else print('CLEAN')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("CLEAN"), out.stdout
+
+
+def test_pyproject_lists_every_port_package_and_script():
+    """Every directory of the port that holds an ``__init__.py`` is a
+    package of the wheel (an installed port imports ``System``, whose
+    tracker imports ``orb_slam3_rgbl_tpu_torch.imu``), and every ``-torch``
+    console script names a port module with ``main(argv=None)``."""
+    import importlib
+    import inspect
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        project = tomllib.load(f)
+    listed = set(project["tool"]["setuptools"]["packages"])
+    port = os.path.join(REPO, "orb_slam3_rgbl_tpu_torch")
+    found = {os.path.relpath(d, REPO).replace(os.sep, ".") for d, _, files in os.walk(port)
+             if "__init__.py" in files}
+    assert {"orb_slam3_rgbl_tpu_torch.imu", "orb_slam3_rgbl_tpu_torch.tools"} <= found
+    assert found == {p for p in listed if p.split(".")[0] == "orb_slam3_rgbl_tpu_torch"}
+    scripts = {k: v for k, v in project["project"]["scripts"].items() if k.endswith("-torch")}
+    assert len(scripts) == 11
+    for name, target in scripts.items():
+        module, func = target.split(":")
+        assert module.startswith("orb_slam3_rgbl_tpu_torch."), name
+        main = getattr(importlib.import_module(module), func)
+        assert list(inspect.signature(main).parameters) == ["argv"], name
+
+
 def test_entry_points_never_fall_back_to_cpu():
     import numpy as np
     from orb_slam3_rgbl_tpu_torch import device, synthetic
@@ -113,6 +161,23 @@ def test_entry_points_never_fall_back_to_cpu():
         else:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call()
+    # the tools with their default --device, on a host without a card (the
+    # files need not exist: each resolves the device first)
+    from orb_slam3_rgbl_tpu_torch.tools import (evaluate_ate, kitti_publisher, pg_probe,
+                                                project_velodyne, train_vocabulary, triage_ate)
+    import tempfile
+
+    import chip_smoke
+
+    settings = os.path.join(tempfile.mkdtemp(), "settings.yaml")
+    chip_smoke.settings_yaml(cfg, settings)
+    tools = [lambda: evaluate_ate.main(["gt.txt", "est.txt"]), lambda: pg_probe.main([]),
+             lambda: project_velodyne.main(["seq"]), lambda: train_vocabulary.main(["images"]),
+             lambda: triage_ate.main(["sync", "2"]),
+             lambda: kitti_publisher.main([settings, "seq"])]
+    for call in tools if not torch.cuda.is_available() else []:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
     # every mode of the fused step is ported; an unknown one is refused
     for mode in compiled.STEP_MODES:
         compiled.make_track_step(cfg, mode=mode, device="cpu")

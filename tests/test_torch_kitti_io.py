@@ -3,7 +3,7 @@
 The port decodes PNG itself (``io/png.py``): the machine with the card has
 no OpenCV. Its images are held to ``cv2.imread`` exactly — 8- and 16-bit
 gray, gray-alpha, RGB and RGBA, every row filter (the files written by
-``chip_smoke.write_png``, one filter a file and all five mixed), and files
+``io/png.write_png``, one filter a file and all five mixed), and files
 that OpenCV itself wrote. ``KittiSequence.frame`` is held to the JAX
 loader's exactly on a sequence the test writes: RGB images, clouds padded
 and truncated, their masks, times and calibration.
@@ -30,9 +30,9 @@ from orb_slam3_rgbl_tpu.geometry.align import ate_rmse  # noqa: E402
 from orb_slam3_rgbl_tpu.io import kitti as j_kitti  # noqa: E402
 from orb_slam3_rgbl_tpu.slam.system import System as JSystem  # noqa: E402
 from orb_slam3_rgbl_tpu_torch.io import kitti as t_kitti, png  # noqa: E402
+from orb_slam3_rgbl_tpu_torch.io.png import write_png  # noqa: E402
 from orb_slam3_rgbl_tpu_torch.slam.system import System as TSystem  # noqa: E402
 
-from chip_smoke import write_png  # noqa: E402
 from test_kitti_driver_e2e import N_FRAMES, kitti_fixture  # noqa: E402,F401
 from test_torch_system import one_torch_thread  # noqa: E402,F401  (autouse)
 

@@ -351,6 +351,63 @@ def test_correct_loop_4dof_on_an_initialized_map(state):
     assert np.abs(c_j - t_lie.np_se3_centers(before[live])).max() > 0.05
 
 
+def test_apply_event_without_pose_graph_matches_jax(state):
+    """``run_pose_graph=False`` (``tools/triage_ate.py``'s ``nopg`` mode)
+    through ``apply_event`` on both packages: the essential graph is not
+    solved, so every keyframe keeps its pose (the fusion's landmark
+    writeback, the recorded edge and the event still happen); the corrected
+    centres agree within this file's 2e-3 m."""
+    js, ev, kf_id, groups, pending, tcfg = state
+    jc = jax_closer_copy(js)
+    tc = port_closer(js, tcfg, groups)
+    jc.run_gba = tc.run_gba = False
+    jc._pending_fusion = tuple(a.copy() for a in pending)
+    tc._pending_fusion = tuple(a.copy() for a in pending)
+    before = tc.map.kf_pose.copy()
+    with jax.enable_x64(False):
+        jc.apply_event(ev, run_pose_graph=False)
+    tc.apply_event(t_lc.LoopEvent(ev.kf_cur, ev.kf_matched, ev.n_inliers, ev.S12.copy()),
+                   run_pose_graph=False)
+    rec = tc.stats["events"][-1]
+    assert rec["pose_graph"] == "skipped" and "pg_cost_after" not in rec
+    live = tc.map.valid_kf_ids()
+    c_t = t_lie.np_se3_centers(tc.map.kf_pose[live])
+    c_j = t_lie.np_se3_centers(jc.map.kf_pose[live])
+    assert np.abs(c_t - c_j).max() < 2e-3, np.abs(c_t - c_j).max()
+    assert np.abs(c_t - t_lie.np_se3_centers(before[live])).max() < 1e-5
+    assert tc.events[-1].kf_cur == jc.events[-1].kf_cur == ev.kf_cur
+    assert len(tc.extra_edges) == len(jc.extra_edges) == 1
+    assert t_ms.check_binding_consistency(tc.map) == []
+
+
+def test_triage_nopg_skips_the_pose_graph_on_both_planes(state):
+    """``tools/triage_ate.py``'s ``nopg`` mode (``skip_pose_graph``) on the
+    port's closer, through both callers of the correction: the inline
+    plane's ``on_keyframe`` (detection, then ``apply_event``) and the
+    asynchronous loop plane's ``apply_event``. Each closes the loop with the
+    pose graph skipped, every keyframe keeping its pose (1e-5 m, as above)."""
+    from orb_slam3_rgbl_tpu_torch.tools import triage_ate
+
+    js, ev, kf_id, groups, pending, tcfg = state
+    for inline in (True, False):
+        tc = port_closer(js, tcfg, groups)
+        tc.run_gba = False
+        triage_ate.skip_pose_graph(tc)
+        before = tc.map.kf_pose.copy()
+        if inline:
+            got = tc.on_keyframe(kf_id)
+            assert got is not None and (got.kf_cur, got.kf_matched) == (ev.kf_cur, ev.kf_matched)
+        else:
+            tc._pending_fusion = tuple(a.copy() for a in pending)
+            tc.apply_event(t_lc.LoopEvent(ev.kf_cur, ev.kf_matched, ev.n_inliers, ev.S12.copy()))
+        assert [r["pose_graph"] for r in tc.stats["events"]] == ["skipped"], inline
+        assert len(tc.events) == 1 and tc.last_loop_kf == ev.kf_cur
+        live = tc.map.valid_kf_ids()
+        moved = np.abs(t_lie.np_se3_centers(tc.map.kf_pose[live])
+                       - t_lie.np_se3_centers(before[live])).max()
+        assert moved < 1e-5, (inline, moved)
+
+
 def test_closer_refuses_unported_branches(state, tmp_path):
     js, tcfg = state[0], state[5]
     tm = convert.map_state_from_numpy(js.map)
