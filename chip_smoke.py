@@ -152,11 +152,34 @@ process; it prints the driver loop's wall, tracking and load-wait ms per
 frame beside ``KittiSequence``'s in-process decode, the node's drops,
 latency and states, and each tool's ms. ``--phase15`` runs phase 15 alone.
 
-Without arguments the script runs phases 1-5 and then phases 6-15 in
-four processes of their own, started fresh side by side on the same card
+Phase 16 drives the landmark-sharded global BA (``parallel/sharded_ba``):
+(a) ``__graft_entry__.dryrun_multichip``'s problem (K=256 poses, M=65,536
+landmarks seen 4 times, ``synthetic.synth_gba_problem``; 6 LM iterations ×
+260 CG steps) through ``make_distributed_pcg_ba`` over NCCL at world 1 in
+this process (under ``set_sync_debug_mode("error")``, then under the
+profiler) and over gloo at world 2 with both ranks' tensors on this card
+(NCCL refuses two ranks on one card), each held to ``__graft_entry__``'s
+bars against ``global_bundle_adjust`` with the replicated poses bit-equal
+on every rank and in two solves; (b) the dense-Schur oracle (K 6, M 320)
+at worlds 1 and 2; (c) ``tools/bench_scaling`` at ranks 1 and 2. It prints
+host ms a solve, kernels and device busy ms at world 1, collectives and
+bytes per LM iteration and the peak memory. ``--phase16`` runs it alone.
+
+Phase 17 drives the viewer and the map probes on phase 2's canyon: (a) 21
+frames through ``track_rgbl`` without and then with ``start_viewer(hz=2.0,
+http_port=0)`` (renders counted and timed, both PNGs decoded, the HTTP
+index and a PNG fetched, ``shutdown()`` stops the thread; 1 K1 + 1 K2 a
+frame); (c) the frames with the mapping plane on, the map saved with its
+ground truth, then ``tools/gba_probe`` (the keyframe ATE may rise by less
+than ``MAX_PROBE_ATE_RISE_M``, bindings consistent) and
+``tools/map_stage_probe``; (b) the RGB-L driver with ``--viz`` on 11 of
+the frames written as a KITTI sequence. ``--phase17`` runs it alone.
+
+Without arguments the script runs phases 1-5 and then phases 6-17 in
+five processes of their own, started fresh side by side on the same card
 (``--loop-phases``: 6, 8 and 9; ``--canyon-phases``: 7, 10, 11 and 12;
-``--phase13 stereo-inertial --phase14 --phase15``; ``--phase13 mono-inertial``),
-each with its share of the host's cores. Every phase is bound by its
+``--phase13 stereo-inertial --phase14 --phase15``; ``--phase13 mono-inertial``;
+``--phase16 --phase17``), each with its share of the host's cores. Every phase is bound by its
 host's launch rate, with the card idle most of the time, and a process
 slows down as it ages, so the script ends well inside its time limit;
 phases 1-5 (the kernels' times, the main path's latency) have the host
@@ -200,6 +223,7 @@ from torch.profiler import record_function
 from orb_slam3_rgbl_tpu_torch import cuda_build
 from orb_slam3_rgbl_tpu_torch import synthetic as syn
 from orb_slam3_rgbl_tpu_torch.config import MONOCULAR, STEREO, kitti_rgbl_config
+from orb_slam3_rgbl_tpu_torch.device import synchronize as _synchronize
 from orb_slam3_rgbl_tpu_torch.geometry import align, lie
 from orb_slam3_rgbl_tpu_torch.io.png import write_png
 from orb_slam3_rgbl_tpu_torch.ops import brief_cuda, depth as depth_ops, fast as fast_ops
@@ -1044,11 +1068,6 @@ def kf_centre_errors(m, traj) -> np.ndarray:
     live = m.valid_kf_ids()
     gt = traj[m.kf_frame_id[live], 4:7] - traj[0, 4:7]
     return np.linalg.norm(lie.np_se3_centers(m.kf_pose[live]) - gt, axis=1)
-
-
-def _synchronize(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize()
 
 
 @contextlib.contextmanager
@@ -3809,12 +3828,363 @@ def phase15(device, card: str):
     log(f"phase 15: {time.perf_counter() - t0:.1f} s on {card}")
 
 
+# ---- phase 16: the landmark-sharded global BA ---------------------------------------
+GBA_K, GBA_M, GBA_D = 256, 65536, 4      # __graft_entry__.dryrun_multichip's problem
+GBA_ITERS, GBA_CG = 6, 260               # its budget: ≥ K CG steps for a chain of poses
+DENSE_K, DENSE_M = 6, 320                # the dense oracle's small problem
+RANK_POSE_TOL = 2e-4                     # the dense oracle, world 2 against world 1
+SCALING_RANKS = "1,2"
+
+
+def gba_bars(what: str, problem, poses_gt, cam, poses, lms, single) -> str:
+    """``__graft_entry__.py:117-131``'s bars on one sharded solve against
+    the single-device one on the same problem: pose agreement (centre
+    RMSE) < max(0.25 × the initial error, 1e-2), final cost < 0.2 × the
+    initial cost and < 1.1 × the single-device cost + 1e-3."""
+    from orb_slam3_rgbl_tpu_torch.optim import global_ba
+
+    dev = problem.poses.device
+
+    def rmse_to_gt(p):
+        return float(np.sqrt(((p[:, 4:7] - poses_gt[:, 4:7]) ** 2).mean()))
+
+    def cost_of(p, l):
+        return float(global_ba.ba_cost(problem._replace(poses=torch.as_tensor(p, device=dev),
+                                                        landmarks=torch.as_tensor(l, device=dev)),
+                                       cam))
+
+    p_single = single.poses.cpu().numpy()
+    err_init = rmse_to_gt(problem.poses.cpu().numpy())
+    agree = float(np.sqrt(((poses[:, 4:7] - p_single[:, 4:7]) ** 2).mean()))
+    c0 = cost_of(problem.poses, problem.landmarks)
+    cd, cs = cost_of(poses, lms), cost_of(single.poses, single.landmarks)
+    if not agree < max(0.25 * err_init, 1e-2):
+        fail(f"phase 16 {what}: poses {agree:.5f} from the single-device solve's (initial "
+             f"error {err_init:.5f})")
+    if not (cd < 0.2 * c0 and cd < 1.1 * cs + 1e-3):
+        fail(f"phase 16 {what}: cost {cd:.3f}, initial {c0:.3f}, single-device {cs:.3f}")
+    return (f"pose agreement {agree:.6f} (bar {max(0.25 * err_init, 1e-2):.6f}), error to the "
+            f"ground truth {rmse_to_gt(poses):.6f} (initial {err_init:.6f}, single-device "
+            f"{rmse_to_gt(p_single):.6f}), cost {cd:.4f} against initial {c0:.4f} and "
+            f"single-device {cs:.4f}")
+
+
+def phase16(device, card: str):
+    """The landmark-sharded global BA: (a) ``dryrun_multichip``'s problem
+    through ``make_distributed_pcg_ba`` over NCCL at world 1 (no host sync
+    in the solve) and over gloo at world 2 with both ranks on this card,
+    against ``global_bundle_adjust``; (b) the dense-Schur oracle at worlds 1
+    and 2; (c) ``tools/bench_scaling`` at ranks 1 and 2."""
+    from orb_slam3_rgbl_tpu_torch.optim import global_ba
+    from orb_slam3_rgbl_tpu_torch.parallel import mesh as mesh_mod, sharded_ba
+    from orb_slam3_rgbl_tpu_torch.tools import bench_scaling
+
+    t_start = time.perf_counter()
+    log(f"phase 16 on {card}")
+    cam = kitti_rgbl_config().camera
+    kw = dict(iterations=GBA_ITERS, cg_iters=GBA_CG)
+    problem, poses_gt, _ = syn.synth_gba_problem(GBA_K, GBA_M, GBA_D, cam, device=device)
+    dproblem, dposes_gt, _ = syn.synth_gba_problem(DENSE_K, DENSE_M, GBA_D, cam, device=device)
+    segments = global_ba.PoseSegments(problem.obs_kf, problem.obs_mask, GBA_K)
+    global_ba.global_bundle_adjust(problem, cam, segments, iterations=1, cg_iters=2)   # warm-up
+    _synchronize(device)
+    t0 = time.perf_counter()
+    single = global_ba.global_bundle_adjust(problem, cam, segments, **kw)
+    _synchronize(device)
+    single_ms = (time.perf_counter() - t0) * 1e3
+
+    # (a), (b) at world 1: NCCL (gloo on the CPU rehearsal) in this process
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    init, store = mesh_mod.file_store()
+    m = mesh_mod.make_mesh(0, 1, backend, init, device=device)
+    try:
+        shard = sharded_ba.shard_problem(problem, 0, 1, m.device)
+        seg1 = global_ba.PoseSegments(shard.obs_kf, shard.obs_mask, GBA_K)
+        run = sharded_ba.make_distributed_pcg_ba(m, cam, **kw)
+        m.all_reduce(torch.zeros(1, device=m.device))       # the communicator's set-up
+        _synchronize(device)
+        before = dict(m.stats)
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res1 = run(shard, seg1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _synchronize(device)
+        w1_ms = (time.perf_counter() - t0) * 1e3
+        coll = m.stats["collectives"] - before["collectives"]
+        n_bytes = m.stats["bytes"] - before["bytes"]
+        t0 = time.perf_counter()
+        again = run(shard, seg1)
+        _synchronize(device)
+        w1_again_ms = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(again.poses, res1.poses) and torch.equal(again.landmarks, res1.landmarks)):
+            fail("phase 16: a second world-1 solve of the same problem gave other bits")
+        torch.cuda.reset_peak_memory_stats()
+        with _profile() as prof:
+            run(shard, seg1)
+            _synchronize(device)
+        work = _device_work(prof.events())
+        busy, n_kernels = _busy_ms(work), len(work)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        dshard = sharded_ba.shard_problem(dproblem, 0, 1, m.device)
+        dense1 = sharded_ba.make_distributed_ba(m, cam)(dshard)
+        dense1 = tuple(x.cpu().numpy() for x in dense1)
+    finally:
+        m.close()
+        shutil.rmtree(store, ignore_errors=True)
+    same_as_single = bool(torch.equal(res1.poses, single.poses)
+                          and torch.equal(res1.landmarks, single.landmarks))
+    bars1 = gba_bars(f"world 1 ({backend})", problem, poses_gt, cam, res1.poses.cpu().numpy(),
+                     res1.landmarks.cpu().numpy(), single)
+    log(f"phase 16 (a): single-device global_bundle_adjust K={GBA_K} M={GBA_M} D={GBA_D} "
+        f"{GBA_ITERS} LM x {GBA_CG} CG: {single_ms:.1f} ms host")
+    log(f"phase 16 (a): world 1 over {backend}: {w1_ms:.1f} ms host a solve under "
+        f"set_sync_debug_mode('error') (no host sync in it), {w1_again_ms:.1f} ms again without "
+        f"it, the same bits twice, bit-equal to the single-device "
+        f"solve: {same_as_single}; {bars1}")
+    log(f"phase 16 (a): world 1 under the profiler: {n_kernels} kernels, device busy "
+        f"{busy:.3f} ms; {coll} collectives a solve ({coll / GBA_ITERS:.1f} an LM iteration), "
+        f"{n_bytes} bytes ({n_bytes / GBA_ITERS:.0f} an LM iteration; "
+        f"sharded_ba.comm_bytes {sharded_ba.comm_bytes(GBA_K, GBA_CG)}; the JAX tool's budget "
+        f"{sharded_ba.comm_per_lm_iter_bytes(GBA_K, GBA_CG)}); peak memory {peak_mb:.0f} MiB")
+    if coll != GBA_ITERS * (2 * GBA_CG + 3) + 1:
+        fail(f"phase 16: {coll} collectives in a world-1 solve")
+
+    # (a), (b) at world 2: gloo, both ranks on this card
+    backend2, devs = mesh_mod.rank_layout(2, device)
+    if backend2 != "gloo":
+        fail(f"phase 16: world 2 on {devs} would run over {backend2}, not gloo on one card")
+    t0 = time.perf_counter()
+    pcg2, dense2 = sharded_ba.solve_on_ranks(
+        [(problem, cam, "pcg", kw), (dproblem, cam, "dense", {})], 2, device, repeats=2,
+        timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    first = pcg2[0]["poses"][0]
+    for r in pcg2:
+        if any(p.tobytes() != first.tobytes() for p in r["poses"]):
+            fail("phase 16: world 2's replicated poses differ between ranks or solves")
+    lms2 = np.concatenate([r["landmarks"][0] for r in pcg2])
+    if any(r["landmarks"][1].tobytes() != r["landmarks"][0].tobytes() for r in pcg2):
+        fail("phase 16: a second world-2 solve gave other landmark bits")
+    bars2 = gba_bars("world 2 (gloo)", problem, poses_gt, cam, first, lms2, single)
+    w2_ms = [max(r["seconds"][i] for r in pcg2) * 1e3 for i in range(2)]
+    log(f"phase 16 (a): world 2 over gloo on one card ({devs}): landmarks "
+        f"{[r['n_landmarks'] for r in pcg2]}, host ms a solve (slowest rank) "
+        f"{w2_ms[0]:.1f} then {w2_ms[1]:.1f}; poses bit-equal on both ranks and in both solves; "
+        f"{pcg2[0]['collectives'][1]} collectives, {pcg2[0]['bytes'][1]} bytes a solve; {bars2}; "
+        f"the group's spawn and both solves {spawn_s:.1f} s")
+    d2 = dense2[0]["poses"][0]
+    if any(r["poses"][i].tobytes() != d2.tobytes() for r in dense2 for i in range(2)):
+        fail("phase 16 (b): the dense oracle's poses differ between ranks or solves")
+    d_err = float(np.abs(d2 - dense1[0]).max())
+
+    def derr(p):
+        return float(np.sqrt(((p[:, 4:7] - dposes_gt[:, 4:7]) ** 2).mean()))
+
+    d_init = derr(dproblem.poses.cpu().numpy())
+    if not (d_err < RANK_POSE_TOL and derr(d2) < derr(dense1[0]) + RANK_POSE_TOL
+            and derr(dense1[0]) < d_init):
+        fail(f"phase 16 (b): dense oracle world 2 vs 1 {d_err:.2e}, errors {derr(dense1[0]):.5f} "
+             f"/ {derr(d2):.5f} (initial {d_init:.5f})")
+    log(f"phase 16 (b): dense oracle K={DENSE_K} M={DENSE_M}: world 2 within {d_err:.2e} of world "
+        f"1 (bar {RANK_POSE_TOL}), pose error to the ground truth {derr(dense1[0]):.5f} / "
+        f"{derr(d2):.5f} (initial {d_init:.5f})")
+
+    # (c) the scaling tool at ranks 1 and 2
+    out_json = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_scaling_"), "scaling.json")
+    t0 = time.perf_counter()
+    rows = bench_scaling.main([out_json, "--ranks", SCALING_RANKS, "--device", device.type])
+    if not all(r["cost_agrees"] for r in rows):
+        fail(f"phase 16 (c): bench_scaling's costs disagree: {rows}")
+    shutil.rmtree(os.path.dirname(out_json), ignore_errors=True)
+    log(f"phase 16 (c): tools/bench_scaling --ranks {SCALING_RANKS}: "
+        + "; ".join(f"{r['n_dev']} rank(s) steady {r['steady_s'] * 1e3:.1f} ms, first "
+                    f"{r['first_s'] * 1e3:.1f} ms, {r['lm_per_shard']} landmarks a shard, cost "
+                    f"{r['final_cost']:.3f}, {r['all_reduced_per_lm_iter_bytes']:.0f} bytes "
+                    f"all-reduced an LM iteration (JAX budget {r['comm_per_lm_iter_bytes']})"
+                    for r in rows)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 16: {time.perf_counter() - t_start:.1f} s on {card}")
+
+
+# ---- phase 17: the live viewer, the --viz driver and the two map probes ---------------
+N_VIEWER = 21             # frames of phase 2's canyon, with and without the viewer
+VIEWER_HZ = 2.0
+N_VIZ_DRIVER = 11         # frames of the sequence the --viz driver runs
+PROBE_REPS = 3            # map_stage_probe's n_reps
+MAX_PROBE_ATE_RISE_M = 0.01   # gba_probe: keyframe ATE over the 3 x 2 iterations
+
+
+def _http_get(port: int, path: str) -> bytes:
+    import urllib.request
+
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10).read()
+
+
+def phase17_viewer(cfg, frames, device, workdir: str):
+    """(a) The canyon frames through ``track_rgbl`` without, then with
+    ``start_viewer(hz=2.0, http_port=0)``, in this process."""
+    from orb_slam3_rgbl_tpu_torch.io.png import read_png
+    from orb_slam3_rgbl_tpu_torch.viz import viewer as vz
+    from orb_slam3_rgbl_tpu_torch.viz.live import LiveViewer
+
+    def check(what, results, counts):
+        if any(r.state != trk.OK for r, _ in results):
+            fail(f"phase 17 (a) {what}: states {[trk.STATE_NAMES[r.state] for r, _ in results]}")
+        if counts.get("fast_and_blur") != len(results) or counts.get("brief_continuous") != len(results):
+            fail(f"phase 17 (a) {what}: launch counts {counts} over {len(results)} frames; "
+                 f"expected 1 K1 and 1 K2 a frame")
+        return [ms for i, (r, ms) in enumerate(results) if i > 1]
+
+    cuda_build.reset_launch_counts()
+    _, plain = drive(cfg, frames, device)
+    plain_ms = check("without the viewer", plain, dict(cuda_build.launch_counts))
+
+    out = os.path.join(workdir, "viewer")
+    render_ms = []
+    orig = LiveViewer._render_once
+
+    def timed(self):
+        t = time.perf_counter()
+        orig(self)
+        render_ms.append((time.perf_counter() - t) * 1e3)
+
+    LiveViewer._render_once = timed
+    sysm = System(cfg, enable_mapping=False, device=device)
+    sysm.CLOUD_CAP = frames[0][1].shape[0]
+    try:
+        viewer = sysm.start_viewer(out_dir=out, hz=VIEWER_HZ, http_port=0)
+        cuda_build.reset_launch_counts()
+        sysm, viewed = drive(cfg, frames, device, sysm=sysm)
+        counts = dict(cuda_build.launch_counts)
+        viewed_ms = check("with the viewer", viewed, counts)
+        t0 = time.time()
+        while viewer.frames_rendered < 1 and time.time() - t0 < 30:
+            time.sleep(0.1)
+        rendered = viewer.frames_rendered
+        frame_png = read_png(os.path.join(out, "live_frame.png"))
+        map_png = read_png(os.path.join(out, "live_map.png"))
+        html = _http_get(viewer.http_port, "/")
+        png = _http_get(viewer.http_port, "/live_frame.png")
+        thread = viewer._thread
+        sysm.shutdown()
+    finally:
+        LiveViewer._render_once = orig
+    cam = cfg.camera
+    if rendered < 1:
+        fail("phase 17 (a): the viewer rendered nothing")
+    if frame_png.shape != (cam.height + vz.BAR_H, cam.width, 3) or map_png.shape != (
+            vz.MAP_SIZE[1], vz.MAP_SIZE[0], 3):
+        fail(f"phase 17 (a): live_frame.png {frame_png.shape}, live_map.png {map_png.shape}")
+    if b"live_frame.png" not in html or png[:4] != b"\x89PNG":
+        fail("phase 17 (a): the viewer's HTTP server did not serve its index and frame")
+    if sysm._viewer is not None or thread is None or thread.is_alive():
+        fail("phase 17 (a): shutdown() left the viewer running")
+    log(f"phase 17 (a): {len(frames)} frames at {cam.width}x{cam.height}, every frame OK with 1 "
+        f"K1 + 1 K2 ({counts}); host ms/frame (frames 2..) without the viewer "
+        f"{_ms_stats(plain_ms)}, with it {_ms_stats(viewed_ms)} (median "
+        f"{statistics.median(viewed_ms) - statistics.median(plain_ms):+.2f} ms); "
+        f"{rendered} renders at {VIEWER_HZ} Hz, ms per render {_ms_stats(render_ms)}; "
+        f"live_frame.png {frame_png.shape}, live_map.png {map_png.shape}, HTTP on port "
+        f"{viewer.http_port} served the index and the frame; shutdown() stopped the thread")
+
+
+def phase17_probes(cfg, traj, frames, device, workdir: str):
+    """(c) The canyon driven with the mapping plane on (a keyframe forced
+    every ``KF_EVERY``: its jobs keep the bindings consistent, which a
+    tracking-only map's are not), its map saved with the ground truth, through
+    ``tools/gba_probe`` and ``tools/map_stage_probe``."""
+    from orb_slam3_rgbl_tpu_torch.tools import gba_probe, map_stage_probe
+    from orb_slam3_rgbl_tpu_torch.utils import serialization
+
+    sysm = System(cfg, enable_mapping=True, device=device)
+    sysm.CLOUD_CAP = frames[0][1].shape[0]
+    sysm, results = drive(cfg, frames, device, sysm=sysm)
+    if any(r.state != trk.OK for r, _ in results):
+        fail("phase 17 (c): a frame of the mapping drive is not OK")
+    path = os.path.join(workdir, "canyon_map.npz")
+    serialization.save_map(path, sysm.map)
+    np.savez(path + ".gt.npz", traj=np.asarray(traj, np.float32))
+    t0 = time.perf_counter()
+    out = gba_probe.run(path, device)
+    probe_s = time.perf_counter() - t0
+    if out["binding_issues"]:
+        fail(f"phase 17 (c): the saved map's bindings: {out['binding_issues'][:3]}")
+    rise = max(r["ate"] for r in out["rounds"]) - out["ate_before"]
+    if not rise < MAX_PROBE_ATE_RISE_M:
+        fail(f"phase 17 (c): gba_probe's keyframe ATE rose by {rise:.4f} m "
+             f"(bar {MAX_PROBE_ATE_RISE_M})")
+    t1 = time.perf_counter()
+    timer = map_stage_probe.main([path, str(PROBE_REPS), "--device", device.type])
+    stats = timer.stats()
+    log(f"phase 17 (c): gba_probe on a {out['n_kf']}-keyframe, {out['n_lm']}-landmark canyon map: "
+        f"keyframe ATE {out['ate_before']:.5f} m before, "
+        + ", ".join(f"{r['ate']:.5f} after {r['iterations']} (cost {r['cost']:.2f})"
+                    for r in out["rounds"])
+        + f" (rise {rise * 1e3:.2f} mm, bar {MAX_PROBE_ATE_RISE_M * 1e3:.0f} mm); bindings "
+          f"consistent; {probe_s:.1f} s. map_stage_probe idle medians (ms): "
+        + ", ".join(f"{k} {stats[k]['median_ms']:.2f}" for k in ("idle_tri", "idle_fuse",
+                                                                    "idle_lba"))
+        + f" ({time.perf_counter() - t1:.1f} s)")
+
+
+def phase17_driver(cfg, traj, frames, device, workdir: str):
+    """(b) The RGB-L driver with ``--viz`` on the first frames written as a
+    KITTI sequence: the map view is written and decodes."""
+    from orb_slam3_rgbl_tpu_torch.examples import run_kitti_rgbl
+    from orb_slam3_rgbl_tpu_torch.io.png import read_png
+    from orb_slam3_rgbl_tpu_torch.viz import viewer as vz
+
+    seq = os.path.join(workdir, "seq")
+    frames = frames[:N_VIZ_DRIVER]
+    expect = write_sequence(seq, cfg, frames, dense_depths(cfg, frames, device),
+                            [i * 0.1 for i in range(len(frames))])
+    settings = os.path.join(workdir, "settings.yaml")
+    settings_yaml(cfg, settings)
+    viz = os.path.join(workdir, "rgbl_map.png")
+    slam, results, times, rec, counts = run_driver(
+        run_kitti_rgbl, [settings, seq, "--out", os.path.join(workdir, "rgbl.txt"), "--viz", viz],
+        device)
+    errs, _ = check_run("phase 17 (b) RGB-L driver --viz", results, rec, counts, expect, traj, 0, 2)
+    img = read_png(viz)
+    if img.shape != (vz.MAP_SIZE[1], vz.MAP_SIZE[0], 3) or not (img != 255).any():
+        fail(f"phase 17 (b): --viz wrote a {img.shape} image with nothing drawn")
+    log(f"phase 17 (b): the RGB-L driver with --viz over {len(frames)} frames: all OK, launches "
+        f"{counts}, max trans err {errs.max():.3f} m; the map view {img.shape} written and decoded "
+        f"({os.path.getsize(viz)} bytes)")
+
+
+def phase17(device, card: str):
+    """The viewer and the probes on phase 2's canyon: (a) the live viewer
+    during a full-width drive, (b) the RGB-L driver's ``--viz``, (c) the map
+    probes on the drive's map."""
+    t0 = time.perf_counter()
+    log(f"phase 17 on {card}")
+    cfg = kitti_synthetic_config()
+    traj, frames = render_drive(cfg, N_VIEWER, device)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_viewer_")
+    try:
+        t1 = time.perf_counter()
+        phase17_viewer(cfg, frames, device, workdir)
+        t2 = time.perf_counter()
+        phase17_probes(cfg, traj, frames, device, workdir)
+        t3 = time.perf_counter()
+        phase17_driver(cfg, traj, frames, device, workdir)
+        log(f"phase 17: (a) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, (b) "
+            f"{time.perf_counter() - t3:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s on {card}")
+
+
 # flags that run one group of phases in a process of its own; without
 # arguments the script runs phases 1-5 and then starts one process for each
 # group (``run_children``): each is bound by its host's launch rate, with the
 # card idle most of the time, and a process slows down as it ages (§7 of
 # PERF.md), so the groups run fresh and side by side
-CHILD_FLAGS = ("--loop-phases", "--canyon-phases", "--phase13", "--phase14", "--phase15")
+CHILD_FLAGS = ("--loop-phases", "--canyon-phases", "--phase13", "--phase14", "--phase15",
+               "--phase16", "--phase17")
 
 
 def flag_value(argv, flag: str):
@@ -4007,6 +4377,10 @@ def main():
             phase14(device, card)
         if "--phase15" in argv:
             phase15(device, card)
+        if "--phase16" in argv:
+            phase16(device, card)
+        if "--phase17" in argv:
+            phase17(device, card)
         log(card)
         return
     if "--mapping-drive" in sys.argv[1:]:
@@ -4185,7 +4559,7 @@ def main():
         f"{len(late_ms)} frames, median {statistics.median(late_ms):.2f}, all "
         f"{' '.join(f'{x:.1f}' for x in late_ms)}")
 
-    # ---- phases 6-14: four processes of their own on this card, each started
+    # ---- phases 6-17: five processes of their own on this card, each started
     # fresh (phases 1-5, the kernels' times and the main path's latency, had
     # the host and the card to themselves) -------------------------------------
     del late, frames
@@ -4196,6 +4570,7 @@ def main():
         ("phase 13 stereo-inertial, phases 14 and 15",
          ["--phase13", "stereo-inertial", "--phase14", "--phase15"]),
         ("phase 13 mono-inertial", ["--phase13", "mono-inertial"]),
+        ("phases 16 and 17 (the sharded BA, the viewer, the probes)", ["--phase16", "--phase17"]),
     ])
     log(f"command time: {time.perf_counter() - T_START:.1f} s")
 

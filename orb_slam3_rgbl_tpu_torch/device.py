@@ -16,6 +16,12 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class StreamOrder:
     """Ordering for device tensors that several CUDA streams write and read
     (the tracking thread's stream and the mapping, loop and GBA workers').

@@ -5,13 +5,14 @@ times, and save ``CameraTrajectory.txt`` in KITTI format.
 
     python -m orb_slam3_rgbl_tpu_torch.examples.run_kitti_rgbl <settings.yaml> \\
         <sequence_dir> [--out CameraTrajectory.txt] [--frames N] [--stats FILE] \\
-        [--async-mapping] [--native-loader] [--device cuda|cpu]
+        [--async-mapping] [--native-loader] [--viz MAP.png] [--device cuda|cpu]
 
 The frames are decoded ahead of the loop in worker processes
 (``io/native_loader.NativeKittiSequence``), so the tracking thread never
 shares the interpreter lock with the PNG decoder; the stage table's ``load``
 row is the loop's wait for each frame. ``--native-loader`` is accepted for
-the JAX driver's command line and changes nothing.
+the JAX driver's command line and changes nothing. ``--viz`` writes the
+top-down map view with the trajectory (``viz/viewer.plot_map``) at the end.
 
 The sequence directory is KITTI odometry's layout (``image_2/*.png``,
 ``velodyne/*.bin``, ``times.txt``); the settings file is the reference's
@@ -40,6 +41,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--native-loader", action="store_true",
                     help="accepted for the JAX driver's command line: the frames are "
                          "always decoded ahead of the loop in worker processes")
+    ap.add_argument("--viz", default="", help="write a map plot to this path at the end")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -92,6 +94,10 @@ def run(args: argparse.Namespace):
     print(f"trajectory saved to {args.out}", file=sys.stderr)
     if args.stats:
         save_stats(timer, args.stats)
+    if args.viz:
+        from orb_slam3_rgbl_tpu_torch.viz.viewer import plot_map
+
+        plot_map(slam.map, trajectory=slam.trajectory(), path=args.viz)
     return slam, results, times
 
 

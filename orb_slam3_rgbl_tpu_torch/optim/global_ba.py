@@ -21,11 +21,21 @@ run, so two solves of one problem give the same bits (an atomic
 scatter-add would not, and a last-bit difference can flip the accept
 test). The outer loop runs on the host and every decision in it is a
 ``torch.where`` on device tensors.
+
+The same solve runs landmark-sharded over ranks (``parallel/sharded_ba``):
+each rank holds every pose and its own slice of the landmarks, and
+``all_reduce`` adds over the ranks what a sum over all observations needs —
+the cost, the active count, the gradient and preconditioner pose blocks at
+assembly; the pose half of H·v with the landmark half of the first CG dot
+product, then the landmark half of the second, in each CG step; the new cost
+and active count at acceptance. Values summed at one point travel in one
+flat buffer: one collective each. Without ``all_reduce`` the arithmetic is
+the single-device solve's, op for op.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -73,6 +83,17 @@ class PoseSegments:
         return flat[self.table].sum(dim=1)
 
 
+def _summed(all_reduce, *parts):
+    """``parts`` added over the ranks by one ``all_reduce`` of a flat buffer
+    in the first part's dtype (integer counts below 2²⁴ stay exact in f32);
+    ``parts`` as they are without ``all_reduce``."""
+    if all_reduce is None:
+        return parts
+    flat = torch.cat([p.reshape(-1).to(parts[0].dtype) for p in parts])
+    all_reduce(flat)
+    return tuple(torch.split(flat, [p.numel() for p in parts]))
+
+
 def ba_cost(problem: BAProblem, cam: PinholeCamera) -> torch.Tensor:
     """The plain (no Huber) cost of a problem as it stands: what
     ``GBAResult.cost`` reports after a solve."""
@@ -81,14 +102,18 @@ def ba_cost(problem: BAProblem, cam: PinholeCamera) -> torch.Tensor:
 
 def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseSegments,
                          iterations: int = 8,
-                         cg_iters: int = 24, huber_iters: int = 5) -> GBAResult:
+                         cg_iters: int = 24, huber_iters: int = 5,
+                         all_reduce: Optional[Callable[[torch.Tensor], None]] = None) -> GBAResult:
     """LM outer loop with PCG inner solves over the full (pose, landmark)
     state. Fixed/invalid poses and invalid landmarks are projected out of
     the Krylov space by masking.
 
     ``segments``: the ``PoseSegments`` of this problem's observation table
     (they serve every solve on that table; building them waits for the
-    device once, so nothing in the solve does)."""
+    device once, so nothing in the solve does). ``all_reduce``: sums a flat
+    tensor in place over the ranks of a landmark-sharded solve (the module
+    docstring); ``problem`` then holds this rank's landmarks, and the
+    result's cost is the sum over the ranks."""
     K = problem.poses.shape[0]
     M, D = problem.obs_kf.shape
     dtype, dev = problem.poses.dtype, problem.poses.device
@@ -100,7 +125,9 @@ def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseS
     eye3 = torch.eye(3, dtype=dtype, device=dev)
 
     def dot(a, b):
-        return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
+        # the pose half is replicated; the landmark half is this rank's
+        (lm_half,) = _summed(all_reduce, torch.sum(a[1] * b[1]))
+        return torch.sum(a[0] * b[0]) + lm_half
 
     poses, lms = problem.poses, problem.landmarks
     lam = torch.full((), 1e-3, dtype=dtype, device=dev)
@@ -108,14 +135,17 @@ def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseS
         P = problem._replace(poses=poses, landmarks=lms)
         use_huber = it < huber_iters
         r, Jp, Jl, w, chi2, active, cost = _linearize(P, cam, use_huber, all_obs)
-        # gradient g = Jᵀ W r
+        # gradient g = Jᵀ W r and the block-Jacobi preconditioner's pose blocks
         wr = w[..., None] * r                                              # (M, D, 3)
-        g_p = segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wr)) * pose_free
+        wJp = w[..., None, None] * Jp
+        cost, n_active, g_p, Hpp_diag = _summed(
+            all_reduce, cost, active.sum(), segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wr)),
+            segments.sum((wJp.transpose(-1, -2) @ Jp).reshape(M, D, 36)))
+        g_p = g_p.reshape(K, 6) * pose_free
         g_l = torch.einsum("mdij,mdi->mj", Jl, wr) * lm_free
 
         # block-Jacobi preconditioner (damped diagonal blocks)
-        wJp = w[..., None, None] * Jp
-        Hpp_diag = segments.sum((wJp.transpose(-1, -2) @ Jp).reshape(M, D, 36)).reshape(K, 6, 6)
+        Hpp_diag = Hpp_diag.reshape(K, 6, 6)
         Hll_diag = torch.einsum("mdij,md,mdik->mjk", Jl, w, Jl)
         Hpp_d = Hpp_diag + lam * _diag_part(Hpp_diag) + 1e-7 * eye6
         Hll_d = Hll_diag + lam * _diag_part(Hll_diag) + 1e-7 * eye3
@@ -124,13 +154,18 @@ def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseS
         lam_p = lam * torch.diagonal(Hpp_diag, dim1=-2, dim2=-1) + 1e-7    # (K, 6)
         lam_l = lam * torch.diagonal(Hll_diag, dim1=-2, dim2=-1) + 1e-7    # (M, 3)
 
-        def H_apply(v_p, v_l):
+        def H_apply_dot(v_p, v_l):
+            """(H·v, v·H·v); the landmark half of the dot travels with the
+            pose half of H·v."""
             Jv = (torch.einsum("mdij,mdj->mdi", Jp, v_p[P.obs_kf])
                   + torch.einsum("mdij,mj->mdi", Jl, v_l))
             wJv = w[..., None] * Jv
-            Hp = segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wJv))
             Hl = torch.einsum("mdij,mdi->mj", Jl, wJv)
-            return (Hp + lam_p * v_p) * pose_free, (Hl + lam_l * v_l) * lm_free
+            Hv_l = (Hl + lam_l * v_l) * lm_free
+            Hp, lm_half = _summed(all_reduce, segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wJv)),
+                                  torch.sum(v_l * Hv_l))
+            Hv_p = (Hp.reshape(K, 6) + lam_p * v_p) * pose_free
+            return (Hv_p, Hv_l), torch.sum(v_p * Hv_p) + lm_half
 
         def precond(v_p, v_l):
             return (torch.einsum("kij,kj->ki", Minv_p, v_p) * pose_free,
@@ -143,8 +178,8 @@ def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseS
         p = z
         rz = dot(rr, z)
         for _ in range(cg_iters):
-            Ap = H_apply(*p)
-            alpha = rz / dot(p, Ap).clamp_min(1e-20)
+            Ap, pAp = H_apply_dot(*p)
+            alpha = rz / pAp.clamp_min(1e-20)
             x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
             rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
             z = precond(*rr)
@@ -158,15 +193,17 @@ def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseS
         new_lms = lms + dl
         P2 = problem._replace(poses=new_poses, landmarks=new_lms)
         *_, active2, cost_new = _linearize(P2, cam, use_huber, all_obs)
+        cost_new, n_active2 = _summed(all_reduce, cost_new, active2.sum())
         # reject diverged steps: NaN or an emptied active set collapses
         # the cost to 0 and would otherwise be accepted
         accept = ((cost_new < cost) & torch.isfinite(cost_new)
-                  & (2 * active2.sum() >= active.sum()))
+                  & (2 * n_active2 >= n_active))
         poses = torch.where(accept, new_poses, poses)
         lms = torch.where(accept, new_lms, lms)
         lam = torch.where(accept, (lam * 0.4).clamp_min(1e-8), (lam * 5.0).clamp_max(1e4))
 
     P = problem._replace(poses=poses, landmarks=lms)
     _, _, _, _, chi2, active, cost = _linearize(P, cam, False, all_obs)
+    (cost,) = _summed(all_reduce, cost)
     th = torch.where(problem.obs_ur >= 0, CHI2_STEREO, CHI2_MONO)
     return GBAResult(poses=poses, landmarks=lms, obs_inlier=active & (chi2 <= th), cost=cost)

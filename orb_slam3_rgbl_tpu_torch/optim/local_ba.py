@@ -125,8 +125,12 @@ def _diag_part(A: torch.Tensor) -> torch.Tensor:
     return torch.diag_embed(torch.diagonal(A, dim1=-2, dim2=-1))
 
 
-def _build_and_solve(problem: BAProblem, cam, r, Jp, Jl, w, lam, n_poses: int):
-    """One damped Schur step: returns (delta_poses (K, 6), delta_lms (M, 3))."""
+def _reduced_system(problem: BAProblem, r, Jp, Jl, w, lam, n_poses: int):
+    """The damped reduced camera system of one linearization, before the
+    fixed and invalid poses are masked: (S (6K, 6K), rhs (6K,)) and what the
+    back-substitution needs (V⁻¹, b_l, W). A sum over observations: the
+    landmark-sharded solve (``parallel/sharded_ba``) adds S and rhs over its
+    ranks."""
     P = problem
     K = n_poses
     M, D = P.obs_kf.shape
@@ -169,22 +173,33 @@ def _build_and_solve(problem: BAProblem, cam, r, Jp, Jl, w, lam, n_poses: int):
     U_damped = U + lam * _diag_part(U)
     S_full = torch.block_diag(*U_damped.unbind(0)) - S_cross
     rhs = (b_p - b_cross).reshape(K * 6)
+    return S_full, rhs, Vinv, b_l, Wpl
 
+
+def _solve_reduced(problem: BAProblem, S_full, rhs) -> torch.Tensor:
+    """δposes (K, 6) of the reduced system, the fixed and invalid poses held."""
+    free6 = ((~problem.pose_fixed) & problem.pose_valid).repeat_interleave(6)
     # fixed / invalid poses: identity rows and columns, zero right-hand side
-    free6 = ((~P.pose_fixed) & P.pose_valid).repeat_interleave(6)
     S_full = torch.where(free6[:, None] & free6[None, :], S_full, 0.0)
-    S_full = S_full + torch.diag(torch.where(free6, 1e-9, 1.0).to(dtype))
+    S_full = S_full + torch.diag(torch.where(free6, 1e-9, 1.0).to(S_full.dtype))
     rhs = torch.where(free6, rhs, 0.0)
-
     # solve_ex skips the error check, which would wait for the card
-    delta_p = -torch.linalg.solve_ex(S_full, rhs[:, None])[0][:, 0].reshape(K, 6)
+    return -torch.linalg.solve_ex(S_full, rhs[:, None])[0][:, 0].reshape(-1, 6)
 
-    # back-substitution: δl = −V⁻¹ (b_l + Σ_d Wᵀ δp)  (sign: H δ = −b)
-    dp_obs = delta_p[P.obs_kf]                                   # (M, D, 6)
+
+def _back_substitute(problem: BAProblem, delta_p, Vinv, b_l, Wpl) -> torch.Tensor:
+    """δl = −V⁻¹ (b_l + Σ_d Wᵀ δp)  (sign: H δ = −b); 0 for invalid landmarks."""
+    dp_obs = delta_p[problem.obs_kf]                             # (M, D, 6)
     Wt_dp = torch.sum(Wpl.transpose(-1, -2) @ dp_obs[..., None], dim=1)[..., 0]
     delta_l = -(Vinv @ (b_l + Wt_dp)[..., None])[..., 0]
-    delta_l = torch.where(has_lm[:, None], delta_l, 0.0)
-    return delta_p, delta_l
+    return torch.where(problem.lm_valid[:, None], delta_l, 0.0)
+
+
+def _build_and_solve(problem: BAProblem, cam, r, Jp, Jl, w, lam, n_poses: int):
+    """One damped Schur step: returns (delta_poses (K, 6), delta_lms (M, 3))."""
+    S_full, rhs, Vinv, b_l, Wpl = _reduced_system(problem, r, Jp, Jl, w, lam, n_poses)
+    delta_p = _solve_reduced(problem, S_full, rhs)
+    return delta_p, _back_substitute(problem, delta_p, Vinv, b_l, Wpl)
 
 
 def bundle_adjust(problem: BAProblem, cam: PinholeCamera, iterations: int = 10,

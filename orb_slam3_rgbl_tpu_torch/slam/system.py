@@ -83,6 +83,12 @@ hold the KB8 coefficients) the port keeps there too: the loop closer's Sim3
 and global BA, the weld, the monocular two-view initialization and DLT
 relocalization, and the fused step of the monocular, RGB-D and RGB-L
 sensors.
+
+``start_viewer`` starts the live viewer (``viz/live.LiveViewer``, the
+reference's Viewer thread): ``track_rgbl``, ``track_rgbd``,
+``track_monocular`` and ``track_stereo`` (the left image; the JAX package's
+stereo entry feeds nothing) hand it each frame's image; ``shutdown`` stops
+it first.
 """
 
 from __future__ import annotations
@@ -228,6 +234,9 @@ class System:
         self._rng_lock = threading.Lock()   # draws of _loop_rng (loop worker, _try_merge)
         self._streams: dict = {}            # plane → its CUDA stream
         self._tracker_stream = None         # the tracking thread's stream
+        # the live viewer (reference Viewer thread, System.cc:236-244),
+        # created on demand by start_viewer()
+        self._viewer = None
 
     # ------------------------------------------------------------------
     def _extract(self, gray):
@@ -302,6 +311,8 @@ class System:
         distorted camera or another sensor than RGBL every frame takes the
         classic ladder on the raw cloud."""
         self._check_timestamp_jump(timestamp)
+        if self._viewer is not None:
+            self._viewer.latest_img = gray   # FrameDrawer::Update feed
         if self.use_fused and self._undistort_cam is None and self.cfg.sensor == RGBL:
             self._ensure_fast("rgbl")
             img = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
@@ -323,6 +334,8 @@ class System:
         place of the cloud; an inertial frame (``imu``: the samples since the
         previous frame) takes the per-stage path."""
         self._check_timestamp_jump(timestamp)
+        if self._viewer is not None:
+            self._viewer.latest_img = gray
         depth = torch.as_tensor(depth_img, dtype=torch.float32, device=self.device)
         if (self.use_fused and self._undistort_cam is None and imu is None
                 and self.cfg.sensor == RGBD):
@@ -363,6 +376,10 @@ class System:
         attach_stereo_fisheye_depth``); then the classic ladder (``imu``:
         the samples since the previous frame, IMU_STEREO)."""
         self._check_timestamp_jump(timestamp)
+        if self._viewer is not None:
+            # the left image, as the reference's FrameDrawer::Update for
+            # every sensor (the JAX package's track_stereo has no feed)
+            self._viewer.latest_img = gray_l
         img_l = torch.as_tensor(gray_l, dtype=torch.float32, device=self.device)
         img_r = torch.as_tensor(gray_r, dtype=torch.float32, device=self.device)
         if self.rectifier is not None:
@@ -386,6 +403,8 @@ class System:
         initializes; ``imu``: the samples since the previous frame); steady
         MONOCULAR frames run the fused step without a depth source."""
         self._check_timestamp_jump(timestamp)
+        if self._viewer is not None:
+            self._viewer.latest_img = gray
         img = torch.as_tensor(gray, dtype=torch.float32, device=self.device)
         if (self.use_fused and self._undistort_cam is None and imu is None
                 and self.cfg.sensor == MONOCULAR):
@@ -893,6 +912,8 @@ class System:
         bad-IMU reset), then elastic recovery — a LOST streak longer than
         ``fps`` frames archives the map (or discards it, under two
         keyframes) and starts a new one (Tracking.cc:2032-2058)."""
+        if self._viewer is not None:
+            self._viewer.update(self.tracker)     # FrameDrawer::Update: the frame's keypoints
         if ((self._map_future is not None and self._map_future.done())
                 or (self._loop_inbox and self._map_future is None)):
             self._poll_mapping()
@@ -932,10 +953,31 @@ class System:
         t.cur_vel = self.map.kf_vel[t.ref_kf].copy()
         t.cur_bias = (self.map.kf_bg[t.ref_kf].copy(), self.map.kf_ba[t.ref_kf].copy())
 
+    # -- live viewer (reference Viewer / FrameDrawer threads) -------------
+    def start_viewer(self, out_dir: str = "viewer_out", hz: float = 2.0,
+                     http_port=None, map_3d: bool = False):
+        """Start the live-viewer thread (``Viewer::Run``): the frame overlay
+        and a map view rendered to ``out_dir`` at ``hz``, and served over
+        HTTP on ``http_port`` (0 picks a free port) if given. Returns the
+        ``viz.live.LiveViewer``."""
+        from orb_slam3_rgbl_tpu_torch.viz.live import LiveViewer
+
+        if self._viewer is None:
+            self._viewer = LiveViewer(self, out_dir=out_dir, hz=hz, http_port=http_port,
+                                      map_3d=map_3d)
+            self._viewer.start()
+        return self._viewer
+
+    def stop_viewer(self):
+        if self._viewer is not None:
+            self._viewer.stop()
+            self._viewer = None
+
     # ------------------------------------------------------------------
     def shutdown(self):
-        """``System::Shutdown``: drain the planes, land the global BA and
-        stop the worker threads."""
+        """``System::Shutdown``: stop the viewer, drain the planes, land the
+        global BA and stop the worker threads."""
+        self.stop_viewer()
         self._join_mapping()
         self._poll_gba(wait=True)
         for name in ("_map_exec", "_loop_exec", "_gba_exec"):

@@ -253,3 +253,52 @@ def synthetic_rgbl_config(width: int = 320, height: int = 192, n_features: int =
                           dil_kernel_type="Diamond", dil_kernel_size_u=5, dil_kernel_size_v=7),
         fps=10.0, max_keyframes=512, max_map_points=65536,
     )
+
+
+def synth_gba_problem(K: int, M: int, D: int, cam, seed: int = 0, device=None):
+    """A whole-map BA instance (the port's copy of the JAX harness's
+    ``__graft_entry__._synth_gba_problem``, drawn in numpy in the same order,
+    so one seed gives the same bits): K poses along a weaving forward
+    trajectory with identity rotations, M landmarks each seen by D poses
+    near its anchor, projections with 0.4 px noise, then poses (all but the
+    fixed first) and landmarks perturbed. Returns (``BAProblem`` on
+    ``device``, ground-truth Tcw (K, 7), camera centres (K, 3)), the last
+    two as numpy."""
+    from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
+
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    t = np.arange(K, dtype=np.float32)
+    centers = np.stack([0.5 * np.sin(0.1 * t), 0.05 * t, 1.0 * t], 1)
+    poses_gt = np.tile(np.array([1, 0, 0, 0, 0, 0, 0], np.float32), (K, 1))
+    poses_gt[:, 4:7] = -centers            # identity rotation: Tcw t = −C
+
+    anchor = rng.integers(0, K, M)
+    lms_gt = centers[anchor] + np.stack([
+        rng.uniform(-15, 15, M), rng.uniform(-5, 5, M), rng.uniform(8, 45, M),
+    ], 1).astype(np.float32)
+
+    obs_kf = ((anchor[:, None] + rng.integers(0, 3, (M, D))) % K).astype(np.int32)
+    pc = lms_gt[:, None, :] - centers[obs_kf]
+    z = np.maximum(pc[..., 2], 0.5)
+    u = cam.fx * pc[..., 0] / z + cam.cx + rng.normal(0, 0.4, (M, D))
+    v = cam.fy * pc[..., 1] / z + cam.cy + rng.normal(0, 0.4, (M, D))
+    ur = u - cam.bf / z
+    obs_mask = (pc[..., 2] > 0.5) & (u > 0) & (u < cam.width) & (v > 0) & (v < cam.height)
+
+    poses0 = poses_gt.copy()
+    poses0[1:, 4:7] += rng.normal(0, 0.05, (K - 1, 3))
+    lms0 = lms_gt + rng.normal(0, 0.2, (M, 3)).astype(np.float32)
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+
+    def on(a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    problem = BAProblem(
+        poses=on(poses0), pose_fixed=on(fixed), pose_valid=torch.ones(K, dtype=torch.bool, device=dev),
+        landmarks=on(lms0.astype(np.float32)), lm_valid=torch.ones(M, dtype=torch.bool, device=dev),
+        obs_kf=on(obs_kf, torch.int64), obs_uv=on(np.stack([u, v], -1).astype(np.float32)),
+        obs_ur=on(ur.astype(np.float32)), obs_inv_sigma2=torch.ones((M, D), device=dev),
+        obs_mask=on(obs_mask))
+    return problem, poses_gt, centers

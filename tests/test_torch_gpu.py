@@ -3,8 +3,9 @@ plane's solvers, the atlas weld, the tree vocabulary, the RGB-D fused step,
 keypoint undistortion, stereo matching and refinement, the two-view solve and
 the monocular fused step, K1 and K2 at the EuRoC camera's 752×480 and at
 TUM-VI's 512×512, the IMU preintegration, the visual-inertial solvers and
-the KannalaBrandt8 pose solve and local BA against their CPU runs, on the
-card. Marked
+the KannalaBrandt8 pose solve and local BA against their CPU runs, and the
+landmark-sharded global BA over NCCL (one rank) and gloo (two ranks sharing
+the card), on the card. Marked
 ``gpu``; without a card each test skips from its fixture.
 
 The machine with the card has no JAX, so run this file without the
@@ -1001,3 +1002,87 @@ def test_vi_solvers_on_the_card_without_a_wait(cuda):
     assert close(init_c["bias"].bg, init_g["bias"].bg, 1e-5)
     assert close(ba_c.Twb, ba_g.Twb, 1e-4) and close(ba_c.vel, ba_g.vel, 1e-3)
     assert torch.equal(ba_c.obs_inlier, ba_g.obs_inlier.cpu())
+
+
+def _sharded_problem(device):
+    from orb_slam3_rgbl_tpu_torch import synthetic
+    from orb_slam3_rgbl_tpu_torch.config import kitti_rgbl_config
+
+    cam = kitti_rgbl_config().camera
+    return (cam,) + synthetic.synth_gba_problem(64, 8192, 4, cam, device=device)
+
+
+def test_sharded_pcg_over_nccl_one_rank_is_the_single_device_solve(cuda):
+    """NCCL at world 1: no wait for the device inside the solve, and the
+    same bits as ``global_bundle_adjust`` (a one-rank sum is the identity)."""
+    import shutil
+
+    from orb_slam3_rgbl_tpu_torch.optim import global_ba as gba
+    from orb_slam3_rgbl_tpu_torch.parallel import mesh as mesh_mod, sharded_ba
+
+    cam, problem, _, _ = _sharded_problem(cuda)
+    init, store = mesh_mod.file_store()
+    m = mesh_mod.make_mesh(0, 1, "nccl", init, device=cuda)
+    try:
+        shard = sharded_ba.shard_problem(problem, 0, 1, m.device)
+        seg = gba.PoseSegments(shard.obs_kf, shard.obs_mask, shard.poses.shape[0])
+        run = sharded_ba.make_distributed_pcg_ba(m, cam, iterations=3, cg_iters=40)
+        run(shard, seg)                                  # NCCL's first collective sets it up
+        res = _no_sync(lambda: run(shard, seg))
+        torch.cuda.synchronize()
+    finally:
+        m.close()
+        shutil.rmtree(store, ignore_errors=True)
+    single = gba.global_bundle_adjust(problem, cam, seg, iterations=3, cg_iters=40)
+    assert torch.equal(res.poses, single.poses) and torch.equal(res.landmarks, single.landmarks)
+    assert float(res.cost) < 0.2 * float(gba.ba_cost(problem, cam))
+
+
+def test_sharded_pcg_over_gloo_two_ranks_on_one_card(cuda):
+    """Two gloo ranks on the one card: poses bit-equal on both ranks and in
+    both solves, within 2e-4 of the single-device solve (2 × 25)."""
+    from orb_slam3_rgbl_tpu_torch.optim import global_ba as gba
+    from orb_slam3_rgbl_tpu_torch.parallel import mesh as mesh_mod, sharded_ba
+
+    if mesh_mod.rank_layout(2, cuda) != ("gloo", ["cuda:0", "cuda:0"]):
+        pytest.skip("two ranks share a card only on a host with one card")
+    cam, problem, _, _ = _sharded_problem("cpu")
+    kw = dict(iterations=2, cg_iters=25)
+    (ranks,) = sharded_ba.solve_on_ranks([(problem, cam, "pcg", kw)], 2, cuda, repeats=2,
+                                         timeout_s=600)
+    first = ranks[0]["poses"][0]
+    for r in ranks:
+        for rep in range(2):
+            assert r["poses"][rep].tobytes() == first.tobytes()
+    p = problem._replace(**{f: getattr(problem, f).to(cuda) for f in problem._fields})
+    seg = gba.PoseSegments(p.obs_kf, p.obs_mask, p.poses.shape[0])
+    single = gba.global_bundle_adjust(p, cam, seg, **kw)
+    assert np.abs(first - single.poses.cpu().numpy()).max() < 2e-4
+
+
+def test_live_viewer_copies_after_the_tracking_streams_writes(cuda, tmp_path):
+    """The frame image and keypoints written on a tracking stream of their
+    own, behind a long product: the viewer's copies (on its own stream,
+    from this thread) read them only after those writes, exactly."""
+    import types
+
+    from orb_slam3_rgbl_tpu_torch.viz.live import LiveViewer
+
+    viewer = LiveViewer(types.SimpleNamespace(), out_dir=str(tmp_path))
+    big = torch.rand(4096, 4096, device=cuda) / 4096
+    torch.cuda.synchronize()
+    tracking = torch.cuda.Stream()
+    with torch.cuda.stream(tracking):
+        x = big
+        for _ in range(30):
+            x = x @ big
+        gray = x[:376, :1241] * 1e6
+        uv = x[:2000, :2] * 1e6 + 1.0
+        valid = x[:2000, 2] > x[:2000, 3]
+        viewer.latest_img = gray
+        viewer.update(types.SimpleNamespace(last_feats=types.SimpleNamespace(uv=uv, valid=valid)))
+    gray_h, uv_h, valid_h = viewer._host_frame()
+    tracking.synchronize()
+    np.testing.assert_array_equal(gray_h, gray.cpu().numpy())
+    np.testing.assert_array_equal(uv_h, uv.cpu().numpy())
+    np.testing.assert_array_equal(valid_h, valid.cpu().numpy())

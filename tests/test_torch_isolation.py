@@ -4,6 +4,7 @@ CPU on their own; ``chip_smoke.py`` fails without a card or without the
 rest of the repository."""
 
 import dataclasses
+import operator
 import os
 import shutil
 import subprocess
@@ -53,6 +54,11 @@ PORT_MODULES = [
     "orb_slam3_rgbl_tpu_torch.tools.train_vocabulary",
     "orb_slam3_rgbl_tpu_torch.tools.evaluate_ate", "orb_slam3_rgbl_tpu_torch.tools.triage_ate",
     "orb_slam3_rgbl_tpu_torch.tools.pg_probe",
+    "orb_slam3_rgbl_tpu_torch.parallel", "orb_slam3_rgbl_tpu_torch.parallel.mesh",
+    "orb_slam3_rgbl_tpu_torch.parallel.sharded_ba", "orb_slam3_rgbl_tpu_torch.viz",
+    "orb_slam3_rgbl_tpu_torch.viz.raster", "orb_slam3_rgbl_tpu_torch.viz.viewer",
+    "orb_slam3_rgbl_tpu_torch.viz.live", "orb_slam3_rgbl_tpu_torch.tools.bench_scaling",
+    "orb_slam3_rgbl_tpu_torch.tools.gba_probe", "orb_slam3_rgbl_tpu_torch.tools.map_stage_probe",
     "chip_smoke",
 ]
 
@@ -123,7 +129,7 @@ def test_pyproject_lists_every_port_package_and_script():
     assert {"orb_slam3_rgbl_tpu_torch.imu", "orb_slam3_rgbl_tpu_torch.tools"} <= found
     assert found == {p for p in listed if p.split(".")[0] == "orb_slam3_rgbl_tpu_torch"}
     scripts = {k: v for k, v in project["project"]["scripts"].items() if k.endswith("-torch")}
-    assert len(scripts) == 11
+    assert len(scripts) == 14
     for name, target in scripts.items():
         module, func = target.split(":")
         assert module.startswith("orb_slam3_rgbl_tpu_torch."), name
@@ -163,7 +169,8 @@ def test_entry_points_never_fall_back_to_cpu():
                 call()
     # the tools with their default --device, on a host without a card (the
     # files need not exist: each resolves the device first)
-    from orb_slam3_rgbl_tpu_torch.tools import (evaluate_ate, kitti_publisher, pg_probe,
+    from orb_slam3_rgbl_tpu_torch.tools import (bench_scaling, evaluate_ate, gba_probe,
+                                                kitti_publisher, map_stage_probe, pg_probe,
                                                 project_velodyne, train_vocabulary, triage_ate)
     import tempfile
 
@@ -174,7 +181,9 @@ def test_entry_points_never_fall_back_to_cpu():
     tools = [lambda: evaluate_ate.main(["gt.txt", "est.txt"]), lambda: pg_probe.main([]),
              lambda: project_velodyne.main(["seq"]), lambda: train_vocabulary.main(["images"]),
              lambda: triage_ate.main(["sync", "2"]),
-             lambda: kitti_publisher.main([settings, "seq"])]
+             lambda: kitti_publisher.main([settings, "seq"]),
+             lambda: gba_probe.main(["map.npz"]), lambda: map_stage_probe.main(["map.npz"]),
+             lambda: bench_scaling.main([])]
     for call in tools if not torch.cuda.is_available() else []:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -234,6 +243,7 @@ def test_device_none_never_answers_on_the_cpu():
     from orb_slam3_rgbl_tpu_torch.slam.system import System
     from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker
     from orb_slam3_rgbl_tpu_torch.utils import serialization
+    from orb_slam3_rgbl_tpu_torch.parallel import mesh, sharded_ba
 
     cfg = dataclasses.replace(synthetic.synthetic_rgbl_config(), loop_closing=False)
     feats = {k: np.zeros((4,) + s, d) for k, s, d in (
@@ -295,6 +305,16 @@ def test_device_none_never_answers_on_the_cpu():
             lambda: convert.atlas_entry_from_numpy(jax_entry).db.vectors,
         pre + "utils.serialization.load_atlas":
             lambda: serialization.load_atlas(_tiny_atlas(cfg, small_map), cfg).entries[0].db.vectors,
+        pre + "synthetic.synth_gba_problem":
+            lambda: synthetic.synth_gba_problem(4, 8, 2, cfg.camera)[0].poses,
+        pre + "parallel.mesh.make_mesh": lambda: _one_rank_tensor(mesh),
+        pre + "parallel.mesh.rank_layout":
+            lambda: torch.zeros(1, device=mesh.rank_layout(1)[1][0]),
+        pre + "parallel.mesh.run_ranks": lambda: torch.zeros(
+            1, device=mesh.run_ranks(operator.attrgetter("device"), (), 1, timeout_s=120)[0]),
+        pre + "parallel.sharded_ba.solve_on_ranks": lambda: sharded_ba.solve_on_ranks(
+            [(synthetic.synth_gba_problem(4, 8, 2, cfg.camera, device="cpu")[0], cfg.camera,
+              "pcg", dict(iterations=1, cg_iters=2))], 1, timeout_s=120),
     }
     # follows the FastPath it is given: covered by tests/test_torch_step.py
     follows_an_object = {pre + "convert.fast_path_state_from_numpy"}
@@ -308,6 +328,8 @@ def test_device_none_never_answers_on_the_cpu():
     assert LoopCloser(cfg, small_map, device="cpu").db.vectors.device.type == "cpu"
     assert tree_vocab.train_vocabulary(descs, k=2, depth=1, device="cpu").idf.device.type == "cpu"
     assert convert.atlas_entry_from_numpy(jax_entry, device="cpu").db.vectors.device.type == "cpu"
+    assert synthetic.synth_gba_problem(4, 8, 2, cfg.camera, device="cpu")[0].poses.device.type == "cpu"
+    assert mesh.rank_layout(2, "cpu") == ("gloo", ["cpu", "cpu"])
     for name, call in calls.items():
         if torch.cuda.is_available():
             out = call()
@@ -316,6 +338,17 @@ def test_device_none_never_answers_on_the_cpu():
         else:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call()
+
+
+def _one_rank_tensor(mesh):
+    """A tensor on the device of a one-rank group made with ``device=None``."""
+    init, store = mesh.file_store()
+    m = mesh.make_mesh(0, 1, "gloo", init)
+    try:
+        return torch.zeros(1, device=m.device)
+    finally:
+        m.close()
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def _tiny_atlas(cfg, m) -> str:
