@@ -358,7 +358,7 @@ def _device_work(events) -> list:
     without the device-side ranges of ``record_function`` spans, which
     cover the work inside them."""
     return [e for e in events if _on_device(e) and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(("track.", "map.", "loop.", "merge."))]
+            and not e.name.startswith(("track.", "map.", "loop.", "merge.", "gba."))]
 
 
 def _busy_ms(events) -> float:

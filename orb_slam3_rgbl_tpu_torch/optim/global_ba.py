@@ -31,6 +31,15 @@ product, then the landmark half of the second, in each CG step; the new cost
 and active count at acceptance. Values summed at one point travel in one
 flat buffer: one collective each. Without ``all_reduce`` the arithmetic is
 the single-device solve's, op for op.
+
+Under ``torch.profiler`` each stage is a span (``utils/profiling.tracer``):
+``gba.segments`` around ``PoseSegments``; ``gba.lm`` around a solve, and
+inside it, per LM iteration, ``gba.linearize`` (linearization, gradient,
+pose blocks), ``gba.precond`` (landmark blocks, damping, inverses, the PCG
+set-up), one ``gba.cg_step`` per CG step and ``gba.accept`` (the update, its
+re-linearization, the accept test, the damping), then ``gba.final``. They
+follow one another with nothing between them, so their device windows tile
+the iteration. Without a profiler they cost one check a call.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from orb_slam3_rgbl_tpu_torch.geometry import lie
 from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem, _diag_part, _linearize
 from orb_slam3_rgbl_tpu_torch.optim.pose_opt import CHI2_MONO, CHI2_STEREO
+from orb_slam3_rgbl_tpu_torch.utils.profiling import tracer
 
 
 class GBAResult(NamedTuple):
@@ -59,22 +69,24 @@ class PoseSegments:
 
     def __init__(self, obs_kf: torch.Tensor, obs_mask: torch.Tensor, n_poses: int):
         K, dev = n_poses, obs_kf.device
-        n = obs_kf.numel()
-        key = torch.where(obs_mask, obs_kf, K).reshape(-1)           # masked → past the end
-        # sized from the data: one wait for the device, before the solve
-        counts = torch.zeros(K + 1, dtype=torch.int64, device=dev).index_add(
-            0, key, torch.ones_like(key))
-        L = max(int(counts[:K].max()), 1)
-        order = torch.argsort(key, stable=True)
-        skey = key[order]
-        starts = torch.searchsorted(skey, torch.arange(K + 1, device=dev))
-        rank = torch.arange(n, device=dev) - starts[skey]
-        keep = skey < K
-        # kept entries have distinct (pose, rank) targets; the masked land in a spare row
-        table = torch.full((K + 1, L), n, dtype=torch.int64, device=dev)
-        table[torch.where(keep, skey, K), torch.where(keep, rank, 0)] = torch.where(keep, order, n)
-        self.table = table[:K]
-        self.n_obs = n
+        with tracer(dev)("gba.segments"):
+            n = obs_kf.numel()
+            key = torch.where(obs_mask, obs_kf, K).reshape(-1)           # masked → past the end
+            # sized from the data: one wait for the device, before the solve
+            counts = torch.zeros(K + 1, dtype=torch.int64, device=dev).index_add(
+                0, key, torch.ones_like(key))
+            L = max(int(counts[:K].max()), 1)
+            order = torch.argsort(key, stable=True)
+            skey = key[order]
+            starts = torch.searchsorted(skey, torch.arange(K + 1, device=dev))
+            rank = torch.arange(n, device=dev) - starts[skey]
+            keep = skey < K
+            # kept entries have distinct (pose, rank) targets; the masked land in a spare row
+            table = torch.full((K + 1, L), n, dtype=torch.int64, device=dev)
+            table[torch.where(keep, skey, K), torch.where(keep, rank, 0)] = \
+                torch.where(keep, order, n)
+            self.table = table[:K]
+            self.n_obs = n
 
     def sum(self, values: torch.Tensor) -> torch.Tensor:
         """(M, D, C) per-observation values → (K, C) per-pose sums."""
@@ -114,6 +126,12 @@ def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseS
     tensor in place over the ranks of a landmark-sharded solve (the module
     docstring); ``problem`` then holds this rank's landmarks, and the
     result's cost is the sum over the ranks."""
+    span = tracer(problem.poses.device)
+    with span("gba.lm"):
+        return _solve(problem, cam, segments, iterations, cg_iters, huber_iters, all_reduce, span)
+
+
+def _solve(problem, cam, segments, iterations, cg_iters, huber_iters, all_reduce, span):
     K = problem.poses.shape[0]
     M, D = problem.obs_kf.shape
     dtype, dev = problem.poses.dtype, problem.poses.device
@@ -132,78 +150,85 @@ def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseS
     poses, lms = problem.poses, problem.landmarks
     lam = torch.full((), 1e-3, dtype=dtype, device=dev)
     for it in range(iterations):
-        P = problem._replace(poses=poses, landmarks=lms)
-        use_huber = it < huber_iters
-        r, Jp, Jl, w, chi2, active, cost = _linearize(P, cam, use_huber, all_obs)
-        # gradient g = Jᵀ W r and the block-Jacobi preconditioner's pose blocks
-        wr = w[..., None] * r                                              # (M, D, 3)
-        wJp = w[..., None, None] * Jp
-        cost, n_active, g_p, Hpp_diag = _summed(
-            all_reduce, cost, active.sum(), segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wr)),
-            segments.sum((wJp.transpose(-1, -2) @ Jp).reshape(M, D, 36)))
-        g_p = g_p.reshape(K, 6) * pose_free
-        g_l = torch.einsum("mdij,mdi->mj", Jl, wr) * lm_free
+        with span("gba.linearize"):
+            P = problem._replace(poses=poses, landmarks=lms)
+            use_huber = it < huber_iters
+            r, Jp, Jl, w, chi2, active, cost = _linearize(P, cam, use_huber, all_obs)
+            # gradient g = Jᵀ W r and the block-Jacobi preconditioner's pose blocks
+            wr = w[..., None] * r                                              # (M, D, 3)
+            wJp = w[..., None, None] * Jp
+            cost, n_active, g_p, Hpp_diag = _summed(
+                all_reduce, cost, active.sum(),
+                segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wr)),
+                segments.sum((wJp.transpose(-1, -2) @ Jp).reshape(M, D, 36)))
+            g_p = g_p.reshape(K, 6) * pose_free
+            g_l = torch.einsum("mdij,mdi->mj", Jl, wr) * lm_free
 
-        # block-Jacobi preconditioner (damped diagonal blocks)
-        Hpp_diag = Hpp_diag.reshape(K, 6, 6)
-        Hll_diag = torch.einsum("mdij,md,mdik->mjk", Jl, w, Jl)
-        Hpp_d = Hpp_diag + lam * _diag_part(Hpp_diag) + 1e-7 * eye6
-        Hll_d = Hll_diag + lam * _diag_part(Hll_diag) + 1e-7 * eye3
-        Minv_p = torch.linalg.inv_ex(torch.where(pose_free[..., None], Hpp_d, eye6))[0]
-        Minv_l = torch.linalg.inv_ex(torch.where(lm_free[..., None], Hll_d, eye3))[0]
-        lam_p = lam * torch.diagonal(Hpp_diag, dim1=-2, dim2=-1) + 1e-7    # (K, 6)
-        lam_l = lam * torch.diagonal(Hll_diag, dim1=-2, dim2=-1) + 1e-7    # (M, 3)
+        with span("gba.precond"):
+            # block-Jacobi preconditioner (damped diagonal blocks)
+            Hpp_diag = Hpp_diag.reshape(K, 6, 6)
+            Hll_diag = torch.einsum("mdij,md,mdik->mjk", Jl, w, Jl)
+            Hpp_d = Hpp_diag + lam * _diag_part(Hpp_diag) + 1e-7 * eye6
+            Hll_d = Hll_diag + lam * _diag_part(Hll_diag) + 1e-7 * eye3
+            Minv_p = torch.linalg.inv_ex(torch.where(pose_free[..., None], Hpp_d, eye6))[0]
+            Minv_l = torch.linalg.inv_ex(torch.where(lm_free[..., None], Hll_d, eye3))[0]
+            lam_p = lam * torch.diagonal(Hpp_diag, dim1=-2, dim2=-1) + 1e-7    # (K, 6)
+            lam_l = lam * torch.diagonal(Hll_diag, dim1=-2, dim2=-1) + 1e-7    # (M, 3)
 
-        def H_apply_dot(v_p, v_l):
-            """(H·v, v·H·v); the landmark half of the dot travels with the
-            pose half of H·v."""
-            Jv = (torch.einsum("mdij,mdj->mdi", Jp, v_p[P.obs_kf])
-                  + torch.einsum("mdij,mj->mdi", Jl, v_l))
-            wJv = w[..., None] * Jv
-            Hl = torch.einsum("mdij,mdi->mj", Jl, wJv)
-            Hv_l = (Hl + lam_l * v_l) * lm_free
-            Hp, lm_half = _summed(all_reduce, segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wJv)),
-                                  torch.sum(v_l * Hv_l))
-            Hv_p = (Hp.reshape(K, 6) + lam_p * v_p) * pose_free
-            return (Hv_p, Hv_l), torch.sum(v_p * Hv_p) + lm_half
+            def H_apply_dot(v_p, v_l):
+                """(H·v, v·H·v); the landmark half of the dot travels with the
+                pose half of H·v."""
+                Jv = (torch.einsum("mdij,mdj->mdi", Jp, v_p[P.obs_kf])
+                      + torch.einsum("mdij,mj->mdi", Jl, v_l))
+                wJv = w[..., None] * Jv
+                Hl = torch.einsum("mdij,mdi->mj", Jl, wJv)
+                Hv_l = (Hl + lam_l * v_l) * lm_free
+                Hp, lm_half = _summed(all_reduce,
+                                      segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wJv)),
+                                      torch.sum(v_l * Hv_l))
+                Hv_p = (Hp.reshape(K, 6) + lam_p * v_p) * pose_free
+                return (Hv_p, Hv_l), torch.sum(v_p * Hv_p) + lm_half
 
-        def precond(v_p, v_l):
-            return (torch.einsum("kij,kj->ki", Minv_p, v_p) * pose_free,
-                    torch.einsum("mij,mj->mi", Minv_l, v_l) * lm_free)
+            def precond(v_p, v_l):
+                return (torch.einsum("kij,kj->ki", Minv_p, v_p) * pose_free,
+                        torch.einsum("mij,mj->mi", Minv_l, v_l) * lm_free)
 
-        # PCG for H x = −g
-        rr = (-g_p, -g_l)
-        x = (torch.zeros_like(g_p), torch.zeros_like(g_l))
-        z = precond(*rr)
-        p = z
-        rz = dot(rr, z)
-        for _ in range(cg_iters):
-            Ap, pAp = H_apply_dot(*p)
-            alpha = rz / pAp.clamp_min(1e-20)
-            x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
-            rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
+            # PCG for H x = −g
+            rr = (-g_p, -g_l)
+            x = (torch.zeros_like(g_p), torch.zeros_like(g_l))
             z = precond(*rr)
-            rz_new = dot(rr, z)
-            beta = rz_new / rz.clamp_min(1e-20)
-            p = (z[0] + beta * p[0], z[1] + beta * p[1])
-            rz = rz_new
-        dp, dl = x
+            p = z
+            rz = dot(rr, z)
+        for _ in range(cg_iters):
+            with span("gba.cg_step"):
+                Ap, pAp = H_apply_dot(*p)
+                alpha = rz / pAp.clamp_min(1e-20)
+                x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
+                rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
+                z = precond(*rr)
+                rz_new = dot(rr, z)
+                beta = rz_new / rz.clamp_min(1e-20)
+                p = (z[0] + beta * p[0], z[1] + beta * p[1])
+                rz = rz_new
 
-        new_poses = lie.se3_normalize(lie.se3_mul(lie.se3_exp(dp), poses))
-        new_lms = lms + dl
-        P2 = problem._replace(poses=new_poses, landmarks=new_lms)
-        *_, active2, cost_new = _linearize(P2, cam, use_huber, all_obs)
-        cost_new, n_active2 = _summed(all_reduce, cost_new, active2.sum())
-        # reject diverged steps: NaN or an emptied active set collapses
-        # the cost to 0 and would otherwise be accepted
-        accept = ((cost_new < cost) & torch.isfinite(cost_new)
-                  & (2 * n_active2 >= n_active))
-        poses = torch.where(accept, new_poses, poses)
-        lms = torch.where(accept, new_lms, lms)
-        lam = torch.where(accept, (lam * 0.4).clamp_min(1e-8), (lam * 5.0).clamp_max(1e4))
+        with span("gba.accept"):
+            dp, dl = x
+            new_poses = lie.se3_normalize(lie.se3_mul(lie.se3_exp(dp), poses))
+            new_lms = lms + dl
+            P2 = problem._replace(poses=new_poses, landmarks=new_lms)
+            *_, active2, cost_new = _linearize(P2, cam, use_huber, all_obs)
+            cost_new, n_active2 = _summed(all_reduce, cost_new, active2.sum())
+            # reject diverged steps: NaN or an emptied active set collapses
+            # the cost to 0 and would otherwise be accepted
+            accept = ((cost_new < cost) & torch.isfinite(cost_new)
+                      & (2 * n_active2 >= n_active))
+            poses = torch.where(accept, new_poses, poses)
+            lms = torch.where(accept, new_lms, lms)
+            lam = torch.where(accept, (lam * 0.4).clamp_min(1e-8), (lam * 5.0).clamp_max(1e4))
 
-    P = problem._replace(poses=poses, landmarks=lms)
-    _, _, _, _, chi2, active, cost = _linearize(P, cam, False, all_obs)
-    (cost,) = _summed(all_reduce, cost)
-    th = torch.where(problem.obs_ur >= 0, CHI2_STEREO, CHI2_MONO)
-    return GBAResult(poses=poses, landmarks=lms, obs_inlier=active & (chi2 <= th), cost=cost)
+    with span("gba.final"):
+        P = problem._replace(poses=poses, landmarks=lms)
+        _, _, _, _, chi2, active, cost = _linearize(P, cam, False, all_obs)
+        (cost,) = _summed(all_reduce, cost)
+        th = torch.where(problem.obs_ur >= 0, CHI2_STEREO, CHI2_MONO)
+        return GBAResult(poses=poses, landmarks=lms, obs_inlier=active & (chi2 <= th), cost=cost)

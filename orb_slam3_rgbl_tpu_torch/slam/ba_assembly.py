@@ -3,7 +3,10 @@
 BA and map merging once they are ported).
 
 The problem pads to capacity tiers (powers of two) so that the solver sees
-few distinct shapes over a run.
+few distinct shapes over a run. Under ``torch.profiler`` the whole-map
+assembly is the span ``gba.build``, and its gather of the observation table
+(with the octave lookup) the span ``gba.gather`` inside it
+(``utils/profiling.tracer``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
+from orb_slam3_rgbl_tpu_torch.utils.profiling import tracer
 
 
 def _tier(n: int, lo: int) -> int:
@@ -40,46 +44,49 @@ def build_full_problem(
     index arrays let callers write results and outlier unbinding back into
     the map."""
     dev = resolve(device)
-    window = m.valid_kf_ids()
-    lm_ids = np.nonzero(m.lm_valid)[0]
-    Kp = _tier(len(window), min_pose_tier)
-    Mp = _tier(max(len(lm_ids), 1), min_lm_tier)
+    span = tracer(dev)
+    with span("gba.build"):
+        window = m.valid_kf_ids()
+        lm_ids = np.nonzero(m.lm_valid)[0]
+        Kp = _tier(len(window), min_pose_tier)
+        Mp = _tier(max(len(lm_ids), 1), min_lm_tier)
 
-    obs_kf, obs_feat, obs_mask, obs_uv, obs_ur = m.gather_observations(window, lm_ids, max_obs)
+        with span("gba.gather"):
+            obs_kf, obs_feat, obs_mask, obs_uv, obs_ur = m.gather_observations(
+                window, lm_ids, max_obs)
+            kf_global = window[np.clip(obs_kf, 0, len(window) - 1)]
+            octv = m.kf_octave[kf_global, obs_feat].astype(np.int32)
+            inv_s2 = inv_sigma2[np.clip(octv, 0, len(inv_sigma2) - 1)].astype(np.float32)
 
-    def pad(a, n, fill=0):
-        out = np.full((n,) + a.shape[1:], fill, a.dtype)
-        out[: a.shape[0]] = a
-        return out
+        def pad(a, n, fill=0):
+            out = np.full((n,) + a.shape[1:], fill, a.dtype)
+            out[: a.shape[0]] = a
+            return out
 
-    poses = pad(m.kf_pose[window], Kp)
-    poses[len(window):, 0] = 1.0  # identity quaternions for padding
-    pose_fixed = np.zeros(Kp, bool)
-    pose_fixed[np.nonzero(window == 0)[0]] = True
-    if not pose_fixed[: len(window)].any():
-        pose_fixed[int(np.argmin(m.kf_frame_id[window]))] = True
-    pose_valid = pad(np.ones(len(window), bool), Kp, False)
+        poses = pad(m.kf_pose[window], Kp)
+        poses[len(window):, 0] = 1.0  # identity quaternions for padding
+        pose_fixed = np.zeros(Kp, bool)
+        pose_fixed[np.nonzero(window == 0)[0]] = True
+        if not pose_fixed[: len(window)].any():
+            pose_fixed[int(np.argmin(m.kf_frame_id[window]))] = True
+        pose_valid = pad(np.ones(len(window), bool), Kp, False)
 
-    kf_global = window[np.clip(obs_kf, 0, len(window) - 1)]
-    octv = m.kf_octave[kf_global, obs_feat].astype(np.int32)
-    inv_s2 = inv_sigma2[np.clip(octv, 0, len(inv_sigma2) - 1)].astype(np.float32)
+        def up(a, dtype):
+            return torch.as_tensor(a, dtype=dtype, device=dev)
 
-    def up(a, dtype):
-        return torch.as_tensor(a, dtype=dtype, device=dev)
-
-    f32 = torch.float32
-    problem = BAProblem(
-        poses=up(poses, f32),
-        pose_fixed=up(pose_fixed, torch.bool),
-        pose_valid=up(pose_valid, torch.bool),
-        landmarks=up(pad(m.lm_pos[lm_ids], Mp), f32),
-        lm_valid=up(pad(np.ones(len(lm_ids), bool), Mp, False), torch.bool),
-        obs_kf=up(pad(obs_kf, Mp), torch.int64),
-        obs_uv=up(pad(obs_uv, Mp), f32),
-        obs_ur=up(pad(obs_ur, Mp, -1.0), f32),
-        obs_inv_sigma2=up(pad(inv_s2, Mp), f32),
-        obs_mask=up(pad(obs_mask, Mp, False), torch.bool),
-    )
+        f32 = torch.float32
+        problem = BAProblem(
+            poses=up(poses, f32),
+            pose_fixed=up(pose_fixed, torch.bool),
+            pose_valid=up(pose_valid, torch.bool),
+            landmarks=up(pad(m.lm_pos[lm_ids], Mp), f32),
+            lm_valid=up(pad(np.ones(len(lm_ids), bool), Mp, False), torch.bool),
+            obs_kf=up(pad(obs_kf, Mp), torch.int64),
+            obs_uv=up(pad(obs_uv, Mp), f32),
+            obs_ur=up(pad(obs_ur, Mp, -1.0), f32),
+            obs_inv_sigma2=up(pad(inv_s2, Mp), f32),
+            obs_mask=up(pad(obs_mask, Mp, False), torch.bool),
+        )
     return problem, window, lm_ids, obs_kf, obs_feat
 
 
