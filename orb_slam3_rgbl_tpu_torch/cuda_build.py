@@ -24,11 +24,12 @@ import threading
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
-SOURCES = ("frontend", "brief", "launch_floor")
+SOURCES = ("frontend", "brief", "launch_floor", "gba")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launch_counts = {"fast_and_blur": 0, "brief_continuous": 0, "brief_blocks": 0}
+launch_counts = {"fast_and_blur": 0, "brief_continuous": 0, "brief_blocks": 0,
+                 "gba_hv": 0, "gba_pose_sum": 0, "gba_cg_update": 0, "gba_cg_direction": 0}
 ptxas_log: dict = {}      # source name → nvcc's -Xptxas -v report
 
 _libs: dict = {}

@@ -13,11 +13,16 @@ through the observation table, with a block-Jacobi preconditioner (6×6 pose
 and 3×3 landmark inverses): O(observations) work per iteration and
 O(K + M) memory.
 
-The sums of per-observation values onto their poses run ~3 times per CG
-step. ``obs_kf`` is fixed for the whole solve, so the observations are
-sorted by keyframe once (``PoseSegments``): each pose then gathers its own
-observations into a padded row and sums it, in the same order on every
-run, so two solves of one problem give the same bits (an atomic
+A CG step runs in ``ops/gba_cuda``: on the card as hand-written kernels
+(``csrc/gba.cu``) that read each live slot's Jacobians once a step and fuse
+the preconditioner with the step's vector updates; on the CPU as their plain
+PyTorch versions.
+
+The sums of per-observation values onto their poses run once a CG step and
+twice a linearization. ``obs_kf`` is fixed for the whole solve, so the
+observations are sorted by keyframe once (``PoseSegments``): each pose then
+gathers its own observations into a padded row and sums it, in the same
+order on every run, so two solves of one problem give the same bits (an atomic
 scatter-add would not, and a last-bit difference can flip the accept
 test). The outer loop runs on the host and every decision in it is a
 ``torch.where`` on device tensors.
@@ -50,6 +55,7 @@ import torch
 
 from orb_slam3_rgbl_tpu_torch.geometry import lie
 from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
+from orb_slam3_rgbl_tpu_torch.ops import gba_cuda
 from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem, _diag_part, _linearize
 from orb_slam3_rgbl_tpu_torch.optim.pose_opt import CHI2_MONO, CHI2_STEREO
 from orb_slam3_rgbl_tpu_torch.utils.profiling import tracer
@@ -174,24 +180,18 @@ def _solve(problem, cam, segments, iterations, cg_iters, huber_iters, all_reduce
             Minv_l = torch.linalg.inv_ex(torch.where(lm_free[..., None], Hll_d, eye3))[0]
             lam_p = lam * torch.diagonal(Hpp_diag, dim1=-2, dim2=-1) + 1e-7    # (K, 6)
             lam_l = lam * torch.diagonal(Hll_diag, dim1=-2, dim2=-1) + 1e-7    # (M, 3)
+            hv = gba_cuda.HessianProduct(Jp, Jl, w, P.obs_kf, segments, lam_l, lm_free)
+            # inv_ex returns column-major blocks; the kernel reads them row-major
+            precond = gba_cuda.BlockJacobi(Minv_p.contiguous(), Minv_l.contiguous(),
+                                           pose_free, lm_free)
 
             def H_apply_dot(v_p, v_l):
                 """(H·v, v·H·v); the landmark half of the dot travels with the
                 pose half of H·v."""
-                Jv = (torch.einsum("mdij,mdj->mdi", Jp, v_p[P.obs_kf])
-                      + torch.einsum("mdij,mj->mdi", Jl, v_l))
-                wJv = w[..., None] * Jv
-                Hl = torch.einsum("mdij,mdi->mj", Jl, wJv)
-                Hv_l = (Hl + lam_l * v_l) * lm_free
-                Hp, lm_half = _summed(all_reduce,
-                                      segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wJv)),
-                                      torch.sum(v_l * Hv_l))
+                Hp, Hv_l, lm_half = hv(v_p, v_l)
+                Hp, lm_half = _summed(all_reduce, Hp, lm_half)
                 Hv_p = (Hp.reshape(K, 6) + lam_p * v_p) * pose_free
                 return (Hv_p, Hv_l), torch.sum(v_p * Hv_p) + lm_half
-
-            def precond(v_p, v_l):
-                return (torch.einsum("kij,kj->ki", Minv_p, v_p) * pose_free,
-                        torch.einsum("mij,mj->mi", Minv_l, v_l) * lm_free)
 
             # PCG for H x = −g
             rr = (-g_p, -g_l)
@@ -202,13 +202,10 @@ def _solve(problem, cam, segments, iterations, cg_iters, huber_iters, all_reduce
         for _ in range(cg_iters):
             with span("gba.cg_step"):
                 Ap, pAp = H_apply_dot(*p)
-                alpha = rz / pAp.clamp_min(1e-20)
-                x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
-                rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
-                z = precond(*rr)
+                # x + α·p, rr − α·Ap and z = M⁻¹·rr, α = rz / pAp
+                x, rr, z = precond.update(rz, pAp, x, rr, p, Ap)
                 rz_new = dot(rr, z)
-                beta = rz_new / rz.clamp_min(1e-20)
-                p = (z[0] + beta * p[0], z[1] + beta * p[1])
+                p = gba_cuda.cg_direction(rz_new, rz, z, p)       # z + β·p, β = rz_new / rz
                 rz = rz_new
 
         with span("gba.accept"):

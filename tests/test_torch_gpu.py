@@ -5,8 +5,9 @@ the monocular fused step, K1 and K2 at the EuRoC camera's 752×480 and at
 TUM-VI's 512×512, the IMU preintegration, the visual-inertial solvers and
 the KannalaBrandt8 pose solve and local BA against their CPU runs, and the
 landmark-sharded global BA over NCCL (one rank) and gloo (two ranks sharing
-the card), on the card. Marked
-``gpu``; without a card each test skips from its fixture.
+the card), and the global BA's CG-step kernels (``csrc/gba.cu``) against their
+plain versions, on the card. Marked ``gpu``; without a card each test skips
+from its fixture.
 
 The machine with the card has no JAX, so run this file without the
 suite's conftest (which imports JAX):
@@ -372,6 +373,162 @@ def test_global_ba_repeats_to_the_bit_and_matches_its_cpu_run(cuda):
         0, p_g.obs_kf.reshape(-1), vals.reshape(-1, 6))
     assert (seg.sum(vals) - want).abs().max() < 1e-3
     assert torch.equal(seg.sum(vals), seg.sum(vals))
+
+
+def _hv_operands(device, M, D, live, K=48, seed=0):
+    """Operands of one linearization at a given share of live slots (w > 0),
+    beside slots in the pose table with w = 0 and slots masked out of it. Every
+    slot with w = 0 carries large finite Jacobians (1e30): they must add
+    nothing. Every 7th landmark is not free."""
+    g = torch.Generator().manual_seed(seed)
+    live_s = torch.rand(M, D, generator=g) < live
+    held = live_s | (torch.rand(M, D, generator=g) < 0.1)
+    w = torch.where(live_s, torch.rand(M, D, generator=g) * 4 + 0.1, 0.0)
+    Jp = torch.randn(M, D, 3, 6, generator=g) * 50
+    Jl = torch.randn(M, D, 3, 3, generator=g) * 50
+    Jp[~live_s], Jl[~live_s] = 1e30, -1e30
+    obs_kf = torch.randint(0, K, (M, D), generator=g)
+    lam_l = torch.rand(M, 3, generator=g)
+    lm_free = (torch.arange(M) % 7 != 3)[:, None]
+    v_p = torch.randn(K, 6, generator=g)
+    v_l = torch.randn(M, 3, generator=g)
+    on = [t.to(device) for t in (Jp, Jl, w, obs_kf, lam_l, lm_free, v_p, v_l, held)]
+    return on, live_s.to(device)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("M, D, live", [(131_101, 8, 0.32), (32_771, 8, 0.72), (10_001, 5, 0.5),
+                                        (3_001, 65, 0.5), (20_000, 1, 0.9)],
+                         ids=["kitti_like", "euroc_like", "d5", "d65_unaligned", "d1"])
+def test_gba_cg_kernels_match_plain_versions(cuda, M, D, live):
+    """H·v (this rank's pose sums, the landmark half, its dot share) and the
+    block-Jacobi apply against the plain versions on the card: 1e-5 of the
+    largest value; masked slots' Jacobians not read; two calls the same bits;
+    each call one launch of each kernel."""
+    from orb_slam3_rgbl_tpu_torch.ops import gba_cuda
+    from orb_slam3_rgbl_tpu_torch.optim import global_ba as gba
+
+    (Jp, Jl, w, obs_kf, lam_l, lm_free, v_p, v_l, held), live_s = _hv_operands(cuda, M, D, live)
+    K = v_p.shape[0]
+    seg = gba.PoseSegments(obs_kf, held, K)
+    hv = gba_cuda.HessianProduct(Jp, Jl, w, obs_kf, seg, lam_l, lm_free)
+    counts = cuda_build.launch_counts
+    before = (counts["gba_hv"], counts["gba_pose_sum"])
+    got = hv(v_p, v_l)
+    torch.cuda.synchronize()
+    assert (counts["gba_hv"], counts["gba_pose_sum"]) == (before[0] + 1, before[1] + 1)
+    want = gba_cuda.hv_plain(Jp, Jl, w, obs_kf, seg, v_p, v_l, lam_l, lm_free)
+    assert all(torch.isfinite(t).all() for t in want)
+    for a, b in zip(got[:2], want[:2]):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-5, _rel(a, b)
+    # the dot share, a sum of 3M terms of both signs: against the sum of their sizes
+    scale = float((v_l * want[1]).abs().sum())
+    assert got[2].shape == () and abs(float(got[2]) - float(want[2])) <= 1e-5 * scale
+    assert not got[1][~lm_free[:, 0]].any()
+    again = hv(v_p, v_l)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the masked slots' Jacobians are never read: zeroing them changes no bit
+    Jp0 = torch.where(live_s[..., None, None], Jp, 0.0)
+    Jl0 = torch.where(live_s[..., None, None], Jl, 0.0)
+    zeroed = gba_cuda.HessianProduct(Jp0, Jl0, w, obs_kf, seg, lam_l, lm_free)(v_p, v_l)
+    assert all(torch.equal(a, b) for a, b in zip(got, zeroed))
+
+    g = torch.Generator().manual_seed(M)
+    Minv_p = torch.randn(K, 6, 6, generator=g).to(cuda)
+    Minv_l = torch.randn(M, 3, 3, generator=g).to(cuda)
+    pose_free = (torch.arange(K, device=cuda) % 5 != 0)[:, None]
+    bj = gba_cuda.BlockJacobi(Minv_p, Minv_l, pose_free, lm_free)
+    before = counts["gba_cg_update"]
+    z = bj(v_p, v_l)
+    torch.cuda.synchronize()
+    assert counts["gba_cg_update"] == before + 1
+    for a, b in zip(z, gba_cuda.precond_plain(Minv_p, Minv_l, v_p, v_l, pose_free, lm_free)):
+        assert _rel(a, b) <= 1e-5, _rel(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(z, bj(v_p, v_l)))
+
+    # the step's fused updates: the separate PyTorch operations' bits
+    rz, pAp, rz_new = (torch.rand((), generator=g).to(cuda) + 0.5 for _ in range(3))
+    x, rr, p, Ap = ((torch.randn(K, 6, generator=g).to(cuda),
+                     torch.randn(M, 3, generator=g).to(cuda)) for _ in range(4))
+    before = (counts["gba_cg_update"], counts["gba_cg_direction"])
+    xo, ro, zo = bj.update(rz, pAp, x, rr, p, Ap)
+    po = gba_cuda.cg_direction(rz_new, rz, zo, p)
+    torch.cuda.synchronize()
+    assert (counts["gba_cg_update"], counts["gba_cg_direction"]) == (before[0] + 1, before[1] + 1)
+    xw, rw, zw = gba_cuda.cg_update_plain(bj, rz, pAp, x, rr, p, Ap)
+    pw = gba_cuda.cg_direction_plain(rz_new, rz, zo, p)
+    for got_, want_ in ((xo, xw), (ro, rw), (zo, zw), (po, pw)):
+        assert all(torch.equal(a, b) for a, b in zip(got_, want_))
+    # a pAp below the clamp and a NaN take PyTorch's clamp_min
+    for odd in (torch.zeros((), device=cuda), torch.full((), float("nan"), device=cuda)):
+        got_ = bj.update(rz, odd, x, rr, p, Ap)
+        want_ = gba_cuda.cg_update_plain(bj, rz, odd, x, rr, p, Ap)
+        assert all(torch.equal(a, b) or (a.isnan() == b.isnan()).all()
+                   for pair_g, pair_w in zip(got_, want_) for a, b in zip(pair_g, pair_w))
+
+
+def test_gba_cg_wrappers_reject_bad_inputs(cuda):
+    from orb_slam3_rgbl_tpu_torch.ops import gba_cuda
+    from orb_slam3_rgbl_tpu_torch.optim import global_ba as gba
+
+    (Jp, Jl, w, obs_kf, lam_l, lm_free, v_p, v_l, held), _ = _hv_operands(cuda, 100, 8, 0.5)
+    seg = gba.PoseSegments(obs_kf, held, v_p.shape[0])
+    args = [Jp, Jl, w, obs_kf, seg, lam_l, lm_free]
+    for i, bad in ((0, Jp.double()), (1, Jl.transpose(-1, -2)), (2, w[:50]), (3, obs_kf.int()),
+                   (5, lam_l.cpu()), (6, lm_free.float())):
+        with pytest.raises(ValueError):
+            gba_cuda.HessianProduct(*args[:i], bad, *args[i + 1:])
+    seg_other = gba.PoseSegments(obs_kf[:50], held[:50], v_p.shape[0])
+    with pytest.raises(ValueError):
+        gba_cuda.HessianProduct(Jp, Jl, w, obs_kf, seg_other, lam_l, lm_free)
+    hv = gba_cuda.HessianProduct(*args)
+    for bad_p, bad_l in ((v_p.cpu(), v_l), (v_p, v_l.double()), (v_p[:, :3], v_l)):
+        with pytest.raises(ValueError):
+            hv(bad_p, bad_l)
+    Minv_l = torch.linalg.inv_ex(torch.eye(3, device=cuda).expand(100, 3, 3) * 2)[0]
+    eye6 = torch.eye(6, device=cuda).repeat(48, 1, 1)
+    pose_free = torch.ones(48, 1, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):         # inv_ex's column-major blocks
+        gba_cuda.BlockJacobi(eye6, Minv_l.mT.contiguous().mT, pose_free, lm_free)
+    bj = gba_cuda.BlockJacobi(eye6, Minv_l.contiguous(), pose_free, lm_free)
+    one = torch.ones((), device=cuda)
+    pair = (v_p, v_l)
+    for bad in ((v_p, v_l[:99]), (v_p.double(), v_l), (v_p.t().contiguous().t(), v_l)):
+        with pytest.raises(ValueError):
+            bj.update(one, one, pair, bad, pair, pair)
+        with pytest.raises(ValueError):
+            gba_cuda.cg_direction(one, one, pair, bad)
+    with pytest.raises(ValueError):
+        bj.update(one, torch.ones(2, device=cuda), pair, pair, pair, pair)
+    with pytest.raises(ValueError):
+        gba_cuda.cg_direction(one.cpu(), one, pair, pair)
+
+
+def test_global_ba_launches_each_cg_kernel_once_a_cg_step(cuda):
+    """A whole solve on the card: one launch each of ``gba_hv``,
+    ``gba_pose_sum``, ``gba_cg_update`` and ``gba_cg_direction`` a CG step,
+    one more ``gba_cg_update`` a linearization (the PCG set-up's apply), no
+    wait for the device, and the same bits twice."""
+    from orb_slam3_rgbl_tpu_torch.optim import global_ba as gba
+    cam, arrays, convert = _ba_problem(seed=3)
+    p_g = convert.ba_problem_from_numpy(arrays)
+    seg = gba.PoseSegments(p_g.obs_kf, p_g.obs_mask, p_g.poses.shape[0])
+    its, cg = 3, 20
+    counts = cuda_build.launch_counts
+    names = ("gba_hv", "gba_pose_sum", "gba_cg_update", "gba_cg_direction")
+    before = {k: counts[k] for k in names}
+    first = _no_sync(lambda: gba.global_bundle_adjust(p_g, cam, seg, iterations=its, cg_iters=cg))
+    torch.cuda.synchronize()
+    assert {k: counts[k] - before[k] for k in names} == dict(
+        gba_hv=its * cg, gba_pose_sum=its * cg, gba_cg_update=its * (cg + 1),
+        gba_cg_direction=its * cg)
+    again = gba.global_bundle_adjust(p_g, cam, seg, iterations=its, cg_iters=cg)
+    for f in ("poses", "landmarks", "obs_inlier", "cost"):
+        assert torch.equal(getattr(first, f), getattr(again, f)), f
+    assert float(first.cost) < 0.5 * float(gba.ba_cost(p_g, cam))
 
 
 def test_keyframe_database_lives_on_the_card(cuda):

@@ -21,6 +21,7 @@ PORT_MODULES = [
     "orb_slam3_rgbl_tpu_torch.geometry.camera", "orb_slam3_rgbl_tpu_torch.geometry.lie",
     "orb_slam3_rgbl_tpu_torch.ops.brief_cuda", "orb_slam3_rgbl_tpu_torch.ops.depth",
     "orb_slam3_rgbl_tpu_torch.ops.fast", "orb_slam3_rgbl_tpu_torch.ops.frontend_cuda",
+    "orb_slam3_rgbl_tpu_torch.ops.gba_cuda",
     "orb_slam3_rgbl_tpu_torch.ops.matching", "orb_slam3_rgbl_tpu_torch.ops.orb",
     "orb_slam3_rgbl_tpu_torch.ops.pyramid", "orb_slam3_rgbl_tpu_torch.optim.pose_opt",
     "orb_slam3_rgbl_tpu_torch.slam.compiled", "orb_slam3_rgbl_tpu_torch.slam.fast_path",
