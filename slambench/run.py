@@ -4,19 +4,26 @@ of standard output:
     python3 slambench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell is ``slambench/workloads/<cell>.json``; it names its configuration,
-``slambench/configs/<config>.json``. Set-up makes the map from the seed
-(``mapgen``), hands it to the port's whole-map solve (``program``) and warms
-one chunk of it; the window then runs whole solves back to back on the same
-map until ``--seconds`` have passed, letting the last one finish. With
-``--trace 1`` one solve is first traced on the card alone and the next on
-the host and the card (for what the host did while the card idled), the
-window's solves following untraced, and the per-layer metrics that
-``BENCHMARK.json`` lists for the cell are read from it by their readers,
-``slambench/metrics/<metric>.py``. After the window the plain reference
-(``reference``, float64) solves the same map and every solve of the window
-is compared with it (``compare``) against the cell's limits; the run is
-correct only where the map as handed over fails them. Set-up's stages are
-logged on standard error.
+``slambench/configs/<config>.json``, and the configuration names its problem,
+``slambench/problems/<problem>.py``, which is loaded by its path: the map
+generator, the system under test, the plain reference and the numbers
+compared, in the roles that ``slambench/problems/__init__.py`` sets out (the
+visual whole-map bundle adjustment is ``visual_gba``). A new kind of cell
+thus comes as new files alone. Set-up makes the map from the seed, hands it
+to the problem's solver and warms it; the window then runs whole solves back
+to back on the same map until ``--seconds`` have passed, letting the last one
+finish. Where the cell reports the card's busy seconds a solve
+(``gba_card_busy_s``), each solve of the window runs under ``torch.profiler``
+on the card alone and the union of its operations' intervals is summed over
+the window. With ``--trace 1`` one solve is first traced on the card alone and
+the next on the host and the card (for what the host did while the card
+idled), the window's solves following untraced, and the per-layer metrics
+that ``BENCHMARK.json`` lists for the cell are read from it by their readers,
+``slambench/metrics/<metric>.py``. After the window the problem's plain
+reference (float64) solves the same map and every solve of the window is
+compared with it against the cell's limits; the run is correct only where
+the map as handed over fails them. Set-up's stages are logged on standard
+error.
 """
 
 import time
@@ -27,6 +34,7 @@ import argparse  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -48,6 +56,8 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "orb_slam3_rgbl_tpu")
+# the end-to-end metric of the card's busy seconds a solve
+CARD_BUSY = "gba_card_busy_s"
 
 
 def load_json(path: Path) -> dict:
@@ -79,6 +89,41 @@ def load_reader(root: Path, name: str):
     return mod.read
 
 
+def load_problem(root: Path, config: dict):
+    """The problem module that ``config`` names: ``problems/<problem>.py``,
+    loaded by its path."""
+    name = config["problem"]
+    path = root / "slambench" / "problems" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"slambench_problem_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def limits_mismatch(problem, limits: dict) -> str:
+    """'' where the cell's limits hold exactly the problem's compared
+    numbers, else which keys differ."""
+    missing = [k for k in problem.NAMES if k not in limits]
+    extra = sorted(set(limits) - set(problem.NAMES))
+    return "; ".join(f"{what}: {', '.join(keys)}" for what, keys in
+                     (("no limit for", missing), ("limits for no compared number", extra)) if keys)
+
+
+def passes(g: dict, limits: dict, names) -> bool:
+    return all(math.isfinite(g[k]) and g[k] <= limits[k] for k in names)
+
+
+def worst(all_gaps: list, names) -> dict:
+    """The largest reading of each number over the compared results (one
+    that is not finite counts as the largest)."""
+    out = {}
+    for k in names:
+        vals = [g[k] for g in all_gaps]
+        out[k] = float("nan") if any(not math.isfinite(v) for v in vals) else max(vals)
+    return out
+
+
 def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
@@ -96,7 +141,7 @@ def log(msg: str):
     print(msg, file=sys.stderr, flush=True)
 
 
-def traced_solve(solver, spans: list, outs: list, dev, card_only: bool):
+def traced_solve(solver, spans: list, outs: list, dev, card_only: bool, span_prefix: str):
     """One solve under ``torch.profiler``: the card alone (its busy time and
     kernels), or the host and the card (what the host did while the card
     idled). The solve's result joins ``outs``."""
@@ -109,7 +154,19 @@ def traced_solve(solver, spans: list, outs: list, dev, card_only: bool):
             torch.ones(1).to(dev)          # marks the solve's start on the card
         outs.append(solver.solve(spans))
     from slambench import devtrace
-    return devtrace.read(prof, "gba.")
+    return devtrace.read(prof, span_prefix)
+
+
+def card_busy_solve(solver, spans: list, outs: list, span_prefix: str) -> int:
+    """One solve of the window with the profiler on the card alone: its
+    result joins ``outs``; returns the card's busy nanoseconds in it (the
+    union of its operations' intervals)."""
+    import torch
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        outs.append(solver.solve(spans))
+    from slambench import devtrace
+    ops = devtrace.read(prof, span_prefix).device_ops
+    return devtrace.busy_ns(ops, ops[0][1], max(op[2] for op in ops)) if ops else 0
 
 
 def main(argv=None, root: Path = ROOT, device=None) -> int:
@@ -138,12 +195,18 @@ def main(argv=None, root: Path = ROOT, device=None) -> int:
         torch.empty(1, device=dev)             # the card's context
     lap("card")
 
-    from slambench import compare, devtrace, mapgen, program, reference
+    from slambench import devtrace
 
-    maparr = mapgen.generate(config, cell, args.seed)
-    inv_s2 = mapgen.inv_sigma2(config["orb"])
+    problem = load_problem(root, config)
+    limits = cell["limits"]
+    wrong = limits_mismatch(problem, limits)
+    if wrong:
+        log(f"{args.workload}: the cell's limits are not the numbers that problem "
+            f"{config['problem']} compares ({wrong})")
+        return 6
+    maparr = problem.make_map(config, cell, args.seed)
     lap("mapgen")
-    solver = program.Solver(config, cell, maparr, inv_s2, dev)
+    solver = problem.Solver(config, cell, maparr, dev)
     lap("program_map")
     solver.warm()
     lap("warm")
@@ -156,21 +219,29 @@ def main(argv=None, root: Path = ROOT, device=None) -> int:
     spans, outs = [], []
     dev_trace = host_trace = None
     if args.trace:
-        dev_trace = traced_solve(solver, spans, outs, dev, card_only=True)
+        dev_trace = traced_solve(solver, spans, outs, dev, True, problem.SPAN_PREFIX)
         if not dev_trace.device_ops:
             log("the card-only trace of a solve holds no device operation")
             return 5
-        host_trace = traced_solve(solver, spans, outs, dev, card_only=False)
+        host_trace = traced_solve(solver, spans, outs, dev, False, problem.SPAN_PREFIX)
     n_traced = len(outs)
 
-    # the window: whole solves back to back, the last one finishing
+    # the window: whole solves back to back, the last one finishing; where
+    # the cell reports the card's busy time each of them is profiled on the
+    # card alone (a trace-0 run only: a traced run's window stays untraced)
+    e2e = [] if args.trace else metrics_for(bench, args.workload, "end_to_end")
+    card = any(m["name"].split(".")[0] == CARD_BUSY for m in e2e)
+    busy = []
     t_start = time.perf_counter()
     while True:
-        outs.append(solver.solve(spans))
+        if card:
+            busy.append(card_busy_solve(solver, spans, outs, problem.SPAN_PREFIX))
+        else:
+            outs.append(solver.solve(spans))
         if time.perf_counter() - t_start >= args.seconds:
             break
     window_s = time.perf_counter() - t_start
-    solve_times = [t1 - t0 for name, t0, t1 in spans if name == program.SPAN_SOLVE][n_traced:]
+    solve_times = [t1 - t0 for name, t0, t1 in spans if name == problem.SPAN_SOLVE][n_traced:]
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     shapes = solver.shapes
     del solver
@@ -184,7 +255,7 @@ def main(argv=None, root: Path = ROOT, device=None) -> int:
     if dev_trace is not None:
         solve_window = (dev_trace.device_ops[0][1], max(op[2] for op in dev_trace.device_ops))
     rec = dict(host_spans=spans, trace=dev_trace, solve_window=solve_window, shapes=shapes,
-               schedule=cell["schedule"])
+               schedule=cell.get("schedule"), problem=problem, n_traced=n_traced)
     metrics, extra, breakdown = {}, {}, None
     if args.trace:
         for m in metrics_for(bench, args.workload, "per_layer"):
@@ -199,7 +270,7 @@ def main(argv=None, root: Path = ROOT, device=None) -> int:
         for name, a, b, _ in ops:
             by_name[name] = by_name.get(name, 0.0) + (b - a) * 1e-9
         breakdown = {"device_ops": devtrace.top(by_name), "idle_gaps": []}
-        solves = [sp for sp in host_trace.spans if sp[0] == program.SPAN_SOLVE]
+        solves = [sp for sp in host_trace.spans if sp[0] == problem.SPAN_SOLVE]
         if solves:
             hlo, hhi = solves[0][1], solves[0][2]
             for label, a, b in devtrace.label_gaps(host_trace,
@@ -207,9 +278,14 @@ def main(argv=None, root: Path = ROOT, device=None) -> int:
                 by_host[label] = by_host.get(label, 0.0) + (b - a) * 1e-9
             breakdown["idle_gaps"] = devtrace.top(by_host)
     else:
-        # a metric split by pacing (``gba_solve_s.launch_paced``) measures its base
+        # a metric split by its cell (``<base>.<suffix>``) measures its base
         known = {"gba_solve_s": sum(solve_times) / len(solve_times), "setup_s": setup_s}
-        for m in metrics_for(bench, args.workload, "end_to_end"):
+        if card:
+            if not all(busy):
+                log("a profiled solve of the window holds no device operation")
+                return 5
+            known[CARD_BUSY] = 1e-9 * sum(busy) / len(busy)
+        for m in e2e:
             base = m["name"].split(".")[0]
             if base not in known:
                 log(f"no end-to-end metric {m['name']} in this harness")
@@ -221,22 +297,21 @@ def main(argv=None, root: Path = ROOT, device=None) -> int:
     # unchanged would pass
     t_ref = time.perf_counter()
     stats = {}
-    ref = compare.against(
-        reference.run(maparr, inv_s2, config["camera"], config["max_obs"], cell["schedule"],
-                      reference.Arith(torch.float64), dev, stats), maparr, config["camera"])
-    limits = cell["limits"]
-    all_gaps = [compare.gaps(p, x, c, ref) for p, x, c in outs]
-    failed = sum(not compare.passes(g, limits) for g in all_gaps)
-    worst = compare.worst(all_gaps)
-    still = compare.unchanged(maparr, stats["start_cost"], ref)
-    tells = not compare.passes(still, limits)
+    ref = problem.reference(config, cell, maparr, dev, stats)
+    names = problem.NAMES
+    all_gaps = [problem.gaps(out, ref) for out in outs]
+    failed = sum(not passes(g, limits, names) for g in all_gaps)
+    most = worst(all_gaps, names)
+    still = problem.unchanged(maparr, stats, ref)
+    tells = not passes(still, limits, names)
     log(f"window: {len(outs)} solves in {window_s:.3f} s, "
-        f"solve s {[round(t, 4) for t in solve_times]}; reference {time.perf_counter() - t_ref:.3f} s"
-        f", {stats['accepted']} of {cell['schedule']['lm_iterations']} steps kept")
+        f"solve s {[round(t, 4) for t in solve_times]}"
+        + (f", card busy s {[round(b * 1e-9, 5) for b in busy]}" if busy else "")
+        + f"; reference {time.perf_counter() - t_ref:.3f} s"
+        f" ({', '.join(f'{k} {v!r}' for k, v in stats.items())})")
     if not tells:
-        log("the map as handed over passes every limit (the reference kept "
-            f"{stats['accepted']} steps): on this map the comparison cannot tell a sound solve "
-            "from one that returns the map unchanged, so the run is not correct")
+        log("the map as handed over passes every limit: on this map the comparison cannot tell "
+            "a sound solve from one that returns the map unchanged, so the run is not correct")
 
     result = {
         "correct": failed == 0 and len(outs) > 0 and tells,
@@ -252,11 +327,11 @@ def main(argv=None, root: Path = ROOT, device=None) -> int:
     # each solve's worst reading must stay within its limit; the unchanged
     # map's must exceed at least one
     result["compared"] = {
-        **{k: {"value": worst[k], "limit": limits[k]} for k in compare.NAMES},
-        **{f"unchanged_{k}": {"value": still[k], "limit": limits[k]} for k in compare.NAMES}}
-    for k in compare.NAMES:
-        log(f"compared {k} {worst[k]!r} limit {limits[k]!r}")
-    for k in compare.NAMES:
+        **{k: {"value": most[k], "limit": limits[k]} for k in names},
+        **{f"unchanged_{k}": {"value": still[k], "limit": limits[k]} for k in names}}
+    for k in names:
+        log(f"compared {k} {most[k]!r} limit {limits[k]!r}")
+    for k in names:
         log(f"compared unchanged_{k} {still[k]!r} limit {limits[k]!r} (one must exceed)")
     found = forbidden_modules()
     if found:

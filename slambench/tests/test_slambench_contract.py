@@ -1,12 +1,14 @@
 """BENCHMARK.json and the files it names: the contract's names, units and
-limits; a cell found from its files alone; no JAX anywhere in what a run
-imports, and nothing of the program in what the reference imports."""
+limits; a cell found from its files alone; every configuration's problem
+module and plain reference; no JAX anywhere in what a run imports, and
+nothing of the program in what a reference imports."""
 
 import ast
 import json
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -18,6 +20,10 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 HARNESS_FORBIDDEN = {"jax", "jaxlib", "flax", "orb_slam3_rgbl_tpu"}
 REFERENCE_FORBIDDEN = HARNESS_FORBIDDEN | {"orb_slam3_rgbl_tpu_torch"}
+PROBLEMS = sorted((ROOT / "slambench" / "problems").glob("*.py"))
+CONFIGS = [json.loads((ROOT / c["file"]).read_text()) for c in BENCH["configs"]]
+ROLES = ("SPAN_SOLVE", "SPAN_PREFIX", "REFERENCE", "make_map", "Solver", "reference", "NAMES", "gaps",
+         "unchanged", "faults")
 
 
 def _line(s):
@@ -91,6 +97,26 @@ def test_every_name_has_its_files():
     assert size <= 64 * 1024
 
 
+@pytest.mark.parametrize("config", CONFIGS, ids=lambda c: c["name"])
+def test_every_configuration_names_its_problem_and_reference(config):
+    """The problem's file exists and gives every role; its ``REFERENCE`` is
+    a file of the benchmark that the problem imports, and the one that the
+    configuration's ``"reference"`` key names; every cell of the
+    configuration has a limit for each compared number and no other."""
+    path = ROOT / "slambench" / "problems" / f"{config['problem']}.py"
+    assert path.exists(), path
+    problem = run.load_problem(ROOT, config)
+    assert all(hasattr(problem, r) for r in ROLES), [r for r in ROLES if not hasattr(problem, r)]
+    ref = Path(problem.REFERENCE).resolve()
+    assert ref.exists() and ref.parent.is_relative_to(ROOT / "slambench")
+    assert ref in _walk([path])[1], (ref, "is not imported by", path)
+    assert ROOT / config["reference"] == ref
+    for w in BENCH["workloads"]:
+        if w["config"] == config["name"]:
+            cell, _ = run.load_cell(ROOT, w["name"])
+            assert run.limits_mismatch(problem, cell["limits"]) == ""
+
+
 def test_a_dropped_workload_is_found(tmp_path):
     name = small_root(tmp_path, "euroc_mh_stereo_map.gba_one_call")
     cell, config = run.load_cell(tmp_path, name)
@@ -145,6 +171,7 @@ def _walk(roots):
 def test_harness_imports_no_jax():
     roots = [ROOT / "slambench" / "run.py"] + sorted((ROOT / "slambench" / "metrics").glob("*.py"))
     roots += _module_files("slambench.program") + _module_files("slambench.devtrace")
+    roots += [ROOT / "slambench" / "calibrate.py"] + PROBLEMS
     tops, files = _walk(roots)
     assert not tops & HARNESS_FORBIDDEN, tops & HARNESS_FORBIDDEN
     # the walk went into the port: the program is what it imports
@@ -154,14 +181,15 @@ def test_harness_imports_no_jax():
 
 
 def test_reference_imports_nothing_of_the_program():
-    roots = _module_files("slambench.reference") + _module_files("slambench.compare") \
-        + _module_files("slambench.mapgen")
+    refs = sorted({Path(run.load_problem(ROOT, c).REFERENCE).resolve() for c in CONFIGS})
+    roots = refs + _module_files("slambench.compare") + _module_files("slambench.mapgen")
     tops, _ = _walk(roots)
     assert not tops & REFERENCE_FORBIDDEN, tops & REFERENCE_FORBIDDEN
 
 
 @pytest.mark.parametrize("modules,forbidden", [
-    ("slambench.run slambench.program slambench.devtrace slambench.calibrate", HARNESS_FORBIDDEN),
+    ("slambench.run slambench.program slambench.devtrace slambench.calibrate "
+     "slambench.problems.visual_gba", HARNESS_FORBIDDEN),
     ("slambench.reference slambench.compare slambench.mapgen", REFERENCE_FORBIDDEN),
 ])
 def test_loaded_modules(modules, forbidden):

@@ -12,7 +12,7 @@ import torch
 
 from orb_slam3_rgbl_tpu_torch.optim import global_ba
 from slambench import reference, run
-from slambench.calibrate import half_observations
+from slambench.problems.visual_gba import half_observations
 from small import small_root
 
 CELLS = ["kitti00_rgbl_map.gba_one_call", "euroc_mh_stereo_map.gba_one_call"]

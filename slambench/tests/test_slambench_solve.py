@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from slambench import compare, mapgen, program, reference, run
-from slambench.calibrate import as_pose7
+from slambench.problems.visual_gba import as_pose7
 from small import ROOT, small_cell
 
 CELLS = ["kitti00_rgbl_map.gba_one_call", "euroc_mh_stereo_map.gba_one_call"]
@@ -72,14 +72,14 @@ def test_both_bring_poses_to_ground_truth(solved):
 
 def test_program_agrees_with_reference(solved):
     cell, config, a, out, ref, _ = solved
-    assert compare.passes(compare.gaps(*out, ref), cell["limits"])
+    assert run.passes(compare.gaps(*out, ref), cell["limits"], compare.NAMES)
 
 
 def test_control_fails_the_limits(solved):
     cell, config, a, out, ref, args = solved
     R, t, X, c = reference.run(*args, reference.Arith(torch.float32, tf32=True), "cpu")
     g = compare.gaps(as_pose7(R, t), X, c, ref)
-    assert not compare.passes(g, cell["limits"])
+    assert not run.passes(g, cell["limits"], compare.NAMES)
 
 
 def test_tf32_rounding():
@@ -118,4 +118,4 @@ def test_control_fails_at_the_cell_size(card):
                               config["camera"])
         R, t, X, c = reference.run(*args, reference.Arith(torch.float32, tf32=True), card)
         g = compare.gaps(as_pose7(R, t), X, c, ref)
-        assert not compare.passes(g, cell["limits"]), (cell_name, g)
+        assert not run.passes(g, cell["limits"], compare.NAMES), (cell_name, g)
