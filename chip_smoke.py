@@ -55,7 +55,11 @@ loop solvers waits for the card, the launch counts and the trajectory after
 the loop; it holds G1 and G2 against their plain versions on that solve's
 first linearization and times them (the ``kernels`` line's G entries), and
 prints what every keyframe, candidate and event cost, the event split by
-``loop.*`` span.
+``loop.*`` span. Beside them, G3 (``gba_pair_hv``) and the 15-wide
+``gba_cg_update`` and ``gba_cg_direction`` run one whole inertial solve at
+the shapes of the benchmark's inertial cell (its map, made from ``SEED``)
+and are held, timed and bounded the same way (``--gba-inertial`` runs that
+block alone).
 Then 6 textureless frames and 6 frames of a place the lap mapped: the
 tracker must come back through relocalization against the database, in the
 same atlas map.
@@ -211,6 +215,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import pathlib
 import re
 import shutil
 import signal
@@ -291,6 +296,7 @@ MAX_EXTRACT_KERNELS = 810   # track.extract in a profiled fused frame (837 with 
 BLUR_TOL = 1e-3         # K1 blur vs pyramid.gaussian_blur (tests/test_brief_pallas.py bar)
 GBA_REL_TOL = 1e-5      # G1 and G2's block apply vs their plain versions, of the largest value
                         # (tests/test_torch_gpu.py's bar); the fused updates are bit-equal
+GBA_VI_CELL = "euroc_mh_stereo_inertial_map.viba_one_call"   # G3's shapes: the benchmark's cell
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): 3.35 TB/s of HBM and
 # 67 TFLOP/s of f32 outside the tensor cores. The 67 counts a fused
@@ -1208,10 +1214,13 @@ def check_gba_launches(what: str, counts: dict, iterations: int, cg_iters: int, 
 
 @contextlib.contextmanager
 def kept_gba_operators():
-    """Keeps the first ``gba_cuda.HessianProduct`` and ``BlockJacobi`` that
-    a solve makes (its first linearization's), under "hv" and "precond"."""
+    """Keeps the first ``gba_cuda.HessianProduct``, ``BlockJacobi`` and
+    ``PairProduct`` that a solve makes (its first linearization's), under
+    "hv", "precond" and "pair_hv"."""
     made = {}
-    inits = {"hv": gba_cuda.HessianProduct.__init__, "precond": gba_cuda.BlockJacobi.__init__}
+    classes = {"hv": gba_cuda.HessianProduct, "precond": gba_cuda.BlockJacobi,
+               "pair_hv": gba_cuda.PairProduct}
+    inits = {key: cls.__init__ for key, cls in classes.items()}
 
     def keeping(key):
         def init(self, *a, **k):
@@ -1219,11 +1228,13 @@ def kept_gba_operators():
             made.setdefault(key, self)
         return init
 
-    gba_cuda.HessianProduct.__init__, gba_cuda.BlockJacobi.__init__ = keeping("hv"), keeping("precond")
+    for key, cls in classes.items():
+        cls.__init__ = keeping(key)
     try:
         yield made
     finally:
-        gba_cuda.HessianProduct.__init__, gba_cuda.BlockJacobi.__init__ = inits["hv"], inits["precond"]
+        for key, cls in classes.items():
+            cls.__init__ = inits[key]
 
 
 def gba_kernels(made: dict, counts: dict, device) -> list:
@@ -1332,6 +1343,131 @@ def gba_kernels(made: dict, counts: dict, device) -> list:
         log(f"  {e['name']}: {e['launches']} launches in the solve; event ms {e['ms']:.4f} (the "
             f"wrapper's call), device ms {e['device_ms']:.4f}, plain {e['plain_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.4f} ms by {e['bound_by']}, max |err| {e['max_abs_err']:.3g}")
+    return entries
+
+
+def gba_inertial_kernels(device) -> list:
+    """G3 (``gba_pair_hv``) and the 15-wide ``gba_cg_update`` and
+    ``gba_cg_direction`` at the shapes of the benchmark's inertial cell
+    (``GBA_VI_CELL``: 199 states, 198 pairs, 29,850 landmarks, 8 slots a
+    landmark): one whole solve of the cell's schedule on its map counts the
+    launches and keeps the operators of its first linearization
+    (``kept_gba_operators``); then each wrapper against its plain version on
+    random vectors of those shapes — the pair product and the fused updates
+    bit for bit (their plain versions add in the kernels' order), the 15×15
+    block apply to ``GBA_REL_TOL`` of the largest value — and two calls the
+    same bits; event ms of the wrapper's call, device ms of the kernel, the
+    plain version's event ms, the bound by bytes and an empty kernel's floor
+    at the kernel's grid. Returns the ``kernels`` entries; none on the CPU."""
+    if device.type != "cuda":
+        log("inertial CG-step kernels: the CPU runs their plain versions; nothing to compare")
+        return []
+    from slambench import run as bench      # the benchmark's map of the inertial cell
+    root = pathlib.Path(__file__).resolve().parent
+    cell, config = bench.load_cell(root, GBA_VI_CELL)
+    problem = bench.load_problem(root, config)
+    solver = problem.Solver(config, cell, problem.make_map(config, cell, SEED), device)
+    solver.warm()
+    sched = cell["schedule"]
+    with kept_gba_operators() as made:
+        cuda_build.reset_launch_counts()
+        solver.solve([])
+    counts = dict(cuda_build.launch_counts)
+    check_gba_launches("the inertial cell's solve", counts, sched["lm_iterations"],
+                       sched["cg_steps"], device)
+    steps = sched["lm_iterations"] * sched["cg_steps"]
+    if counts["gba_pair_hv"] != steps:
+        fail(f"the inertial cell's solve: {counts['gba_pair_hv']} gba_pair_hv launches, "
+             f"expected one a CG step ({steps})")
+    hv, bj, ph = made["hv"], made["precond"], made["pair_hv"]
+    J, w, pair_i, pair_j, table, lam, state_free = ph.args
+    Minv_s, Minv_l, _, lm_free = bj.args
+    K, M, P, Lp = Minv_s.shape[0], Minv_l.shape[0], J.shape[0], table.shape[1]
+    g = torch.Generator().manual_seed(0)
+
+    def pair():
+        return (torch.randn(K, 15, generator=g).to(device),
+                torch.randn(M, 3, generator=g).to(device))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def plain_precond(a, b):
+        return gba_cuda.precond_plain(Minv_s, Minv_l, a, b, state_free, lm_free)
+
+    v = pair()
+    Hp, _, lm_half = hv(*v)
+    got, again = ph(Hp, v[0], lm_half), ph(Hp, v[0], lm_half)
+    want = gba_cuda.pair_hv_plain(Hp, J, w, pair_i, pair_j, table, v[0], lam, state_free, lm_half)
+    pair_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not same(got, again):
+        fail("G3: two gba_pair_hv calls on the same vectors differ")
+    if not same(got, want):
+        fail(f"G3 against pair_hv_plain: not the same bits (max |err| {pair_err:.3g})")
+    z, z_want = bj(*v), plain_precond(*v)
+    rel_z = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(z, z_want))
+    if not same(z, bj(*v)) or not rel_z <= GBA_REL_TOL:
+        fail(f"the 15-wide block apply against precond_plain: {rel_z:.3g} of the largest value "
+             f"(limit {GBA_REL_TOL}), or two calls differ")
+    rz, pAp, rz_new = (torch.rand((), generator=g).to(device) + 0.5 for _ in range(3))
+    x, rr, p, Ap = pair(), pair(), pair(), pair()
+    upd = bj.update(rz, pAp, x, rr, p, Ap)
+    upd_want = gba_cuda.cg_update_plain(bj, rz, pAp, x, rr, p, Ap)
+    d = gba_cuda.cg_direction(rz_new, rz, upd[2], p)
+    d_want = gba_cuda.cg_direction_plain(rz_new, rz, upd[2], p)
+    if not (all(same(a, b) for a, b in zip(upd, upd_want)) and same(d, d_want)):
+        fail("the 15-wide fused CG updates differ from the separate PyTorch operations' bits")
+    torch.cuda.synchronize()
+
+    # least bytes: each pair's Jacobian, weights and endpoints, each state's
+    # visual pose sum, vector, damping, mask, table row and result, the dot;
+    # the 15×15 and 3×3 blocks, masks and the step's seven vectors; three
+    # vectors. f32 instructions: J·[v_i; v_j], its weighting and Jᵀ·u a pair,
+    # each output's table entries, damping, mask and dot; the updates and the
+    # block products; a multiply and an add a value
+    nbytes = {"gba_pair_hv": P * (465 * 4 + 16) + K * (51 * 4 + 1 + Lp * 8) + 8,
+              "gba_cg_update<15>": K * (900 + 1 + 7 * 60) + M * (36 + 1 + 7 * 12),
+              "gba_cg_direction<15>": 3 * (K * 60 + M * 12)}
+    nops = {"gba_pair_hv": P * (450 + 15 + 450) + K * 15 * (Lp + 3),
+            "gba_cg_update<15>": K * (60 + 225) + M * (12 + 9),
+            "gba_cg_direction<15>": 2 * (15 * K + 3 * M)}
+    calls = {"gba_pair_hv": lambda: ph(Hp, v[0], lm_half),
+             "gba_cg_update<15>": lambda: bj.update(rz, pAp, x, rr, p, Ap),
+             "gba_cg_direction<15>": lambda: gba_cuda.cg_direction(rz_new, rz, z, p)}
+    plains = {"gba_pair_hv": lambda: gba_cuda.pair_hv_plain(Hp, J, w, pair_i, pair_j, table, v[0],
+                                                            lam, state_free, lm_half),
+              "gba_cg_update<15>": lambda: gba_cuda.cg_update_plain(plain_precond, rz, pAp, x,
+                                                                    rr, p, Ap),
+              "gba_cg_direction<15>": lambda: gba_cuda.cg_direction_plain(rz_new, rz, z, p)}
+    errs = {"gba_pair_hv": pair_err,
+            "gba_cg_update<15>": max(float((a - b).abs().max()) for a, b in zip(z, z_want)),
+            "gba_cg_direction<15>": 0.0}
+    launches = {"gba_pair_hv": counts["gba_pair_hv"], "gba_cg_update<15>": counts["gba_cg_update"],
+                "gba_cg_direction<15>": counts["gba_cg_direction"]}
+    grids = {"gba_pair_hv": (1, gba_cuda.PAIR_THREADS),
+             "gba_cg_update<15>": (-(-(K + M) // gba_cuda.THREADS), gba_cuda.THREADS),
+             "gba_cg_direction<15>": (-(-(15 * K + 3 * M) // gba_cuda.THREADS), gba_cuda.THREADS)}
+    entries = []
+    for name, call in calls.items():
+        t, by = bound(nbytes[name], nops[name])
+        kernel = name.replace("<", "_kernel<") if "<" in name else name + "_kernel"
+        floor = empty_launch_ms(*grids[name])
+        entries.append({"name": name, "route": "cuda",
+                        "source": "orb_slam3_rgbl_tpu_torch/csrc/gba.cu", "replaces": None,
+                        "launches": launches[name], "max_abs_err": errs[name],
+                        "ms": time_cuda(call), "device_ms": kernel_device_ms(call, kernel),
+                        "plain_ms": time_cuda(plains[name]), "bound_ms": t, "bound_by": by,
+                        "floor_ms": floor, "library_ms": None})
+    log(f"inertial CG-step kernels on the solve's first linearization (K {K}, P {P}, M {M}, "
+        f"pair table width {Lp}): gba_pair_hv bit-equal to pair_hv_plain; 15-wide block apply "
+        f"{rel_z:.3g} of the largest value; fused updates and direction bit-equal to the "
+        f"separate operations; two calls the same bits")
+    for e in entries:
+        log(f"  {e['name']}: {e['launches']} launches in the solve; event ms {e['ms']:.4f}, "
+            f"device ms {e['device_ms']:.4f}, plain {e['plain_ms']:.4f} ms, bound "
+            f"{e['bound_ms']:.6f} ms by {e['bound_by']}, floor {e['floor_ms'][0]:.4f} / "
+            f"{e['floor_ms'][1]:.4f} ms (device / event), max |err| {e['max_abs_err']:.3g}")
     return entries
 
 
@@ -1481,7 +1617,8 @@ def phase6_loop(cfg, traj, frames, device, kf_every: int):
         f"{ {k: v for k, v in gba_counts.items() if k.startswith('gba_')} }")
     if not same:
         fail("a second global BA of the same snapshot is not bit-equal to the first")
-    print(json.dumps({"gba_kernels": gba_kernels(made, gba_counts, device)}), flush=True)
+    print(json.dumps({"gba_kernels": gba_kernels(made, gba_counts, device)
+                      + gba_inertial_kernels(device)}), flush=True)
     _, enq, ms = timed_without_sync(lambda: pose_graph.optimize_pose_graph(problem, **pg_kw), device)
     K, E = problem.nodes.shape[0], problem.edge_i.shape[0]
     log(f"pose graph again ({K} nodes, {E} edges, {pg_kw}): enqueued in {enq:.1f} ms, done in "
@@ -4348,7 +4485,7 @@ def phase17(device, card: str):
 # card idle most of the time, and a process slows down as it ages (§7 of
 # PERF.md), so the groups run fresh and side by side
 CHILD_FLAGS = ("--loop-phases", "--canyon-phases", "--phase13", "--phase14", "--phase15",
-               "--phase16", "--phase17")
+               "--phase16", "--phase17", "--gba-inertial")
 
 
 def flag_value(argv, flag: str):
@@ -4533,6 +4670,8 @@ def main():
     if any(flag in argv for flag in CHILD_FLAGS):
         if "--loop-phases" in argv:
             loop_phases(device, card)
+        if "--gba-inertial" in argv:
+            print(json.dumps({"gba_kernels": gba_inertial_kernels(device)}), flush=True)
         if "--canyon-phases" in argv:
             value = flag_value(argv, "--canyon-phases")
             canyon_phases(device, card, json.loads(value) if value else (0.0, 0.0, 0))
@@ -4758,7 +4897,8 @@ def main():
         m = k[entry["name"]]
         entry.update(max_abs_err=m["err"], ms=m["ms"], plain_ms=m["plain_ms"],
                      bound_ms=m["bound"][0], bound_by=m["bound"][1], library_ms=None)
-    # G1 and G2, held and timed on the loop event's global BA (phase 6)
+    # G1 and G2, held and timed on the loop event's global BA (phase 6), and
+    # G3 with the 15-wide updates at the inertial cell's shapes
     gba = [json.loads(line)["gba_kernels"] for line in outputs[0].splitlines()
            if line.startswith('{"gba_kernels"')]
     if len(gba) != 1:

@@ -45,6 +45,23 @@
 // product and sum once, as the separate PyTorch operations they replace do:
 // the same bits.
 //
+// The whole-map inertial solve (optim/global_inertial_ba.py) runs the same
+// kernels on 15-wide states [pose(6), vel(3), bg(3), ba(3)]: gba_hv reads the
+// pose columns 0:6 of each state's row (its stride a runtime argument),
+// gba_pose_sum is unchanged, and gba_cg_update / gba_cg_direction are
+// templated over the state width (6 or 15; the 6-wide code is as it was).
+// gba_pair_hv_kernel adds the inertial pairs' half of H·v: one block of
+// PAIR_THREADS threads. First u = W (J1 v_i + J2 v_j) for each pair's 15
+// rows (a thread a row: the 30 products added in column order), then each
+// state's 15 outputs (a thread an output): the visual pose sum (columns 0:6),
+// the pair terms J_side^T u in the order of the state's row of the sorted
+// pair table, lam * v, the state mask; and the dot product v . Hv over the
+// states (a thread's outputs in order, a shuffle tree, the warps in order)
+// plus the landmark half from gba_pose_sum. Every product and sum is rounded
+// once (__fmul_rn / __fadd_rn), so the plain version in ops/gba_cuda.py
+// (pair_hv_plain) gives the same bits. The pairs' Jacobians (15 x 30 floats,
+// 1.8 KB a pair) stay in L2 from the linearization: ~360 KB for 198 pairs.
+//
 // D (observations a landmark) is a runtime argument, up to MAX_D.
 
 #include <cuda_runtime.h>
@@ -53,6 +70,9 @@
 namespace {
 
 constexpr int THREADS = 256;            // threads of every block; slots of an H·v tile
+constexpr int PAIR_THREADS = 1024;      // threads of the one gba_pair_hv block
+constexpr int NS = 15;                  // width of an inertial state
+constexpr int NJ = 2 * NS;              // columns of a pair's Jacobian (both states)
 constexpr int MAX_D = THREADS;          // most slots a landmark (one landmark a tile)
 constexpr int JP = 18;                  // floats of a slot's pose Jacobian (3x6)
 constexpr int JL = 9;                   // floats of a slot's landmark Jacobian (3x3)
@@ -82,8 +102,9 @@ __device__ __forceinline__ void stage_live(const float* __restrict__ src, long l
     if (sw[f / W] != 0.f) dst[f] = __ldg(s + f);
 }
 
-// The sum of v over the block, the same on every thread of warp 0 and in a
-// fixed order: a shuffle tree in each warp, then the warps in order.
+// The sum of v over a block of T threads, the same on every thread of warp 0
+// and in a fixed order: a shuffle tree in each warp, then the warps in order.
+template <int T = THREADS>
 __device__ __forceinline__ float block_sum(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -92,7 +113,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   __syncthreads();
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < THREADS / 32; ++i) s += red[i];
+  for (int i = 0; i < T / 32; ++i) s += red[i];
   return s;
 }
 
@@ -102,7 +123,7 @@ gba_hv_kernel(const float* __restrict__ Jp, const float* __restrict__ Jl,
               const float* __restrict__ v_p, const float* __restrict__ v_l,
               const float* __restrict__ lam_l, const unsigned char* __restrict__ lm_free,
               float* __restrict__ Hv_l, float* __restrict__ part, float* __restrict__ dot_part,
-              int M, int D, int lpb) {
+              int M, int D, int lpb, int vp_stride) {
   __shared__ __align__(16) float sJp[THREADS * JP];
   __shared__ __align__(16) float sJl[THREADS * JL];
   __shared__ float sw[THREADS];
@@ -129,7 +150,7 @@ gba_hv_kernel(const float* __restrict__ Jp, const float* __restrict__ Jl,
     const long long m = m0 + t / D;
     const float* jp = sJp + t * JP;
     const float* jl = sJl + t * JL;
-    const float* vp = v_p + 6 * __ldg(obs_kf + s);
+    const float* vp = v_p + (long long)vp_stride * __ldg(obs_kf + s);
     float p[6], q[3], u[3];
 #pragma unroll
     for (int j = 0; j < 6; ++j) p[j] = __ldg(vp + j);
@@ -273,6 +294,7 @@ __device__ __forceinline__ void update_block(long long b, bool step, float alpha
   block_apply<N>(Minv + N * N * b, rn, free[b], z + o);
 }
 
+template <int NP>
 __global__ void __launch_bounds__(THREADS)
 gba_cg_update_kernel(const float* __restrict__ Minv_p, const float* __restrict__ Minv_l,
                      const unsigned char* __restrict__ pose_free,
@@ -289,24 +311,83 @@ gba_cg_update_kernel(const float* __restrict__ Minv_p, const float* __restrict__
   const bool step = p_p != nullptr;
   const float alpha = step ? cg_ratio(rz, pAp) : 0.f;
   if (i < K)
-    update_block<6>(i, step, alpha, x_p, r_p, p_p, Ap_p, Minv_p, pose_free, xo_p, ro_p, z_p);
+    update_block<NP>(i, step, alpha, x_p, r_p, p_p, Ap_p, Minv_p, pose_free, xo_p, ro_p, z_p);
   else if (i - K < M)
     update_block<3>(i - K, step, alpha, x_l, r_l, p_l, Ap_l, Minv_l, lm_free, xo_l, ro_l, z_l);
 }
 
 // The new search direction z + beta p, beta = rz_new / rz.clamp_min(1e-20),
-// one value a thread over the pose half, then the landmark half.
+// one value a thread over the pose (or state) half of NP a row, then the
+// landmark half.
+template <int NP>
 __global__ void __launch_bounds__(THREADS)
 gba_cg_direction_kernel(const float* __restrict__ rz_new, const float* __restrict__ rz,
                         const float* __restrict__ z_p, const float* __restrict__ z_l,
                         const float* __restrict__ p_p, const float* __restrict__ p_l,
                         float* __restrict__ po_p, float* __restrict__ po_l, int K, int M) {
   const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long np = 6LL * K;
+  const long long np = (long long)NP * K;
   const float beta = cg_ratio(rz_new, rz);
   if (e < np) po_p[e] = __fadd_rn(__ldg(z_p + e), __fmul_rn(beta, __ldg(p_p + e)));
   else if (e - np < 3LL * M)
     po_l[e - np] = __fadd_rn(__ldg(z_l + e - np), __fmul_rn(beta, __ldg(p_l + e - np)));
+}
+
+// The inertial pairs' half of H·v on the 15-wide states, with the visual
+// pose sums Hp (K x 6) added to columns 0:6, the damping lam * v and the
+// state mask, and the dot product v . Hv + lm_half; one block (see the top
+// of the file). J (P x 15 x 30) row-major, the first 15 columns the first
+// state's; w (P x 15); table (K x Lp) entries 2 * pair + side, an entry
+// outside [0, 2P) skipped; u (P x 15) scratch.
+__global__ void __launch_bounds__(PAIR_THREADS)
+gba_pair_hv_kernel(const float* __restrict__ Hp, const float* __restrict__ J,
+                   const float* __restrict__ w, const long long* __restrict__ pair_i,
+                   const long long* __restrict__ pair_j, const long long* __restrict__ table,
+                   const float* __restrict__ v, const float* __restrict__ lam,
+                   const unsigned char* __restrict__ free, const float* __restrict__ lm_half,
+                   float* __restrict__ u, float* __restrict__ Hv, float* __restrict__ pAp, int K,
+                   int P, int Lp) {
+  __shared__ float red[PAIR_THREADS / 32];
+  const int t = threadIdx.x;
+  const long long rows = (long long)P * NS;
+  for (long long e = t; e < rows; e += PAIR_THREADS) {
+    const long long p = e / NS;
+    const float* row = J + e * NJ;
+    const float* vi = v + NS * __ldg(pair_i + p);
+    const float* vj = v + NS * __ldg(pair_j + p);
+    float a = 0.f;
+#pragma unroll
+    for (int c = 0; c < NS; ++c) a = __fadd_rn(a, __fmul_rn(__ldg(row + c), __ldg(vi + c)));
+#pragma unroll
+    for (int c = 0; c < NS; ++c) a = __fadd_rn(a, __fmul_rn(__ldg(row + NS + c), __ldg(vj + c)));
+    u[e] = __fmul_rn(__ldg(w + e), a);
+  }
+  __syncthreads();
+  const long long outs = (long long)K * NS;
+  const long long n_entries = 2LL * P;
+  float d = 0.f;
+  for (long long e = t; e < outs; e += PAIR_THREADS) {
+    const long long k = e / NS;
+    const int c = (int)(e - k * NS);
+    float acc = c < 6 ? __ldg(Hp + 6 * k + c) : 0.f;
+    for (int l = 0; l < Lp; ++l) {
+      const long long q = __ldg(table + k * Lp + l);
+      if (q < 0 || q >= n_entries) continue;
+      const long long p = q >> 1;
+      const float* col = J + p * NS * NJ + (q & 1) * NS + c;
+      const float* up = u + p * NS;
+      float h = 0.f;
+#pragma unroll
+      for (int r = 0; r < NS; ++r) h = __fadd_rn(h, __fmul_rn(__ldg(col + r * NJ), up[r]));
+      acc = __fadd_rn(acc, h);
+    }
+    const float vv = __ldg(v + e);
+    const float hv = __fmul_rn(__fadd_rn(acc, __fmul_rn(__ldg(lam + e), vv)), free[k] ? 1.f : 0.f);
+    Hv[e] = hv;
+    d = __fadd_rn(d, __fmul_rn(vv, hv));
+  }
+  const float total = block_sum<PAIR_THREADS>(d, red);
+  if (t == 0) pAp[0] = __fadd_rn(total, __ldg(lm_half));
 }
 
 }  // namespace
@@ -315,10 +396,11 @@ extern "C" int gba_hv_f32(const float* Jp, const float* Jl, const float* w,
                           const long long* obs_kf, const float* v_p, const float* v_l,
                           const float* lam_l, const unsigned char* lm_free, float* Hv_l,
                           float* part, float* dot_part, int M, int D, int lpb, int nb,
-                          cudaStream_t stream) {
-  if (D < 1 || D > MAX_D || lpb < 1 || lpb * D > THREADS || nb < 1) return cudaErrorInvalidValue;
+                          int vp_stride, cudaStream_t stream) {
+  if (D < 1 || D > MAX_D || lpb < 1 || lpb * D > THREADS || nb < 1 || vp_stride < 6)
+    return cudaErrorInvalidValue;
   gba_hv_kernel<<<nb, THREADS, 0, stream>>>(Jp, Jl, w, obs_kf, v_p, v_l, lam_l, lm_free, Hv_l,
-                                           part, dot_part, M, D, lpb);
+                                           part, dot_part, M, D, lpb, vp_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -334,28 +416,52 @@ static int grid_for(long long n) { return (int)((n + THREADS - 1) / THREADS); }
 
 // z = Minv r after the step's updates; with p_p null (then rz, pAp, x, p, Ap,
 // xo and ro may be null too) z = Minv r of the r given: the PCG set-up.
+// `width`: the pose (6) or inertial state (15) block's size.
 extern "C" int gba_cg_update_f32(const float* Minv_p, const float* Minv_l,
                                  const unsigned char* pose_free, const unsigned char* lm_free,
                                  const float* rz, const float* pAp, const float* x_p,
                                  const float* x_l, const float* r_p, const float* r_l,
                                  const float* p_p, const float* p_l, const float* Ap_p,
                                  const float* Ap_l, float* xo_p, float* xo_l, float* ro_p,
-                                 float* ro_l, float* z_p, float* z_l, int K, int M,
+                                 float* ro_l, float* z_p, float* z_l, int K, int M, int width,
                                  cudaStream_t stream) {
+  if (width != 6 && width != NS) return cudaErrorInvalidValue;
   const int blocks = grid_for((long long)K + M);
   if (blocks < 1) return cudaSuccess;
-  gba_cg_update_kernel<<<blocks, THREADS, 0, stream>>>(
-      Minv_p, Minv_l, pose_free, lm_free, rz, pAp, x_p, x_l, r_p, r_l, p_p, p_l, Ap_p, Ap_l, xo_p,
-      xo_l, ro_p, ro_l, z_p, z_l, K, M);
+  if (width == 6)
+    gba_cg_update_kernel<6><<<blocks, THREADS, 0, stream>>>(
+        Minv_p, Minv_l, pose_free, lm_free, rz, pAp, x_p, x_l, r_p, r_l, p_p, p_l, Ap_p, Ap_l,
+        xo_p, xo_l, ro_p, ro_l, z_p, z_l, K, M);
+  else
+    gba_cg_update_kernel<NS><<<blocks, THREADS, 0, stream>>>(
+        Minv_p, Minv_l, pose_free, lm_free, rz, pAp, x_p, x_l, r_p, r_l, p_p, p_l, Ap_p, Ap_l,
+        xo_p, xo_l, ro_p, ro_l, z_p, z_l, K, M);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int gba_cg_direction_f32(const float* rz_new, const float* rz, const float* z_p,
                                     const float* z_l, const float* p_p, const float* p_l,
-                                    float* po_p, float* po_l, int K, int M, cudaStream_t stream) {
-  const int blocks = grid_for(6LL * K + 3LL * M);
+                                    float* po_p, float* po_l, int K, int M, int width,
+                                    cudaStream_t stream) {
+  if (width != 6 && width != NS) return cudaErrorInvalidValue;
+  const int blocks = grid_for((long long)width * K + 3LL * M);
   if (blocks < 1) return cudaSuccess;
-  gba_cg_direction_kernel<<<blocks, THREADS, 0, stream>>>(rz_new, rz, z_p, z_l, p_p, p_l, po_p,
-                                                          po_l, K, M);
+  if (width == 6)
+    gba_cg_direction_kernel<6><<<blocks, THREADS, 0, stream>>>(rz_new, rz, z_p, z_l, p_p, p_l,
+                                                               po_p, po_l, K, M);
+  else
+    gba_cg_direction_kernel<NS><<<blocks, THREADS, 0, stream>>>(rz_new, rz, z_p, z_l, p_p, p_l,
+                                                                po_p, po_l, K, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gba_pair_hv_f32(const float* Hp, const float* J, const float* w,
+                               const long long* pair_i, const long long* pair_j,
+                               const long long* table, const float* v, const float* lam,
+                               const unsigned char* free, const float* lm_half, float* u, float* Hv,
+                               float* pAp, int K, int P, int Lp, cudaStream_t stream) {
+  if (K < 1 || P < 0 || Lp < 1) return cudaErrorInvalidValue;
+  gba_pair_hv_kernel<<<1, PAIR_THREADS, 0, stream>>>(Hp, J, w, pair_i, pair_j, table, v, lam,
+                                                     free, lm_half, u, Hv, pAp, K, P, Lp);
   return static_cast<int>(cudaGetLastError());
 }

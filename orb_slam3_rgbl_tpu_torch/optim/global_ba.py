@@ -112,6 +112,43 @@ def _summed(all_reduce, *parts):
     return tuple(torch.split(flat, [p.numel() for p in parts]))
 
 
+def pcg_start(precond, g, dot):
+    """PCG for H x = −g from x = 0, after the preconditioner's first apply:
+    the state (x, r, z, p, r·z) that ``pcg_steps`` takes. ``g`` and each
+    vector a (state, landmark) pair; ``dot`` their inner product."""
+    rr = (-g[0], -g[1])
+    x = (torch.zeros_like(g[0]), torch.zeros_like(g[1]))
+    z = precond(*rr)
+    return x, rr, z, z, dot(rr, z)
+
+
+def pcg_steps(cg, H_apply_dot, precond, dot, cg_iters: int, span):
+    """``cg_iters`` PCG steps from ``cg`` (``pcg_start``), one
+    ``gba.cg_step`` span each; returns the iterate x. ``H_apply_dot(v)``:
+    (H·v, v·H·v); ``precond``: the ``gba_cuda.BlockJacobi`` of the set-up.
+    The visual and the inertial solve both take their steps here."""
+    x, rr, z, p, rz = cg
+    for _ in range(cg_iters):
+        with span("gba.cg_step"):
+            Ap, pAp = H_apply_dot(*p)
+            # x + α·p, rr − α·Ap and z = M⁻¹·rr, α = rz / pAp
+            x, rr, z = precond.update(rz, pAp, x, rr, p, Ap)
+            rz_new = dot(rr, z)
+            p = gba_cuda.cg_direction(rz_new, rz, z, p)       # z + β·p, β = rz_new / rz
+            rz = rz_new
+    return x
+
+
+def lm_accept(cost, n_active, cost_new, n_active_new, lam):
+    """Whether an LM step is kept, and the damping after it: kept where the
+    cost is lower, finite and keeps half the active observations (NaN or an
+    emptied active set collapses the cost to 0 and would otherwise be
+    accepted); the damping × 0.4 (≥ 1e-8) on a kept step, × 5 (≤ 1e4) on a
+    rejected one."""
+    accept = (cost_new < cost) & torch.isfinite(cost_new) & (2 * n_active_new >= n_active)
+    return accept, torch.where(accept, (lam * 0.4).clamp_min(1e-8), (lam * 5.0).clamp_max(1e4))
+
+
 def ba_cost(problem: BAProblem, cam: PinholeCamera) -> torch.Tensor:
     """The plain (no Huber) cost of a problem as it stands: what
     ``GBAResult.cost`` reports after a solve."""
@@ -193,35 +230,18 @@ def _solve(problem, cam, segments, iterations, cg_iters, huber_iters, all_reduce
                 Hv_p = (Hp.reshape(K, 6) + lam_p * v_p) * pose_free
                 return (Hv_p, Hv_l), torch.sum(v_p * Hv_p) + lm_half
 
-            # PCG for H x = −g
-            rr = (-g_p, -g_l)
-            x = (torch.zeros_like(g_p), torch.zeros_like(g_l))
-            z = precond(*rr)
-            p = z
-            rz = dot(rr, z)
-        for _ in range(cg_iters):
-            with span("gba.cg_step"):
-                Ap, pAp = H_apply_dot(*p)
-                # x + α·p, rr − α·Ap and z = M⁻¹·rr, α = rz / pAp
-                x, rr, z = precond.update(rz, pAp, x, rr, p, Ap)
-                rz_new = dot(rr, z)
-                p = gba_cuda.cg_direction(rz_new, rz, z, p)       # z + β·p, β = rz_new / rz
-                rz = rz_new
+            cg = pcg_start(precond, (g_p, g_l), dot)
+        dp, dl = pcg_steps(cg, H_apply_dot, precond, dot, cg_iters, span)
 
         with span("gba.accept"):
-            dp, dl = x
             new_poses = lie.se3_normalize(lie.se3_mul(lie.se3_exp(dp), poses))
             new_lms = lms + dl
             P2 = problem._replace(poses=new_poses, landmarks=new_lms)
             *_, active2, cost_new = _linearize(P2, cam, use_huber, all_obs)
             cost_new, n_active2 = _summed(all_reduce, cost_new, active2.sum())
-            # reject diverged steps: NaN or an emptied active set collapses
-            # the cost to 0 and would otherwise be accepted
-            accept = ((cost_new < cost) & torch.isfinite(cost_new)
-                      & (2 * n_active2 >= n_active))
+            accept, lam = lm_accept(cost, n_active, cost_new, n_active2, lam)
             poses = torch.where(accept, new_poses, poses)
             lms = torch.where(accept, new_lms, lms)
-            lam = torch.where(accept, (lam * 0.4).clamp_min(1e-8), (lam * 5.0).clamp_max(1e4))
 
     with span("gba.final"):
         P = problem._replace(poses=poses, landmarks=lms)

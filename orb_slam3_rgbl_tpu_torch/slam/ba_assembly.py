@@ -7,6 +7,12 @@ few distinct shapes over a run. Under ``torch.profiler`` the whole-map
 assembly is the span ``gba.build``, and its gather of the observation table
 (with the octave lookup) the span ``gba.gather`` inside it
 (``utils/profiling.tracer``).
+
+``build_full_vi_problem`` assembles the whole map of an initialized
+inertial map for ``optim/global_inertial_ba``: every keyframe's body state,
+every landmark and the observation table in the visual problem's layout
+(no padding tiers), and one pair a link of the temporal IMU chain
+(``kf_prev_imu``) with its preintegration.
 """
 
 from __future__ import annotations
@@ -17,7 +23,10 @@ import numpy as np
 import torch
 
 from orb_slam3_rgbl_tpu_torch.device import resolve
+from orb_slam3_rgbl_tpu_torch.geometry import lie
+from orb_slam3_rgbl_tpu_torch.optim.inertial_ba import VIBAProblem
 from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
+from orb_slam3_rgbl_tpu_torch.slam import imu_frontend
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 from orb_slam3_rgbl_tpu_torch.utils.profiling import tracer
 
@@ -87,6 +96,72 @@ def build_full_problem(
             obs_inv_sigma2=up(pad(inv_s2, Mp), f32),
             obs_mask=up(pad(obs_mask, Mp, False), torch.bool),
         )
+    return problem, window, lm_ids, obs_kf, obs_feat
+
+
+def build_full_vi_problem(m: MapState, inv_sigma2: np.ndarray, imu_cfg, max_obs: int = 8,
+                          device=None):
+    """Whole-map visual-inertial BA problem on ``device`` (default ``cuda``):
+    the body state [Twb, velocity, gyro bias, accel bias] of every valid
+    keyframe (the origin keyframe's state fixed whole), every valid landmark,
+    the observation table as ``build_full_problem`` gathers it, and one pair
+    (``kf_prev_imu[k]``, k) for each keyframe k whose predecessor on the
+    temporal chain is a valid keyframe, valid where the map holds k's
+    preintegration. ``imu_cfg``: the ``ImuConfig`` (the extrinsic and the
+    bias walks; the walks' information as ``LocalMapper._build_vi_problem``
+    computes it). No padding tiers: the real numbers of states, landmarks
+    and pairs.
+
+    Returns (problem, window_kf_ids, lm_ids, obs_kf_raw, obs_feat)."""
+    dev = resolve(device)
+    span = tracer(dev)
+    with span("gba.build"):
+        window = m.valid_kf_ids()
+        lm_ids = np.nonzero(m.lm_valid)[0]
+        K = len(window)
+        with span("gba.gather"):
+            obs_kf, obs_feat, obs_mask, obs_uv, obs_ur = m.gather_observations(
+                window, lm_ids, max_obs)
+            kf_global = window[np.clip(obs_kf, 0, max(K - 1, 0))]
+            octv = m.kf_octave[kf_global, obs_feat].astype(np.int32)
+            inv_s2 = inv_sigma2[np.clip(octv, 0, len(inv_sigma2) - 1)].astype(np.float32)
+
+        T_bc, T_cb = imu_frontend.extrinsics(imu_cfg)
+        Twb = lie.np_se3_inv(lie.np_se3_mul(np.tile(T_bc, (K, 1)), m.kf_pose[window]))
+        fixed = np.zeros(K, bool)
+        fixed[np.nonzero(window == 0)[0]] = True
+        if K and not fixed.any():
+            fixed[int(np.argmin(m.kf_frame_id[window]))] = True
+
+        # the temporal chain's links inside the window, in keyframe order
+        slot = np.full(m.capacity_kf, -1, np.int64)
+        slot[window] = np.arange(K)
+        prev = m.kf_prev_imu[window].astype(np.int64)
+        linked = np.nonzero((prev >= 0) & (slot[np.maximum(prev, 0)] >= 0))[0]
+        pair_i, pair_j = slot[prev[linked]], linked
+        valid = np.array([int(window[j]) in m.imu_preint for j in linked], bool)
+        preints = [m.imu_preint[int(window[j])] if ok else imu_frontend.zero_preint_numpy()
+                   for j, ok in zip(linked, valid)]
+        dts = np.maximum(np.array([float(t[0]) for t in preints], np.float64), 1e-3)
+        info_bg = np.minimum(1.0 / np.maximum(imu_cfg.gyro_walk ** 2 * dts, 1e-12), 1e8)
+        info_ba = np.minimum(1.0 / np.maximum(imu_cfg.acc_walk ** 2 * dts, 1e-12), 1e8)
+
+        def up(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+        f32 = torch.float32
+        problem = VIBAProblem(
+            Twb=up(Twb, f32), vel=up(m.kf_vel[window], f32), bg=up(m.kf_bg[window], f32),
+            ba=up(m.kf_ba[window], f32), state_fixed=up(fixed, torch.bool),
+            state_valid=up(np.ones(K, bool), torch.bool), T_cb=up(T_cb, f32),
+            landmarks=up(m.lm_pos[lm_ids], f32), lm_valid=up(np.ones(len(lm_ids), bool),
+                                                             torch.bool),
+            obs_kf=up(obs_kf, torch.int64), obs_uv=up(obs_uv, f32), obs_ur=up(obs_ur, f32),
+            obs_inv_sigma2=up(inv_s2, f32), obs_mask=up(obs_mask, torch.bool),
+            pair_i=up(pair_i, torch.int64), pair_j=up(pair_j, torch.int64),
+            pair_meas=imu_frontend.stack_preints(preints, dev),
+            pair_valid=up(valid, torch.bool), info_bg=up(info_bg, f32),
+            info_ba=up(info_ba, f32))
     return problem, window, lm_ids, obs_kf, obs_feat
 
 

@@ -38,7 +38,12 @@ def body_cam_extrinsics(cfg: SlamConfig) -> Tuple[np.ndarray, np.ndarray]:
     inertial configuration without ``cfg.imu`` is refused."""
     if cfg.imu is None:
         raise ValueError("an inertial sensor needs cfg.imu (ImuConfig)")
-    M = torch.as_tensor(np.asarray(cfg.imu.T_body_cam, np.float32).reshape(4, 4))
+    return extrinsics(cfg.imu)
+
+
+def extrinsics(imu_cfg) -> Tuple[np.ndarray, np.ndarray]:
+    """(T_bc, T_cb) of an ``ImuConfig`` (``body_cam_extrinsics``)."""
+    M = torch.as_tensor(np.asarray(imu_cfg.T_body_cam, np.float32).reshape(4, 4))
     T_bc = lie.se3_from_matrix(M).numpy().astype(np.float32)
     return T_bc, lie.np_se3_inv(T_bc).astype(np.float32)
 
@@ -171,8 +176,9 @@ def _unflat(v: torch.Tensor) -> pre.Preintegrated:
 def stack_preints(ts, device) -> pre.Preintegrated:
     """A batch (axis 0) of host preintegration tuples on ``device``, from
     one upload."""
-    flat = np.stack([np.concatenate([np.asarray(a, np.float32).reshape(-1) for a in t])
-                     for t in ts])
+    flat = np.zeros((len(ts), PREINT_WIDTH), np.float32)
+    for i, t in enumerate(ts):
+        flat[i] = np.concatenate([np.asarray(a, np.float32).reshape(-1) for a in t])
     return _unflat(torch.as_tensor(flat, device=device))
 
 

@@ -34,7 +34,13 @@ and ``_apply_gba`` writes back. The RANSAC draws are taken under
 ``rng_lock``, which the owner of the generator shares with its other users.
 
 An inertial map whose IMU is initialized corrects its loop with the 4-DoF
-essential graph (translation and yaw; ``optimize_pose_graph_4dof``).
+essential graph (translation and yaw; ``optimize_pose_graph_4dof``), and
+its global BA is the whole-map inertial one (``optim/global_inertial_ba``:
+every keyframe's pose, velocity and biases and every landmark, in one call
+of ``GBA_VI_ITERATIONS`` LM iterations, as the reference's
+``RunGlobalBundleAdjustment`` calls ``FullInertialBA(7)``,
+``LoopClosing.cc:2284-2287``); the JAX package runs the visual global BA
+there. Every other map keeps the visual global BA.
 ``prewarm`` has no counterpart: it warms XLA's compile tiers.
 """
 
@@ -53,11 +59,12 @@ from orb_slam3_rgbl_tpu_torch.config import SlamConfig
 from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry import lie
 from orb_slam3_rgbl_tpu_torch.ops import matching
-from orb_slam3_rgbl_tpu_torch.optim import global_ba, pose_graph
+from orb_slam3_rgbl_tpu_torch.optim import global_ba, global_inertial_ba, pose_graph
+from orb_slam3_rgbl_tpu_torch.optim.inertial_ba import VIBAProblem, VIBAResult
 from orb_slam3_rgbl_tpu_torch.optim import sim3 as sim3_opt
 from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
 from orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab import TreeVocabulary
-from orb_slam3_rgbl_tpu_torch.slam import ba_assembly
+from orb_slam3_rgbl_tpu_torch.slam import ba_assembly, imu_frontend
 from orb_slam3_rgbl_tpu_torch.slam.frame import inv_scale_sigma2
 from orb_slam3_rgbl_tpu_torch.slam.local_mapping import DeviceKfCache, _i32_words
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState, dedup_kf_bindings
@@ -68,6 +75,7 @@ LOOP_SPANS = ("loop.index", "loop.detect", "loop.verify", "loop.fuse", "loop.pos
 RANSAC_HYPOTHESES = 512
 GBA_CG_ITERS = 64
 GBA_CHUNK = 2   # LM iterations per solver call; damping and the Huber phase restart with each
+GBA_VI_ITERATIONS = 7   # LM iterations of the inertial global BA, one call, Huber on each
 
 
 @dataclasses.dataclass
@@ -115,6 +123,7 @@ class LoopCloser:
         self._pending_fusion = None
         # what the plane did and what it cost on the host's clock
         self.stats = {"keyframes": [], "candidates": [], "events": []}
+        self.counts = {"inertial_gba_runs": 0}
 
     def _dev(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -644,7 +653,10 @@ class LoopCloser:
         t0 = time.perf_counter()
         with record_function("loop.gba"):
             snapshot = self._gba_assemble()
-            cost_before = global_ba.ba_cost(snapshot[0], self.cam)
+            if isinstance(snapshot[0], VIBAProblem):
+                cost_before = global_inertial_ba.vi_cost(snapshot[0], self.cfg.geo_camera)
+            else:
+                cost_before = global_ba.ba_cost(snapshot[0], self.cam)
             self._apply_gba(self._gba_iterate(snapshot, iterations))
         if self.stats["events"]:
             self.stats["events"][-1].update(gba_cost_before=float(cost_before),
@@ -653,10 +665,18 @@ class LoopCloser:
     def _gba_assemble(self):
         """Snapshot half of the global BA: the whole-map problem from the
         live arrays, with the per-pose observation table the solver sums
-        through, the poses as they stand and the landmarks' generations."""
+        through, the poses as they stand and the landmarks' generations.
+        On an inertial map whose IMU is initialized the problem is the
+        whole-map inertial one (``ba_assembly.build_full_vi_problem``) with
+        its observation and pair tables."""
         m = self.map
         inv_s2 = inv_scale_sigma2(self.cfg.orb.n_levels, self.cfg.orb.scale_factor,
                                   device="cpu").numpy()
+        if self.cfg.inertial and m.imu_initialized:
+            problem, window, lm_ids, _, _ = ba_assembly.build_full_vi_problem(
+                m, inv_s2, self.cfg.imu, device=self.device)
+            return (problem, window, lm_ids, m.kf_pose.copy(), m.lm_gen[lm_ids].copy(),
+                    global_inertial_ba.make_segments(problem))
         # the real numbers of poses and landmarks: no padding tiers
         problem, window, lm_ids, _, _ = ba_assembly.build_full_problem(
             m, inv_s2, min_pose_tier=1, min_lm_tier=1, device=self.device)
@@ -671,8 +691,17 @@ class LoopCloser:
         time (the chunks keep the solver's damping and Huber schedule as the
         JAX package runs it). Touches no live map state. Before each chunk
         it polls ``abort_event`` (the reference's ``mbStopGBA``) and returns
-        None once it is set."""
+        None once it is set. An inertial snapshot is solved in one call of
+        ``GBA_VI_ITERATIONS`` (``iterations`` is the visual solve's)."""
         problem, window, lm_ids, pose_before, lm_gen_before, segments = snapshot
+        if isinstance(problem, VIBAProblem):
+            if abort_event is not None and abort_event.is_set():
+                return None
+            res = global_inertial_ba.global_inertial_bundle_adjust(
+                problem, self.cfg.geo_camera, segments, iterations=GBA_VI_ITERATIONS,
+                cg_iters=GBA_CG_ITERS, huber_iters=GBA_VI_ITERATIONS)
+            self.counts["inertial_gba_runs"] += 1
+            return (window, lm_ids, res, pose_before, lm_gen_before)
         poses, lms = problem.poses, problem.landmarks
         res = None
         it = 0
@@ -696,7 +725,18 @@ class LoopCloser:
         window, lm_ids, res, pose_before, lm_gen_before = out
         m = self.map
         rec = self.stats["events"][-1] if self.stats["events"] else {}
-        new_poses = res.poses.cpu().numpy().astype(np.float32)[: len(window)]
+        inertial = isinstance(res, VIBAResult)
+        if inertial:
+            # the body states through T_cb, velocities and biases beside them
+            K = len(window)
+            down = torch.cat([res.Twb.reshape(-1), res.vel.reshape(-1), res.bg.reshape(-1),
+                              res.ba.reshape(-1)]).cpu().numpy()
+            Twb, vel, bg, ba = np.split(down, np.cumsum([7 * K, 3 * K, 3 * K]))
+            T_cb = imu_frontend.extrinsics(self.cfg.imu)[1]
+            new_poses = lie.np_se3_mul(np.tile(T_cb, (K, 1)),
+                                       lie.np_se3_inv(Twb.reshape(K, 7))).astype(np.float32)
+        else:
+            new_poses = res.poses.cpu().numpy().astype(np.float32)[: len(window)]
         new_lms = res.landmarks.cpu().numpy().astype(np.float32)[: len(lm_ids)]
         rec.update(gba_poses=len(window), gba_landmarks=len(lm_ids),
                    gba_cost_after=float(res.cost))
@@ -717,6 +757,10 @@ class LoopCloser:
         before_all = m.kf_pose.copy()
         fresh_kfs = [int(k) for k in m.valid_kf_ids() if not in_window[k]]
         m.kf_pose[window] = new_poses
+        if inertial:
+            m.kf_vel[window] = vel.reshape(K, 3)
+            m.kf_bg[window] = bg.reshape(K, 3)
+            m.kf_ba[window] = ba.reshape(K, 3)
         ok = still & m.lm_valid[lm_ids]
         m.lm_pos[lm_ids[ok]] = new_lms[ok]
 
@@ -730,6 +774,12 @@ class LoopCloser:
                 anchor = int(window[-1])
             T_rel = lie.np_se3_mul(before_all[k], lie.np_se3_inv(before_all[anchor]))
             m.kf_pose[k] = lie.np_se3_mul(T_rel, m.kf_pose[anchor])
+            if inertial:
+                # its velocity turns with its world rotation's correction,
+                # R_wc' · R_cw (the reference's Rcor); its biases stay
+                q_new = m.kf_pose[k, :4] * np.float32([1, -1, -1, -1])
+                m.kf_vel[k] = lie.np_quat_rotate(
+                    q_new[None], lie.np_quat_rotate(before_all[k, :4][None], m.kf_vel[k][None]))[0]
 
         # landmarks created after the snapshot: re-anchor through their
         # reference keyframe's before/after poses

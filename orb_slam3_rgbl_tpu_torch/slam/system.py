@@ -722,8 +722,9 @@ class System:
     # -- the global BA after a correction --------------------------------
     def _dispatch_gba(self):
         """The global BA after a loop correction, ``GBA_ITERATIONS`` (16) LM
-        iterations: a loop-bent map needs about that many to unbend. Inline
-        on the synchronous plane. On the asynchronous one the snapshot is
+        iterations: a loop-bent map needs about that many to unbend (on an
+        initialized inertial map the whole-map inertial solve, 7 in one
+        call: ``LoopCloser._gba_iterate``). Inline on the synchronous plane. On the asynchronous one the snapshot is
         assembled here, on the thread that owns map mutations, and solved
         on the ``gba`` thread; a new correction aborts a running solve (the
         reference's ``mbStopGBA``)."""

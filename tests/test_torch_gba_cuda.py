@@ -12,7 +12,15 @@ kernels (``csrc/gba.cu``) are held to on the card.
 * on CPU tensors the wrappers return the plain versions' bits and launch
   nothing; the plain CG updates are the textbook step;
 * the H·v kernel's blocks hold whole landmarks and start on 16 bytes where
-  the slot count allows."""
+  the slot count allows.
+
+On a card (``gpu``, skipped without one): ``gba_pair_hv`` and the 15-wide
+``gba_cg_update`` and ``gba_cg_direction`` give their plain versions' bits;
+``gba_hv`` on a 15-wide state vector gives the bits of its pose columns
+alone (the visual solve's path); a whole inertial solve waits for nothing,
+repeats to the bit and launches each CG kernel once a step; the loop
+closer runs it on an initialized inertial map and writes back poses,
+velocities and biases."""
 
 import numpy as np
 import pytest
@@ -185,3 +193,195 @@ def test_hv_blocks_hold_whole_landmarks_on_16_bytes(D):
 def test_hv_refuses_more_slots_than_a_block(D):
     with pytest.raises(ValueError):
         gba_cuda.landmarks_per_block(D)
+
+
+# --- the 15-wide states of the inertial solve, on the card ------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pair_operands(K, seed, device):
+    """A temporal chain of K states and every 5th state tied to the one
+    three ahead as well, random Jacobians and weights, state 0 fixed, one
+    pair invalid."""
+    from orb_slam3_rgbl_tpu_torch.optim import global_inertial_ba as giba
+    g = torch.Generator().manual_seed(seed)
+    extra = torch.arange(0, K - 3, 5)
+    pair_i = torch.cat([torch.arange(K - 1), extra])
+    pair_j = torch.cat([torch.arange(1, K), extra + 3])
+    P = len(pair_i)
+    J = torch.randn(P, 15, 30, generator=g) * 10
+    w = torch.rand(P, 15, generator=g) * 1e4
+    w[P // 2] = 0.0
+    v = torch.randn(K, 15, generator=g)
+    lam = torch.rand(K, 15, generator=g)
+    free = (torch.arange(K) != 0)[:, None]
+    Hp = torch.randn(K, 6, generator=g) * 50
+    lm_half = torch.randn((), generator=g)
+    table = giba.pair_segments(pair_i, pair_j, K).table
+    return [t.to(device) for t in (J, w, pair_i, pair_j, table, lam, free, Hp, v, lm_half)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [199, 2048, 5])
+def test_pair_hv_kernel_gives_its_plain_versions_bits(cuda, K):
+    """``gba_pair_hv`` against ``pair_hv_plain`` on the card and on the CPU:
+    the same bits (each product and sum rounded once, in the same order);
+    one launch a call; two calls the same bits."""
+    J, w, pair_i, pair_j, table, lam, free, Hp, v, lm_half = _pair_operands(K, K, cuda)
+    op = gba_cuda.PairProduct(J, w, pair_i, pair_j, table, lam, free)
+    before = cuda_build.launch_counts["gba_pair_hv"]
+    got = op(Hp, v, lm_half)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["gba_pair_hv"] == before + 1
+    want = gba_cuda.pair_hv_plain(Hp, J, w, pair_i, pair_j, table, v, lam, free, lm_half)
+    on_cpu = gba_cuda.pair_hv_plain(*(t.cpu() for t in (Hp, J, w, pair_i, pair_j, table, v, lam,
+                                                         free, lm_half)))
+    for a, b, c in zip(got, want, on_cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert all(torch.equal(a, b) for a, b in zip(got, op(Hp, v, lm_half)))
+
+
+@pytest.mark.gpu
+def test_15_wide_cg_kernels_give_their_plain_versions_bits(cuda):
+    """The 15-wide ``gba_cg_update`` (the step's updates, then the 15×15
+    apply) and ``gba_cg_direction`` against the separate PyTorch operations:
+    the same bits; the apply alone within 1e-5 of the plain version."""
+    g = torch.Generator().manual_seed(15)
+    K, M = 199, 29_851
+    Minv_s = torch.randn(K, 15, 15, generator=g).to(cuda)
+    Minv_l = torch.randn(M, 3, 3, generator=g).to(cuda)
+    free = (torch.arange(K, device=cuda) != 0)[:, None]
+    lm_free = (torch.arange(M, device=cuda) % 7 != 3)[:, None]
+    bj = gba_cuda.BlockJacobi(Minv_s, Minv_l, free, lm_free)
+    v_s, v_l = torch.randn(K, 15, generator=g).to(cuda), torch.randn(M, 3, generator=g).to(cuda)
+    for a, b in zip(bj(v_s, v_l), gba_cuda.precond_plain(Minv_s, Minv_l, v_s, v_l, free,
+                                                         lm_free)):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+    rz, pAp, rz_new = (torch.rand((), generator=g).to(cuda) + 0.5 for _ in range(3))
+    x, rr, p, Ap = ((torch.randn(K, 15, generator=g).to(cuda),
+                     torch.randn(M, 3, generator=g).to(cuda)) for _ in range(4))
+    counts = cuda_build.launch_counts
+    before = (counts["gba_cg_update"], counts["gba_cg_direction"])
+    xo, ro, zo = bj.update(rz, pAp, x, rr, p, Ap)
+    po = gba_cuda.cg_direction(rz_new, rz, zo, p)
+    torch.cuda.synchronize()
+    assert (counts["gba_cg_update"], counts["gba_cg_direction"]) == (before[0] + 1, before[1] + 1)
+    xw, rw, zw = gba_cuda.cg_update_plain(bj, rz, pAp, x, rr, p, Ap)
+    pw = gba_cuda.cg_direction_plain(rz_new, rz, zo, p)
+    for got_, want_ in ((xo, xw), (ro, rw), (zo, zw), (po, pw)):
+        assert all(torch.equal(a, b) for a, b in zip(got_, want_))
+    with pytest.raises(ValueError):
+        bj.update(rz, pAp, x, rr, (p[0][:, :6].contiguous(), p[1]), Ap)
+
+
+@pytest.mark.gpu
+def test_hv_reads_the_pose_columns_of_15_wide_states(cuda):
+    """``gba_hv`` on a (K, 15) vector gives the bits it gives on its pose
+    columns alone: the 6-wide path is the visual solve's, unchanged."""
+    from orb_slam3_rgbl_tpu_torch.optim import global_ba as gba
+    g = torch.Generator().manual_seed(6)
+    M, D, K = 20_000, 8, 199
+    Jp = (torch.randn(M, D, 3, 6, generator=g) * 50).to(cuda)
+    Jl = (torch.randn(M, D, 3, 3, generator=g) * 50).to(cuda)
+    live = torch.rand(M, D, generator=g) < 0.7
+    w = torch.where(live, torch.rand(M, D, generator=g) + 0.1, 0.0).to(cuda)
+    obs_kf = torch.randint(0, K, (M, D), generator=g).to(cuda)
+    lam_l = torch.rand(M, 3, generator=g).to(cuda)
+    lm_free = torch.ones(M, 1, dtype=torch.bool, device=cuda)
+    seg = gba.PoseSegments(obs_kf, live.to(cuda), K)
+    hv = gba_cuda.HessianProduct(Jp, Jl, w, obs_kf, seg, lam_l, lm_free)
+    v_s, v_l = torch.randn(K, 15, generator=g).to(cuda), torch.randn(M, 3, generator=g).to(cuda)
+    wide = hv(v_s, v_l)
+    narrow = hv(v_s[:, :6].contiguous(), v_l)
+    assert all(torch.equal(a, b) for a, b in zip(wide, narrow))
+
+
+@pytest.mark.gpu
+def test_inertial_solve_on_the_card(cuda):
+    """A whole inertial solve on a small hall map: no wait for the device,
+    the same bits twice, one launch each of ``gba_hv``, ``gba_pose_sum``,
+    ``gba_pair_hv``, ``gba_cg_update`` and ``gba_cg_direction`` a CG step
+    (one more ``gba_cg_update`` a linearization), and the CPU run's answer
+    within 1e-3 m, 1e-3 m/s and 1e-2 of the cost."""
+    import test_torch_global_inertial_ba as t
+    from orb_slam3_rgbl_tpu_torch.optim import global_inertial_ba as giba
+    from slambench.problems import vi_gba
+    cell, config = t.small(24, 60)
+    maparr = vi_gba.make_map(config, cell, t.SEED)
+    on = {d: vi_gba.Solver(config, cell, maparr, torch.device(d)) for d in ("cuda", "cpu")}
+    problem, segments = on["cuda"]._assemble()
+    its, cg = 3, 20
+    names = ("gba_hv", "gba_pose_sum", "gba_pair_hv", "gba_cg_update", "gba_cg_direction")
+    counts = cuda_build.launch_counts
+    before = {k: counts[k] for k in names}
+
+    def run():
+        return giba.global_inertial_bundle_adjust(problem, on["cuda"].cam, segments,
+                                                  iterations=its, cg_iters=cg)
+    giba.global_inertial_bundle_adjust(problem, on["cuda"].cam, segments, iterations=1, cg_iters=2)
+    torch.cuda.synchronize()
+    before = {k: counts[k] for k in names}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert {k: counts[k] - before[k] for k in names} == dict(
+        gba_hv=its * cg, gba_pose_sum=its * cg, gba_pair_hv=its * cg,
+        gba_cg_update=its * (cg + 1), gba_cg_direction=its * cg)
+    again = run()
+    for f in first._fields:
+        assert torch.equal(getattr(first, f), getattr(again, f)), f
+    p_c, s_c = on["cpu"]._assemble()
+    cpu = giba.global_inertial_bundle_adjust(p_c, on["cpu"].cam, s_c, iterations=its, cg_iters=cg)
+    assert (first.Twb.cpu()[:, 4:] - cpu.Twb[:, 4:]).abs().max() < 1e-3
+    assert (first.vel.cpu() - cpu.vel).abs().max() < 1e-3
+    np.testing.assert_allclose(float(first.cost), float(cpu.cost), rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_the_loop_closers_inertial_ba_on_the_card(cuda):
+    """``LoopCloser`` on an initialized stereo-inertial map on the card:
+    the snapshot is the whole-map inertial problem, its solve (one call of 7
+    LM iterations) waits for nothing and gives the same bits twice, and the
+    writeback moves poses, velocities and biases."""
+    import test_torch_global_inertial_ba as t
+    from orb_slam3_rgbl_tpu_torch.config import IMU_STEREO, OrbConfig, SlamConfig
+    from orb_slam3_rgbl_tpu_torch.slam import loop_closing
+    from slambench.problems import vi_gba
+    cell, config = t.small(24, 60)
+    maparr = vi_gba.make_map(config, cell, t.SEED)
+    solver = vi_gba.Solver(config, cell, maparr, cuda)
+    orb = config["orb"]
+    cfg = SlamConfig(sensor=IMU_STEREO, camera=solver.cam, imu=solver.imu,
+                     orb=OrbConfig(n_features=orb["n_features"], n_levels=orb["n_levels"],
+                                   scale_factor=orb["scale_factor"]))
+    m = solver.map
+    closer = loop_closing.LoopCloser(cfg, m, device=cuda)
+    snapshot = closer._gba_assemble()
+    assert isinstance(snapshot[0], loop_closing.VIBAProblem)
+    assert snapshot[0].Twb.device.type == "cuda" and int(snapshot[0].pair_valid.sum()) == 23
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = closer._gba_iterate(snapshot, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again = closer._gba_iterate(snapshot, 6)
+    for f in out[2]._fields:
+        assert torch.equal(getattr(out[2], f), getattr(again[2], f)), f
+    assert closer.counts["inertial_gba_runs"] == 2
+    live = m.valid_kf_ids()
+    before = {f: getattr(m, f)[live].copy() for f in ("kf_pose", "kf_vel", "kf_bg", "kf_ba")}
+    assert closer._apply_gba(out) is True
+    for f, a in before.items():
+        assert np.abs(getattr(m, f)[live] - a).max() > 0, f
+    assert float(out[2].cost) < 0.5 * float(vi_gba.global_inertial_ba.vi_cost(snapshot[0],
+                                                                              cfg.geo_camera))

@@ -230,6 +230,7 @@ def test_device_none_never_answers_on_the_cpu():
 
     import numpy as np
     from orb_slam3_rgbl_tpu_torch import convert, device, synthetic
+    from orb_slam3_rgbl_tpu_torch.config import ImuConfig
     from orb_slam3_rgbl_tpu_torch.geometry import camera, lie
     from orb_slam3_rgbl_tpu_torch.retrieval import tree_vocab, vocab
     from orb_slam3_rgbl_tpu_torch.slam import merging
@@ -284,6 +285,9 @@ def test_device_none_never_answers_on_the_cpu():
         pre + "geometry.camera.intrinsics": lambda: camera.intrinsics(cfg.camera),
         pre + "slam.ba_assembly.build_full_problem":
             lambda: ba_assembly.build_full_problem(small_map, np.ones(8, np.float32))[0].poses,
+        pre + "slam.ba_assembly.build_full_vi_problem":
+            lambda: ba_assembly.build_full_vi_problem(small_map, np.ones(8, np.float32),
+                                                      ImuConfig())[0].Twb,
         pre + "slam.local_mapping.DeviceKfCache.__init__": lambda: DeviceKfCache(4).d_uv,
         pre + "slam.local_mapping.LocalMapper.__init__":
             lambda: LocalMapper(cfg, small_map).dev_cache.d_uv,

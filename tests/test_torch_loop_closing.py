@@ -543,3 +543,136 @@ def test_a_second_dispatch_supersedes_the_running_solve(corrected, monkeypatch):
     assert ts._gba_future is None and ts._gba_exec is None
     assert tc.stats["events"][n_events - 1]["gba"] == "applied"
     assert t_ms.check_binding_consistency(tc.map) == []
+
+
+def _imu_chain(m, dt_min=1e-3):
+    """An IMU chain over the map's keyframes in id order, its preintegrations
+    read off the poses as they stand (the body is the camera, velocities by
+    central differences of the centres): the map is inertially consistent
+    before the correction bends it."""
+    from orb_slam3_rgbl_tpu_torch.imu.preintegration import GRAVITY
+    kfs = m.valid_kf_ids()
+    Twb = t_lie.np_se3_inv(m.kf_pose[kfs])
+    t = m.kf_timestamp[kfs]
+    p = Twb[:, 4:7].astype(np.float64)
+    vel = np.gradient(p, t, axis=0)
+    g = np.array([0.0, 0.0, -GRAVITY])
+    for a in range(len(kfs) - 1):
+        dt = max(float(t[a + 1] - t[a]), dt_min)
+        rel = t_lie.np_se3_mul(t_lie.np_se3_inv(Twb[a][None]), Twb[a + 1][None])[0]
+        q1 = Twb[a, :4] * np.float32([1, -1, -1, -1])
+        dV = t_lie.np_quat_rotate(q1[None], (vel[a + 1] - vel[a] - g * dt)[None])[0]
+        dP = t_lie.np_quat_rotate(q1[None], (p[a + 1] - p[a] - vel[a] * dt
+                                             - 0.5 * g * dt * dt)[None])[0]
+        eye = np.eye(3, dtype=np.float32)
+        cov = np.diag([1e-7] * 3 + [1e-5] * 3 + [1e-6] * 3).astype(np.float32) * dt
+        m.imu_preint[int(kfs[a + 1])] = (
+            np.float32(dt), rel[:4].astype(np.float32), dV.astype(np.float32),
+            dP.astype(np.float32), -dt * eye, 0 * eye, -dt * eye, 0 * eye, -0.5 * dt * dt * eye,
+            cov, np.zeros(3, np.float32), np.zeros(3, np.float32))
+        m.kf_prev_imu[kfs[a + 1]] = kfs[a]
+    m.kf_vel[kfs] = vel.astype(np.float32)
+
+
+def test_an_initialized_inertial_map_runs_the_whole_map_inertial_ba(state, monkeypatch):
+    """The event on the map as an initialized inertial map (IMU_RGBD) with an
+    IMU chain: after the 4-DoF correction the global BA is the whole-map
+    inertial one (``FullInertialBA(7)``: one call, 7 LM iterations), not the
+    visual one; it lowers the map's cost and moves velocities and biases;
+    the keyframes keep their IMU chain. A preset abort stops it before the
+    call. A keyframe made during the solve follows its anchor, its velocity
+    turned with its correction (1e-6), its biases kept. (The JAX package
+    runs the visual global BA here: the port follows the reference.)"""
+    from orb_slam3_rgbl_tpu.config import IMU_RGBD, ImuConfig
+    from orb_slam3_rgbl_tpu_torch.optim import global_inertial_ba as t_giba
+
+    js, ev, kf_id, groups, pending, tcfg = state
+    jcfg = dataclasses.replace(js.cfg, sensor=IMU_RGBD, imu=ImuConfig())
+    jmap = copy_jax_map(js.map)
+    jmap.imu_initialized = True
+    tc = port_closer(js, convert.config_from_dict(dataclasses.asdict(jcfg)), groups, jmap=jmap,
+                     jcloser=js.loop_closer)
+    _imu_chain(tc.map)
+    tc._pending_fusion = tuple(a.copy() for a in pending)
+    visual, inertial = [], []
+    solve_v, solve_i = t_global_ba.global_bundle_adjust, t_giba.global_inertial_bundle_adjust
+    monkeypatch.setattr(t_global_ba, "global_bundle_adjust",
+                        lambda *a, **k: visual.append(k) or solve_v(*a, **k))
+    monkeypatch.setattr(t_giba, "global_inertial_bundle_adjust",
+                        lambda *a, **k: inertial.append(k) or solve_i(*a, **k))
+    m = tc.map
+    live = m.valid_kf_ids()
+    chain = m.kf_prev_imu.copy()
+    before = dict(vel=m.kf_vel[live].copy(), bg=m.kf_bg[live].copy(), ba=m.kf_ba[live].copy())
+    tc._correct_loop(t_lc.LoopEvent(ev.kf_cur, ev.kf_matched, ev.n_inliers, ev.S12.copy()))
+    rec = tc.stats["events"][-1]
+    assert rec["pose_graph_dof"] == 4 and rec["gba"] == "applied"
+    assert visual == [] and len(inertial) == 1 and tc.counts["inertial_gba_runs"] == 1
+    assert inertial[0]["iterations"] == inertial[0]["huber_iters"] == t_lc.GBA_VI_ITERATIONS == 7
+    assert rec["gba_cost_after"] < rec["gba_cost_before"]
+    assert rec["gba_poses"] == live.size
+    np.testing.assert_array_equal(m.kf_prev_imu, chain)
+    assert np.abs(m.kf_vel[live] - before["vel"]).max() > 1e-3
+    assert np.abs(m.kf_bg[live] - before["bg"]).max() > 0
+    assert np.abs(m.kf_ba[live] - before["ba"]).max() > 0
+    assert np.isfinite(m.kf_vel[live]).all() and np.isfinite(m.kf_ba[live]).all()
+    # the snapshot is the inertial one, every link of the chain a valid pair;
+    # a preset abort stops the solve before its call
+    snapshot = tc._gba_assemble()
+    assert isinstance(snapshot[0], t_lc.VIBAProblem)
+    assert int(snapshot[0].pair_valid.sum()) == live.size - 1
+    preset = threading.Event()
+    preset.set()
+    assert tc._gba_iterate(snapshot, 6, preset) is None and len(inertial) == 1
+
+    # a keyframe made during the solve: its velocity turns with its
+    # correction (R_wc' · R_cw, the reference's Rcor), its biases stay
+    out = tc._gba_iterate(snapshot, 6)
+    anchor = int(out[0][-1])
+    T_rel = np.array([0.99875, 0.03, 0.04, -0.01, 0.1, 0.02, -0.05], np.float32)
+    T_rel[:4] /= np.linalg.norm(T_rel[:4])
+    kf_new = m.add_keyframe(
+        t_lie.np_se3_mul(T_rel, m.kf_pose[anchor]), m.kf_uv[anchor], m.kf_octave[anchor],
+        m.kf_desc[anchor], m.kf_depth[anchor], m.kf_ur[anchor], m.kf_feat_valid[anchor],
+        m.kf_lm_idx[anchor].copy(), 99.9, 999, angle=m.kf_angle[anchor])
+    v0, bg0 = np.float32([0.3, -0.2, 1.1]), np.float32([1e-3, 2e-3, 3e-3])
+    m.kf_vel[kf_new], m.kf_bg[kf_new] = v0, bg0
+    # the anchor and the new keyframe turned together meanwhile (0.05 rad
+    # about the world's z): the writeback takes the anchor back
+    turn = np.float32([np.cos(0.025), 0, 0, np.sin(0.025), 0, 0, 0])
+    for k in (anchor, kf_new):
+        m.kf_pose[k] = t_lie.np_se3_mul(m.kf_pose[k], turn)
+    q_old = m.kf_pose[kf_new, :4].copy()
+    assert tc._apply_gba(out) is True
+    q_new = m.kf_pose[kf_new, :4] * np.float32([1, -1, -1, -1])
+    want = t_lie.np_quat_rotate(q_new[None], t_lie.np_quat_rotate(q_old[None], v0[None]))[0]
+    np.testing.assert_allclose(m.kf_vel[kf_new], want, atol=1e-6)
+    assert np.abs(m.kf_vel[kf_new] - v0).max() > 1e-2
+    np.testing.assert_array_equal(m.kf_bg[kf_new], bg0)
+    np.testing.assert_allclose(
+        t_lie.np_se3_mul(m.kf_pose[kf_new], t_lie.np_se3_inv(m.kf_pose[anchor])), T_rel,
+        atol=1e-4)
+
+
+def test_a_visual_map_keeps_the_visual_global_ba(corrected, monkeypatch):
+    """On a map without an initialized IMU the global BA is the visual
+    solve, chunk by chunk as before, and the inertial one never runs."""
+    from orb_slam3_rgbl_tpu_torch.optim import global_inertial_ba as t_giba
+    _, tc = corrected
+    chunks = []
+    solve = t_global_ba.global_bundle_adjust
+    monkeypatch.setattr(t_global_ba, "global_bundle_adjust",
+                        lambda *a, **k: chunks.append(k["iterations"]) or solve(*a, **k))
+    monkeypatch.setattr(t_giba, "global_inertial_bundle_adjust", None)
+    snapshot = tc._gba_assemble()
+    assert not isinstance(snapshot[0], t_lc.VIBAProblem)
+    window, lm_ids, res, _, _ = tc._gba_iterate(snapshot, 4)
+    assert chunks == [t_lc.GBA_CHUNK, t_lc.GBA_CHUNK] and tc.counts["inertial_gba_runs"] == 0
+    # the same chunks called directly give the same bits
+    problem, segments = snapshot[0], snapshot[5]
+    poses, lms = problem.poses, problem.landmarks
+    for _ in range(2):
+        direct = solve(problem._replace(poses=poses, landmarks=lms), tc.cam, segments,
+                       iterations=t_lc.GBA_CHUNK, cg_iters=t_lc.GBA_CG_ITERS)
+        poses, lms = direct.poses, direct.landmarks
+    assert torch.equal(res.poses, direct.poses) and torch.equal(res.landmarks, direct.landmarks)
