@@ -59,7 +59,9 @@ prints what every keyframe, candidate and event cost, the event split by
 ``gba_cg_update`` and ``gba_cg_direction`` run one whole inertial solve at
 the shapes of the benchmark's inertial cell (its map, made from ``SEED``)
 and are held, timed and bounded the same way (``--gba-inertial`` runs that
-block alone).
+block alone); so is G4, the visual solve's LM iteration outside CG
+(``gba_linearize``, ``gba_pose_blocks``, ``gba_cost``, ``gba_apply_step``),
+at the shapes of the benchmark's two visual cells (``--gba-lm`` alone).
 Then 6 textureless frames and 6 frames of a place the lap mapped: the
 tracker must come back through relocalization against the database, in the
 same atlas map.
@@ -240,7 +242,7 @@ from orb_slam3_rgbl_tpu_torch.ops import brief_cuda, depth as depth_ops, fast as
 from orb_slam3_rgbl_tpu_torch.ops import frontend_cuda, gba_cuda
 from orb_slam3_rgbl_tpu_torch.ops.matching import stereo_row_match
 from orb_slam3_rgbl_tpu_torch.ops import orb as orb_ops, pyramid as pyr_ops
-from orb_slam3_rgbl_tpu_torch.optim import local_ba, pose_graph
+from orb_slam3_rgbl_tpu_torch.optim import global_ba, local_ba, pose_graph
 from orb_slam3_rgbl_tpu_torch.optim import sim3 as sim3_opt
 from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
 from orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab import train_vocabulary
@@ -249,7 +251,7 @@ from orb_slam3_rgbl_tpu_torch.slam import map_state as map_mod, merging
 from orb_slam3_rgbl_tpu_torch.slam.compiled import extract as compiled_extract, lidar_projection
 from orb_slam3_rgbl_tpu_torch.slam.local_mapping import MAP_SPANS, LocalMapper
 from orb_slam3_rgbl_tpu_torch.slam.fast_path import FastPath
-from orb_slam3_rgbl_tpu_torch.slam.loop_closing import GBA_CG_ITERS, LOOP_SPANS, LoopCloser
+from orb_slam3_rgbl_tpu_torch.slam.loop_closing import GBA_CG_ITERS, GBA_CHUNK, LOOP_SPANS, LoopCloser
 from orb_slam3_rgbl_tpu_torch.slam.system import System
 from orb_slam3_rgbl_tpu_torch.slam.tracking import Tracker
 
@@ -297,6 +299,7 @@ BLUR_TOL = 1e-3         # K1 blur vs pyramid.gaussian_blur (tests/test_brief_pal
 GBA_REL_TOL = 1e-5      # G1 and G2's block apply vs their plain versions, of the largest value
                         # (tests/test_torch_gpu.py's bar); the fused updates are bit-equal
 GBA_VI_CELL = "euroc_mh_stereo_inertial_map.viba_one_call"   # G3's shapes: the benchmark's cell
+GBA_LM_CELLS = ("kitti00_rgbl_map.gba_one_call", "euroc_mh_stereo_map.gba_one_call")   # G4's
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): 3.35 TB/s of HBM and
 # 67 TFLOP/s of f32 outside the tensor cores. The 67 counts a fused
@@ -1197,19 +1200,27 @@ def log_loop_spans(what: str, stat):
         log(f"  {ms:8.3f} ms {n_calls:6d} calls  {name[:110]}")
 
 
-def check_gba_launches(what: str, counts: dict, iterations: int, cg_iters: int, device):
-    """The CG-step kernels' launches in a solve of ``iterations`` LM
-    iterations × ``cg_iters`` CG steps: one ``gba_hv``, ``gba_pose_sum``,
-    ``gba_cg_update`` and ``gba_cg_direction`` a step, and one more
-    ``gba_cg_update`` a linearization (the PCG set-up's apply); none on the
-    CPU, where the plain versions run."""
+def check_gba_launches(what: str, counts: dict, iterations: int, cg_iters: int, device,
+                       calls: int = 1, visual: bool = True):
+    """The solve's kernel launches over ``calls`` calls of ``iterations`` LM
+    iterations × ``cg_iters`` CG steps in all: one ``gba_hv``,
+    ``gba_pose_sum``, ``gba_cg_update`` and ``gba_cg_direction`` a step, and
+    one more ``gba_cg_update`` a linearization (the PCG set-up's apply); in
+    the visual solve (G4) one ``gba_linearize``, ``gba_pose_blocks`` and
+    ``gba_apply_step`` an LM iteration and one ``gba_cost`` (the cost pass)
+    an iteration and a call (its final pass); none on the CPU, where the
+    plain versions run."""
     on_card = device.type == "cuda"
     steps = iterations * cg_iters if on_card else 0
+    lm = iterations if on_card and visual else 0
+    final = calls if on_card and visual else 0
     expect = {"gba_hv": steps, "gba_pose_sum": steps,
-              "gba_cg_update": steps + (iterations if on_card else 0), "gba_cg_direction": steps}
+              "gba_cg_update": steps + (iterations if on_card else 0), "gba_cg_direction": steps,
+              "gba_linearize": lm, "gba_pose_blocks": lm, "gba_apply_step": lm,
+              "gba_cost": lm + final}
     got = {k: counts[k] for k in expect}
     if got != expect:
-        fail(f"{what}: CG-step launches {got}, expected {expect}")
+        fail(f"{what}: solve launches {got}, expected {expect}")
 
 
 @contextlib.contextmanager
@@ -1374,7 +1385,7 @@ def gba_inertial_kernels(device) -> list:
         solver.solve([])
     counts = dict(cuda_build.launch_counts)
     check_gba_launches("the inertial cell's solve", counts, sched["lm_iterations"],
-                       sched["cg_steps"], device)
+                       sched["cg_steps"], device, visual=False)
     steps = sched["lm_iterations"] * sched["cg_steps"]
     if counts["gba_pair_hv"] != steps:
         fail(f"the inertial cell's solve: {counts['gba_pair_hv']} gba_pair_hv launches, "
@@ -1607,7 +1618,8 @@ def phase6_loop(cfg, traj, frames, device, kf_every: int):
         out2, enq, ms = timed_without_sync(lambda: closer._gba_iterate(snapshot, iterations),
                                            device)
     gba_counts = dict(cuda_build.launch_counts)
-    check_gba_launches("the loop event's global BA", gba_counts, iterations, GBA_CG_ITERS, device)
+    check_gba_launches("the loop event's global BA", gba_counts, iterations, GBA_CG_ITERS, device,
+                       calls=-(-iterations // GBA_CHUNK))
     res1, res2 = out[2], out2[2]
     same = (torch.equal(res1.poses, res2.poses) and torch.equal(res1.landmarks, res2.landmarks)
             and torch.equal(res1.cost, res2.cost))
@@ -1618,7 +1630,8 @@ def phase6_loop(cfg, traj, frames, device, kf_every: int):
     if not same:
         fail("a second global BA of the same snapshot is not bit-equal to the first")
     print(json.dumps({"gba_kernels": gba_kernels(made, gba_counts, device)
-                      + gba_inertial_kernels(device)}), flush=True)
+                      + gba_inertial_kernels(device) + gba_lm_kernels(device)}),
+          flush=True)
     _, enq, ms = timed_without_sync(lambda: pose_graph.optimize_pose_graph(problem, **pg_kw), device)
     K, E = problem.nodes.shape[0], problem.edge_i.shape[0]
     log(f"pose graph again ({K} nodes, {E} edges, {pg_kw}): enqueued in {enq:.1f} ms, done in "
@@ -1641,6 +1654,152 @@ def phase6_loop(cfg, traj, frames, device, kf_every: int):
     detect_ms = dict(rec["detect"])[ev.kf_cur]
     return sysm, {"results": results, "fired": fired, "drive_s": drive_s, "peak_mb": peak_mb,
                   "kf_every": kf_every, "event_ms": (detect_ms, rec["apply_ms"])}
+
+
+def gba_lm_kernels(device) -> list:
+    """G4, the visual solve's LM iteration outside CG: the linearization
+    (``gba_linearize`` + ``gba_pose_blocks``), the cost pass
+    (``gba_linearize`` without Jacobians + ``gba_pose_blocks``' sum, counted
+    as ``gba_cost``) and ``gba_apply_step`` at the shapes of the benchmark's
+    two visual cells (``GBA_LM_CELLS``: their maps, made from ``SEED``,
+    assembled as the cells assemble them): each against its plain version
+    (``GBA_REL_TOL`` of the largest value; the active count, the final pass's
+    active mask and the landmarks' update exactly; the final pass's chi² where
+    active), two calls the same bits, the accept test's cost the
+    linearization's to the bit; launches in one solve of the cell (its
+    schedule), device ms of each pass's own kernels, and the wrapper's and
+    the plain version's event ms (the pose pass has none of its own: it runs
+    inside the linearization's call) against the bound by bytes. Returns the
+    ``kernels`` entries; none on the CPU."""
+    if device.type != "cuda":
+        log("LM-iteration kernels: the CPU runs their plain versions; nothing to compare")
+        return []
+    from slambench import run as bench      # the benchmark's maps of the visual cells
+    root = pathlib.Path(__file__).resolve().parent
+    entries = []
+    for cell_name in GBA_LM_CELLS:
+        cell, config = bench.load_cell(root, cell_name)
+        problem_mod = bench.load_problem(root, config)
+        solver = problem_mod.Solver(config, cell, problem_mod.make_map(config, cell, SEED), device)
+        sched = cell["schedule"]
+        solver.warm()
+        cuda_build.reset_launch_counts()
+        solver.solve([])
+        counts = dict(cuda_build.launch_counts)
+        check_gba_launches(f"{cell_name}'s solve", counts, sched["lm_iterations"],
+                           sched["cg_steps"], device,
+                           calls=-(-sched["lm_iterations"] // sched["chunk"]))
+        prob, seg = solver._assemble()
+        cam, huber = solver.cam, sched["huber_iterations"] > 0
+        lm_free = prob.lm_valid[:, None]
+        K, (M, D) = prob.poses.shape[0], prob.obs_kf.shape
+        L = seg.table.shape[1]
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+        got = global_ba.linearize(prob, cam, seg, huber, lm_free)
+        again = global_ba.linearize(prob, cam, seg, huber, lm_free)
+        total, n_active = global_ba.lm_cost(prob, cam, huber)
+        final = global_ba.lm_cost(prob, cam, False, per_slot=True)
+        want = global_ba.linearize_plain(prob, cam, seg, huber, lm_free)
+        want_final = global_ba.cost_plain(prob, cam, False, per_slot=True)
+        live = want.w != 0
+        errs = {f: rel(getattr(got, f)[live], getattr(want, f)[live]) for f in ("Jp", "Jl")}
+        errs.update({f: rel(getattr(got, f), getattr(want, f))
+                     for f in ("w", "g_p", "Hpp_diag", "g_l", "Hll_diag", "cost")})
+        errs["accept_cost"] = rel(total, global_ba.cost_plain(prob, cam, huber)[0])
+        errs["final_cost"] = rel(final[0], want_final[0])
+        errs["final_chi2"] = rel(final[2][want_final[3]], want_final[2][want_final[3]])
+        if not (torch.equal(got.w != 0, live) and torch.equal(got.n_active, want.n_active)):
+            fail(f"G4 at {cell_name}'s shapes: the live slots or the active count differ from "
+                 f"linearize_plain's ({int(got.n_active)} against {int(want.n_active)})")
+        if not (torch.equal(final[3], want_final[3]) and torch.equal(final[1], want_final[1])):
+            fail(f"G4 at {cell_name}'s shapes: the final pass's active mask or count differs from "
+                 f"cost_plain's ({int(final[1])} against {int(want_final[1])})")
+        if max(errs.values()) > GBA_REL_TOL:
+            fail(f"G4 against the plain versions at {cell_name}'s shapes: {errs} of the largest "
+                 f"value (limit {GBA_REL_TOL})")
+        if not all(torch.equal(getattr(got, f), getattr(again, f))
+                   for f in ("w", "g_p", "Hpp_diag", "g_l", "Hll_diag", "cost", "n_active")):
+            fail(f"G4 at {cell_name}'s shapes: two linearizations of one problem differ")
+        if not (torch.equal(total, got.cost) and torch.equal(n_active, got.n_active)):
+            fail(f"G4 at {cell_name}'s shapes: the accept test's cost {float(total)!r} is not the "
+                 f"linearization's {float(got.cost)!r} to the bit")
+        g = torch.Generator().manual_seed(0)
+        dp = (torch.randn(K, 6, generator=g) * 1e-3).to(device)
+        dl = (torch.randn(M, 3, generator=g) * 1e-2).to(device)
+        step, step_want = (gba_cuda.apply_step(dp, prob.poses, dl, prob.landmarks),
+                           gba_cuda.apply_step_plain(dp, prob.poses, dl, prob.landmarks))
+        errs["apply_step"] = rel(step[0], step_want[0])
+        if errs["apply_step"] > GBA_REL_TOL or not torch.equal(step[1], step_want[1]):
+            fail(f"G4's step at {cell_name}'s shapes: poses {errs['apply_step']:.3g} of the "
+                 f"largest value, or the landmarks not bit-equal")
+        torch.cuda.synchronize()
+
+        n_live = int(live.sum())
+        considered = prob.obs_mask & prob.lm_valid[:, None] & prob.pose_valid[prob.obs_kf]
+        n_cons = int(considered.sum())
+        n_held = int((seg.table < seg.n_obs).sum())
+        nb = -(-M // gba_cuda.landmarks_per_block(D))
+        # least bytes: every slot's mask and weight; a considered slot's
+        # keyframe index, uv, uR and 1/σ²; a live slot's Jp, Jl and w·r
+        # written; each landmark's point, flags, g_l and Hll; the poses; the
+        # partials. The pose pass: the table, the weight of each entry, a
+        # live slot's Jp and w·r, each pose's 42 outputs. The cost: the
+        # inputs of the first pass. The step: dp, T and the new pose, X, dl
+        # and the new landmark
+        slot_in = M * D * 1 + n_cons * 24 + M * 14 + K * 29
+        nbytes = {"gba_linearize": slot_in + M * D * 4 + n_live * 120 + M * 48 + nb * 8,
+                  "gba_pose_blocks": K * L * 8 + n_held * 4 + n_live * 84 + K * 168 + nb * 8,
+                  "gba_cost": slot_in + nb * 8,
+                  "gba_apply_step": K * (24 + 28 + 28) + M * 36}
+        # f32 instructions: ~45 to fit a considered slot, ~130 for a live
+        # slot's Jacobians and landmark partials; ~160 a live entry of the pose
+        # pass; ~150 a pose of the step, one add a landmark value
+        nops = {"gba_linearize": n_cons * 45 + n_live * 130 + M * 9 * D,
+                "gba_pose_blocks": n_live * 160 + K * L,
+                "gba_cost": n_cons * 45, "gba_apply_step": K * 150 + 3 * M}
+        def lin_call():
+            return global_ba.linearize(prob, cam, seg, huber, lm_free)
+
+        # (the wrapper's call, the kernels that are the pass's own there, its plain version)
+        passes = {
+            "gba_linearize": (lin_call, "gba_linearize_kernel",
+                              lambda: global_ba.linearize_plain(prob, cam, seg, huber, lm_free)),
+            "gba_pose_blocks": (None, "gba_pose_blocks_kernel", None),
+            "gba_cost": (lambda: global_ba.lm_cost(prob, cam, huber), "",
+                         lambda: global_ba.cost_plain(prob, cam, huber)),
+            "gba_apply_step": (lambda: gba_cuda.apply_step(dp, prob.poses, dl, prob.landmarks),
+                               "gba_apply_step_kernel",
+                               lambda: gba_cuda.apply_step_plain(dp, prob.poses, dl,
+                                                                 prob.landmarks))}
+        kernel_errs = {"gba_linearize": max(errs[f] for f in ("Jp", "Jl", "w", "g_l", "Hll_diag")),
+                       "gba_pose_blocks": max(errs[f] for f in ("g_p", "Hpp_diag", "cost")),
+                       "gba_cost": max(errs[f] for f in ("accept_cost", "final_cost",
+                                                         "final_chi2")),
+                       "gba_apply_step": errs["apply_step"]}
+        for name, (call, kernel, plain) in passes.items():
+            t, by = bound(nbytes[name], nops[name])
+            entries.append({"name": name, "cell": cell_name, "route": "cuda",
+                            "source": "orb_slam3_rgbl_tpu_torch/csrc/gba.cu", "replaces": None,
+                            "launches": counts[name], "max_rel_err": kernel_errs[name],
+                            "ms": time_cuda(call) if call else None,
+                            "device_ms": kernel_device_ms(call or lin_call, kernel),
+                            "plain_ms": time_cuda(plain) if plain else None, "bound_ms": t,
+                            "bound_by": by, "library_ms": None})
+        log(f"LM-iteration kernels at {cell_name}'s shapes (K {K}, M {M}, D {D}, {n_live} live and "
+            f"{n_cons} considered of {M * D} slots, pose table width {L}): against the plain "
+            f"versions {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} of the largest value; "
+            f"active count and the final pass's active mask exact; the accept test's cost the "
+            f"linearization's to the bit; two calls the same bits")
+
+        for e in entries[-4:]:
+            timed = ("no call of its own (inside gba_linearize's)" if e["ms"] is None else
+                     f"event ms {e['ms']:.4f} (the wrapper's call), plain {e['plain_ms']:.4f} ms")
+            log(f"  {e['name']}: {e['launches']} launches in one solve of the cell; {timed}, "
+                f"device ms {e['device_ms']:.4f}, bound {e['bound_ms']:.4f} ms by {e['bound_by']}")
+    return entries
 
 
 def phase6_relocalization(cfg, sysm, frames, device):
@@ -4485,7 +4644,7 @@ def phase17(device, card: str):
 # card idle most of the time, and a process slows down as it ages (§7 of
 # PERF.md), so the groups run fresh and side by side
 CHILD_FLAGS = ("--loop-phases", "--canyon-phases", "--phase13", "--phase14", "--phase15",
-               "--phase16", "--phase17", "--gba-inertial")
+               "--phase16", "--phase17", "--gba-inertial", "--gba-lm")
 
 
 def flag_value(argv, flag: str):
@@ -4672,6 +4831,8 @@ def main():
             loop_phases(device, card)
         if "--gba-inertial" in argv:
             print(json.dumps({"gba_kernels": gba_inertial_kernels(device)}), flush=True)
+        if "--gba-lm" in argv:
+            print(json.dumps({"gba_kernels": gba_lm_kernels(device)}), flush=True)
         if "--canyon-phases" in argv:
             value = flag_value(argv, "--canyon-phases")
             canyon_phases(device, card, json.loads(value) if value else (0.0, 0.0, 0))

@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 launch_counts = {"fast_and_blur": 0, "brief_continuous": 0, "brief_blocks": 0,
                  "gba_hv": 0, "gba_pose_sum": 0, "gba_cg_update": 0, "gba_cg_direction": 0,
-                 "gba_pair_hv": 0}
+                 "gba_pair_hv": 0, "gba_linearize": 0, "gba_pose_blocks": 0, "gba_cost": 0,
+                 "gba_apply_step": 0}
 ptxas_log: dict = {}      # source name → nvcc's -Xptxas -v report
 
 _libs: dict = {}

@@ -28,21 +28,39 @@ The whole-map inertial solve (``optim/global_inertial_ba``) runs them on
 launches ``gba_pair_hv``, the inertial pairs' half of H·v with the visual
 pose sums, the damping, the state mask and the dot product v·H·v in one
 block (``pair_hv_plain`` its plain version, the same bits).
+
+The visual solve's LM iteration outside CG runs here too, on the card
+alone: ``linearize`` launches ``gba_linearize`` (each slot's residual,
+weight, cost and Jacobians, landmark-major; the landmark gradient and
+diagonal blocks summed in slot order in the same pass) and
+``gba_pose_blocks`` (each pose's gradient and diagonal block from its live
+slots in ``PoseSegments`` order, and the cost summed from the first pass's
+block partials); ``cost`` launches the same two kernels without the
+Jacobians and the poses (the accept test's cost and active count, through
+the same per-slot routine and the same order of sums, so a cost and the cost
+of the step after it compare rounded alike); ``apply_step`` launches
+``gba_apply_step`` (the step's pose and landmark update; on the CPU its
+plain version ``apply_step_plain``). The plain versions of ``linearize`` and
+``cost`` are the solver's own (``optim/global_ba``), which the CPU runs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from orb_slam3_rgbl_tpu_torch import cuda_build
+from orb_slam3_rgbl_tpu_torch.geometry import lie
+from orb_slam3_rgbl_tpu_torch.geometry.camera import is_fisheye
 
 THREADS = 256          # csrc/gba.cu THREADS: threads of a block, slots of an H·v tile
 MAX_D = THREADS        # csrc/gba.cu MAX_D: most observation slots a landmark
 PAIR_THREADS = 1024    # csrc/gba.cu PAIR_THREADS: threads of the one gba_pair_hv block
 WIDTHS = (6, 15)       # pose blocks of the visual solve, states of the inertial one
+PINHOLE, PINHOLE_DISTORTED, KB8 = 0, 1, 2     # csrc/gba.cu's camera models
 
 
 def hv_plain(Jp, Jl, w, obs_kf, segments, v_p, v_l, lam_l, lm_free):
@@ -145,11 +163,16 @@ def landmarks_per_block(D: int) -> int:
 def _kernels() -> dict:
     lib = cuda_build.library("gba")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fp = ctypes.POINTER(ctypes.c_float)
     fns = {"hv": (lib.gba_hv_f32, [p] * 11 + [i] * 5 + [p]),
            "pose_sum": (lib.gba_pose_sum_f32, [p] * 3 + [i, i, ll, p, i, p, p, p]),
            "update": (lib.gba_cg_update_f32, [p] * 20 + [i, i, i, p]),
            "direction": (lib.gba_cg_direction_f32, [p] * 8 + [i, i, i, p]),
-           "pair_hv": (lib.gba_pair_hv_f32, [p] * 13 + [i] * 3 + [p])}
+           "pair_hv": (lib.gba_pair_hv_f32, [p] * 13 + [i] * 3 + [p]),
+           "linearize": (lib.gba_linearize_f32, [p] * 10 + [fp] + [i] * 7 + [p] * 10 + [p]),
+           "pose_blocks": (lib.gba_pose_blocks_f32, [p] * 4 + [i, i, ll] + [p] * 2 + [i]
+                           + [p] * 4 + [p]),
+           "apply_step": (lib.gba_apply_step_f32, [p] * 6 + [i, i, p])}
     for fn, argtypes in fns.values():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -384,3 +407,162 @@ class PairProduct:
                 self.Lp, torch.cuda.current_stream(dev).cuda_stream))
         cuda_build.launch_counts[fn] += 1
         return Hv, pAp
+
+
+# --- the LM iteration outside CG ---------------------------------------------
+
+class Linearization(NamedTuple):
+    """One linearization of the visual whole-map problem (``linearize``)."""
+
+    Jp: torch.Tensor        # (M, D, 3, 6); on the card 0 where w == 0
+    Jl: torch.Tensor        # (M, D, 3, 3); the same
+    w: torch.Tensor         # (M, D) weights, 0 where a slot is not active
+    g_p: torch.Tensor       # (K, 6): Σ Jpᵀ·w·r over each pose's slots (before pose_free)
+    Hpp_diag: torch.Tensor  # (K, 36): Σ (w·Jp)ᵀ·Jp
+    g_l: torch.Tensor       # (M, 3): Σ Jlᵀ·w·r over each landmark's slots, times lm_free
+    Hll_diag: torch.Tensor  # (M, 3, 3): Σ w·Jlᵀ·Jl
+    cost: torch.Tensor      # () the robust cost
+    n_active: torch.Tensor  # () int64 the active observations
+
+
+def apply_step_plain(dp, poses, dl, lms):
+    """The LM step's candidate: each pose exp(dp)·T renormalized, each
+    landmark X + dl."""
+    return lie.se3_normalize(lie.se3_mul(lie.se3_exp(dp), poses)), lms + dl
+
+
+def camera_params(cam, huber=None):
+    """(model, 12 float32s) for ``gba_linearize``: fx, fy, cx, cy, bf, the
+    distortion terms (k1, k2, p1, p2, k3 of a pinhole; k0..k3 of a KB8), the
+    Huber thresholds ``huber`` (stereo, mono; zeros for None)."""
+    if is_fisheye(cam):
+        model, k = KB8, (cam.k0, cam.k1, cam.k2, cam.k3, 0.0)
+    elif cam.has_distortion:
+        model, k = PINHOLE_DISTORTED, (cam.k1, cam.k2, cam.p1, cam.p2, cam.k3)
+    else:
+        model, k = PINHOLE, (0.0,) * 5
+    values = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, *k, *(huber or (0.0, 0.0)))
+    return model, (ctypes.c_float * len(values))(*values)
+
+
+def _check_problem(fn_name: str, P):
+    """A ``BAProblem`` as the slot kernels take it; returns (device, K, M, D)."""
+    dev = _device(fn_name, P.poses)
+    K, (M, D) = P.poses.shape[0], P.obs_kf.shape
+    f32, b = torch.float32, torch.bool
+    for name, t, dtype, shape in (
+            ("poses", P.poses, f32, (K, 7)), ("landmarks", P.landmarks, f32, (M, 3)),
+            ("lm_valid", P.lm_valid, b, (M,)), ("pose_valid", P.pose_valid, b, (K,)),
+            ("obs_kf", P.obs_kf, torch.int64, (M, D)), ("obs_uv", P.obs_uv, f32, (M, D, 2)),
+            ("obs_ur", P.obs_ur, f32, (M, D)), ("obs_inv_sigma2", P.obs_inv_sigma2, f32, (M, D)),
+            ("obs_mask", P.obs_mask, b, (M, D))):
+        _check(fn_name, name, t, dtype, shape, dev)
+    return dev, K, M, D
+
+
+def _slot_args(P):
+    return (P.poses.data_ptr(), P.landmarks.data_ptr(), P.lm_valid.data_ptr(),
+            P.pose_valid.data_ptr(), P.obs_kf.data_ptr(), P.obs_uv.data_ptr(),
+            P.obs_ur.data_ptr(), P.obs_inv_sigma2.data_ptr(), P.obs_mask.data_ptr())
+
+
+def _partials(dev, M: int, D: int):
+    """(landmarks a block, blocks, cost partials, count partials) of the slot kernels."""
+    lpb = landmarks_per_block(D)
+    nb = max(1, -(-M // lpb))
+    return (lpb, nb, torch.empty((nb,), dtype=torch.float32, device=dev),
+            torch.empty((nb,), dtype=torch.int32, device=dev))
+
+
+def linearize(problem, cam, segments, huber, lm_free) -> Linearization:
+    """One linearization of a ``BAProblem`` on the card (its ``segments``
+    the ``PoseSegments`` of its observation table, ``huber`` the Huber
+    thresholds (stereo, mono) or None, ``lm_free`` (M, 1) bool): one launch
+    each of ``gba_linearize`` and ``gba_pose_blocks``. Float32 fields, int64
+    keyframe indices, contiguous."""
+    fn = "gba_linearize"
+    dev, K, M, D = _check_problem(fn, problem)
+    _check(fn, "lm_free", lm_free, torch.bool, (M, 1), dev)
+    L = segments.table.shape[1]
+    _check(fn, "segments.table", segments.table, torch.int64, (K, L), dev)
+    if segments.n_obs != M * D:
+        raise ValueError(f"{fn}: segments of {segments.n_obs} slots for a ({M}, {D}) table")
+    model, params = camera_params(cam, huber)
+    lpb, nb, cost_part, count_part = _partials(dev, M, D)
+    f32 = torch.float32
+    Jp = torch.empty((M, D, 3, 6), dtype=f32, device=dev)
+    Jl = torch.empty((M, D, 3, 3), dtype=f32, device=dev)
+    w = torch.empty((M, D), dtype=f32, device=dev)
+    wr = torch.empty((M, D, 3), dtype=f32, device=dev)
+    g_l = torch.empty((M, 3), dtype=f32, device=dev)
+    Hll = torch.empty((M, 3, 3), dtype=f32, device=dev)
+    g_p = torch.empty((K, 6), dtype=f32, device=dev)
+    Hpp = torch.empty((K, 36), dtype=f32, device=dev)
+    total = torch.empty((), dtype=f32, device=dev)
+    n_active = torch.empty((), dtype=torch.int64, device=dev)
+    k = _kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(fn, k["linearize"](
+            *_slot_args(problem), lm_free.data_ptr(), params, model, int(huber is not None), 1, M,
+            D, lpb, nb, Jp.data_ptr(), Jl.data_ptr(), w.data_ptr(), wr.data_ptr(),
+            g_l.data_ptr(), Hll.data_ptr(), None, None, cost_part.data_ptr(),
+            count_part.data_ptr(), stream))
+        cuda_build.launch_counts[fn] += 1
+        _raise_on("gba_pose_blocks", k["pose_blocks"](
+            Jp.data_ptr(), w.data_ptr(), wr.data_ptr(), segments.table.data_ptr(), K, L, M * D,
+            cost_part.data_ptr(), count_part.data_ptr(), nb, g_p.data_ptr(), Hpp.data_ptr(),
+            total.data_ptr(), n_active.data_ptr(), stream))
+        cuda_build.launch_counts["gba_pose_blocks"] += 1
+    return Linearization(Jp=Jp, Jl=Jl, w=w, g_p=g_p, Hpp_diag=Hpp, g_l=g_l, Hll_diag=Hll,
+                         cost=total, n_active=n_active)
+
+
+def cost(problem, cam, huber, per_slot: bool = False):
+    """(cost, active count) of a ``BAProblem`` as it stands, on the card;
+    with ``per_slot`` also each slot's chi² and active mask (M, D). The
+    slot pass is ``gba_linearize``'s without Jacobians, its sum
+    ``gba_pose_blocks``' last block: two launches, one ``gba_cost`` count, and
+    the same bits as ``linearize``'s cost for the same poses and landmarks."""
+    fn = "gba_cost"
+    dev, K, M, D = _check_problem(fn, problem)
+    model, params = camera_params(cam, huber)
+    lpb, nb, cost_part, count_part = _partials(dev, M, D)
+    total = torch.empty((), dtype=torch.float32, device=dev)
+    n_active = torch.empty((), dtype=torch.int64, device=dev)
+    chi2 = torch.empty((M, D), dtype=torch.float32, device=dev) if per_slot else None
+    active = torch.empty((M, D), dtype=torch.bool, device=dev) if per_slot else None
+    k = _kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(fn, k["linearize"](
+            *_slot_args(problem), None, params, model, int(huber is not None), 0, M, D, lpb, nb,
+            *(None,) * 6, chi2.data_ptr() if per_slot else None,
+            active.data_ptr() if per_slot else None, cost_part.data_ptr(),
+            count_part.data_ptr(), stream))
+        _raise_on(fn, k["pose_blocks"](
+            None, None, None, None, 0, 0, 0, cost_part.data_ptr(), count_part.data_ptr(), nb,
+            None, None, total.data_ptr(), n_active.data_ptr(), stream))
+    cuda_build.launch_counts[fn] += 1
+    return (total, n_active, chi2, active) if per_slot else (total, n_active)
+
+
+def apply_step(dp, poses, dl, lms):
+    """``apply_step_plain``; on the card one launch of ``gba_apply_step``
+    (dp (K, 6), poses (K, 7), dl and lms (M, 3): float32, contiguous)."""
+    if poses.device.type == "cpu":
+        return apply_step_plain(dp, poses, dl, lms)
+    fn = "gba_apply_step"
+    dev = _device(fn, poses)
+    K, M = poses.shape[0], lms.shape[0]
+    for name, t, shape in (("dp", dp, (K, 6)), ("poses", poses, (K, 7)), ("dl", dl, (M, 3)),
+                           ("lms", lms, (M, 3))):
+        _check(fn, name, t, torch.float32, shape, dev)
+    new_poses = torch.empty((K, 7), dtype=torch.float32, device=dev)
+    new_lms = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _raise_on(fn, _kernels()["apply_step"](
+            dp.data_ptr(), poses.data_ptr(), dl.data_ptr(), lms.data_ptr(), new_poses.data_ptr(),
+            new_lms.data_ptr(), K, M, torch.cuda.current_stream(dev).cuda_stream))
+    cuda_build.launch_counts[fn] += 1
+    return new_poses, new_lms

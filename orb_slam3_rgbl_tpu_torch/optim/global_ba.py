@@ -16,10 +16,16 @@ O(K + M) memory.
 A CG step runs in ``ops/gba_cuda``: on the card as hand-written kernels
 (``csrc/gba.cu``) that read each live slot's Jacobians once a step and fuse
 the preconditioner with the step's vector updates; on the CPU as their plain
-PyTorch versions.
+PyTorch versions. So does the LM iteration around it: the linearization
+with its gradient and diagonal blocks (``linearize``), the step's update
+(``gba_cuda.apply_step``) and the accept test's cost (``lm_cost``), whose
+per-slot arithmetic and order of sums are the linearization's; on the card
+as ``gba_cuda``'s kernels, on the CPU as ``linearize_plain`` /
+``cost_plain`` here. The damping, the block inverses and the accept
+decision stay PyTorch ops.
 
 The sums of per-observation values onto their poses run once a CG step and
-twice a linearization. ``obs_kf`` is fixed for the whole solve, so the
+once a linearization. ``obs_kf`` is fixed for the whole solve, so the
 observations are sorted by keyframe once (``PoseSegments``): each pose then
 gathers its own observations into a padded row and sums it, in the same
 order on every run, so two solves of one problem give the same bits (an atomic
@@ -40,9 +46,9 @@ the single-device solve's, op for op.
 Under ``torch.profiler`` each stage is a span (``utils/profiling.tracer``):
 ``gba.segments`` around ``PoseSegments``; ``gba.lm`` around a solve, and
 inside it, per LM iteration, ``gba.linearize`` (linearization, gradient,
-pose blocks), ``gba.precond`` (landmark blocks, damping, inverses, the PCG
+landmark and pose blocks), ``gba.precond`` (damping, inverses, the PCG
 set-up), one ``gba.cg_step`` per CG step and ``gba.accept`` (the update, its
-re-linearization, the accept test, the damping), then ``gba.final``. They
+cost, the accept test, the damping), then ``gba.final``. They
 follow one another with nothing between them, so their device windows tile
 the iteration. Without a profiler they cost one check a call.
 """
@@ -53,12 +59,15 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from orb_slam3_rgbl_tpu_torch.geometry import lie
 from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam3_rgbl_tpu_torch.ops import gba_cuda
 from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem, _diag_part, _linearize
-from orb_slam3_rgbl_tpu_torch.optim.pose_opt import CHI2_MONO, CHI2_STEREO
+from orb_slam3_rgbl_tpu_torch.optim.pose_opt import (CHI2_MONO, CHI2_STEREO, HUBER_MONO,
+                                                      HUBER_STEREO)
 from orb_slam3_rgbl_tpu_torch.utils.profiling import tracer
+
+
+HUBER = (HUBER_STEREO, HUBER_MONO)     # the Huber thresholds of a stereo and a mono slot
 
 
 class GBAResult(NamedTuple):
@@ -149,10 +158,52 @@ def lm_accept(cost, n_active, cost_new, n_active_new, lam):
     return accept, torch.where(accept, (lam * 0.4).clamp_min(1e-8), (lam * 5.0).clamp_max(1e4))
 
 
+def linearize_plain(problem, cam, segments, use_huber: bool, lm_free) -> gba_cuda.Linearization:
+    """``local_ba._linearize`` of every slot, then the gradient and the
+    block-Jacobi diagonal blocks from its Jacobians, the pose parts summed
+    by ``segments``."""
+    r, Jp, Jl, w, _, active, cost = _linearize(problem, cam, use_huber,
+                                               torch.ones_like(problem.obs_mask))
+    M, D = w.shape
+    wr = w[..., None] * r                                              # (M, D, 3)
+    wJp = w[..., None, None] * Jp
+    g_p = segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wr))
+    Hpp_diag = segments.sum((wJp.transpose(-1, -2) @ Jp).reshape(M, D, 36))
+    return gba_cuda.Linearization(Jp=Jp, Jl=Jl, w=w, g_p=g_p, Hpp_diag=Hpp_diag,
+                                  g_l=torch.einsum("mdij,mdi->mj", Jl, wr) * lm_free,
+                                  Hll_diag=torch.einsum("mdij,md,mdik->mjk", Jl, w, Jl),
+                                  cost=cost, n_active=active.sum())
+
+
+def cost_plain(problem, cam, use_huber: bool, per_slot: bool = False):
+    """(cost, active count) of the problem as it stands; with ``per_slot``
+    also each slot's chi² and active mask (M, D)."""
+    *_, chi2, active, cost = _linearize(problem, cam, use_huber, torch.ones_like(problem.obs_mask))
+    return (cost, active.sum(), chi2, active) if per_slot else (cost, active.sum())
+
+
+def linearize(problem, cam, segments, use_huber: bool, lm_free) -> gba_cuda.Linearization:
+    """The residuals' Jacobians and weights, the gradient, the diagonal
+    blocks and the cost (``gba_cuda.Linearization``) of ``problem`` as it
+    stands: ``gba_cuda.linearize`` on the card, ``linearize_plain`` on the
+    CPU."""
+    if problem.poses.device.type == "cpu":
+        return linearize_plain(problem, cam, segments, use_huber, lm_free)
+    return gba_cuda.linearize(problem, cam, segments, HUBER if use_huber else None, lm_free)
+
+
+def lm_cost(problem, cam, use_huber: bool, per_slot: bool = False):
+    """``cost_plain``'s values: ``gba_cuda.cost`` on the card (its sums in
+    ``linearize``'s order), ``cost_plain`` on the CPU."""
+    if problem.poses.device.type == "cpu":
+        return cost_plain(problem, cam, use_huber, per_slot)
+    return gba_cuda.cost(problem, cam, HUBER if use_huber else None, per_slot)
+
+
 def ba_cost(problem: BAProblem, cam: PinholeCamera) -> torch.Tensor:
     """The plain (no Huber) cost of a problem as it stands: what
     ``GBAResult.cost`` reports after a solve."""
-    return _linearize(problem, cam, False, torch.ones_like(problem.obs_mask))[-1]
+    return lm_cost(problem, cam, False)[0]
 
 
 def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseSegments,
@@ -176,9 +227,7 @@ def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseS
 
 def _solve(problem, cam, segments, iterations, cg_iters, huber_iters, all_reduce, span):
     K = problem.poses.shape[0]
-    M, D = problem.obs_kf.shape
     dtype, dev = problem.poses.dtype, problem.poses.device
-    all_obs = torch.ones_like(problem.obs_mask)
 
     pose_free = ((~problem.pose_fixed) & problem.pose_valid)[:, None]      # (K, 1)
     lm_free = problem.lm_valid[:, None]                                     # (M, 1)
@@ -192,32 +241,29 @@ def _solve(problem, cam, segments, iterations, cg_iters, huber_iters, all_reduce
 
     poses, lms = problem.poses, problem.landmarks
     lam = torch.full((), 1e-3, dtype=dtype, device=dev)
+    floor6, floor3 = 1e-7 * eye6, 1e-7 * eye3
     for it in range(iterations):
         with span("gba.linearize"):
             P = problem._replace(poses=poses, landmarks=lms)
             use_huber = it < huber_iters
-            r, Jp, Jl, w, chi2, active, cost = _linearize(P, cam, use_huber, all_obs)
-            # gradient g = Jᵀ W r and the block-Jacobi preconditioner's pose blocks
-            wr = w[..., None] * r                                              # (M, D, 3)
-            wJp = w[..., None, None] * Jp
-            cost, n_active, g_p, Hpp_diag = _summed(
-                all_reduce, cost, active.sum(),
-                segments.sum(torch.einsum("mdij,mdi->mdj", Jp, wr)),
-                segments.sum((wJp.transpose(-1, -2) @ Jp).reshape(M, D, 36)))
+            # residuals, Jacobians, the gradient g = Jᵀ W r and the
+            # block-Jacobi preconditioner's diagonal blocks
+            lin = linearize(P, cam, segments, use_huber, lm_free)
+            cost, n_active, g_p, Hpp_diag = _summed(all_reduce, lin.cost, lin.n_active, lin.g_p,
+                                                    lin.Hpp_diag)
             g_p = g_p.reshape(K, 6) * pose_free
-            g_l = torch.einsum("mdij,mdi->mj", Jl, wr) * lm_free
+            g_l, Hll_diag = lin.g_l, lin.Hll_diag
 
         with span("gba.precond"):
             # block-Jacobi preconditioner (damped diagonal blocks)
             Hpp_diag = Hpp_diag.reshape(K, 6, 6)
-            Hll_diag = torch.einsum("mdij,md,mdik->mjk", Jl, w, Jl)
-            Hpp_d = Hpp_diag + lam * _diag_part(Hpp_diag) + 1e-7 * eye6
-            Hll_d = Hll_diag + lam * _diag_part(Hll_diag) + 1e-7 * eye3
+            Hpp_d = Hpp_diag + lam * _diag_part(Hpp_diag) + floor6
+            Hll_d = Hll_diag + lam * _diag_part(Hll_diag) + floor3
             Minv_p = torch.linalg.inv_ex(torch.where(pose_free[..., None], Hpp_d, eye6))[0]
             Minv_l = torch.linalg.inv_ex(torch.where(lm_free[..., None], Hll_d, eye3))[0]
             lam_p = lam * torch.diagonal(Hpp_diag, dim1=-2, dim2=-1) + 1e-7    # (K, 6)
             lam_l = lam * torch.diagonal(Hll_diag, dim1=-2, dim2=-1) + 1e-7    # (M, 3)
-            hv = gba_cuda.HessianProduct(Jp, Jl, w, P.obs_kf, segments, lam_l, lm_free)
+            hv = gba_cuda.HessianProduct(lin.Jp, lin.Jl, lin.w, P.obs_kf, segments, lam_l, lm_free)
             # inv_ex returns column-major blocks; the kernel reads them row-major
             precond = gba_cuda.BlockJacobi(Minv_p.contiguous(), Minv_l.contiguous(),
                                            pose_free, lm_free)
@@ -234,18 +280,16 @@ def _solve(problem, cam, segments, iterations, cg_iters, huber_iters, all_reduce
         dp, dl = pcg_steps(cg, H_apply_dot, precond, dot, cg_iters, span)
 
         with span("gba.accept"):
-            new_poses = lie.se3_normalize(lie.se3_mul(lie.se3_exp(dp), poses))
-            new_lms = lms + dl
+            new_poses, new_lms = gba_cuda.apply_step(dp, poses, dl, lms)
             P2 = problem._replace(poses=new_poses, landmarks=new_lms)
-            *_, active2, cost_new = _linearize(P2, cam, use_huber, all_obs)
-            cost_new, n_active2 = _summed(all_reduce, cost_new, active2.sum())
+            cost_new, n_active2 = _summed(all_reduce, *lm_cost(P2, cam, use_huber))
             accept, lam = lm_accept(cost, n_active, cost_new, n_active2, lam)
             poses = torch.where(accept, new_poses, poses)
             lms = torch.where(accept, new_lms, lms)
 
     with span("gba.final"):
         P = problem._replace(poses=poses, landmarks=lms)
-        _, _, _, _, chi2, active, cost = _linearize(P, cam, False, all_obs)
+        cost, _, chi2, active = lm_cost(P, cam, False, per_slot=True)
         (cost,) = _summed(all_reduce, cost)
         th = torch.where(problem.obs_ur >= 0, CHI2_STEREO, CHI2_MONO)
         return GBAResult(poses=poses, landmarks=lms, obs_inlier=active & (chi2 <= th), cost=cost)

@@ -12,7 +12,13 @@ kernels (``csrc/gba.cu``) are held to on the card.
 * on CPU tensors the wrappers return the plain versions' bits and launch
   nothing; the plain CG updates are the textbook step;
 * the H·v kernel's blocks hold whole landmarks and start on 16 bytes where
-  the slot count allows.
+  the slot count allows;
+* the LM iteration's entry points (``global_ba.linearize`` and ``lm_cost``,
+  ``gba_cuda.apply_step``) on CPU tensors return, bit for bit, what the solver computed before its
+  kernels (``local_ba._linearize``, the gradient and block einsums,
+  ``PoseSegments.sum``, the ``lie`` update), for stereo and mono slots,
+  Huber on and off, masked slots, invalid landmarks, a fixed and an invalid
+  pose, a landmark behind its cameras, a distorted pinhole and a KB8 camera.
 
 On a card (``gpu``, skipped without one): ``gba_pair_hv`` and the 15-wide
 ``gba_cg_update`` and ``gba_cg_direction`` give their plain versions' bits;
@@ -20,20 +26,36 @@ On a card (``gpu``, skipped without one): ``gba_pair_hv`` and the 15-wide
 alone (the visual solve's path); a whole inertial solve waits for nothing,
 repeats to the bit and launches each CG kernel once a step; the loop
 closer runs it on an initialized inertial map and writes back poses,
-velocities and biases."""
+velocities and biases. The LM iteration's kernels (``gba_linearize``,
+``gba_pose_blocks``, ``gba_cost``, ``gba_apply_step``) against their plain
+versions for the cases above and at the EuRoC cell's shapes (M 32,768, D 8,
+~72% live): 1e-5 of the largest value, the active count and mask exact, the
+accept test's cost the linearization's to the bit, two calls the same bits; a
+visual solve launches each once an LM iteration, repeats to the bit and
+runs no cuBLAS kernel in its ``gba.linearize`` and ``gba.accept`` spans."""
 
 import numpy as np
 import pytest
 import torch
 
 from orb_slam3_rgbl_tpu_torch import cuda_build, synthetic
-from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
+from orb_slam3_rgbl_tpu_torch.geometry import lie
+from orb_slam3_rgbl_tpu_torch.geometry.camera import KannalaBrandt8Camera, PinholeCamera
 from orb_slam3_rgbl_tpu_torch.ops import gba_cuda
 from orb_slam3_rgbl_tpu_torch.optim import global_ba
 from orb_slam3_rgbl_tpu_torch.optim.local_ba import _linearize
 
 CAM = PinholeCamera(fx=718.856, fy=718.856, cx=607.19, cy=185.22, width=1241, height=376,
                     bf=386.14)
+CAMS = {"pinhole": CAM,
+        # EuRoC's left camera with its radial-tangential terms, TUM-VI's fisheye
+        "distorted": PinholeCamera(fx=458.654, fy=457.296, cx=367.215, cy=248.375, k1=-0.28340811,
+                                   k2=0.07395907, p1=0.00019359, p2=1.76187114e-05, k3=0.01,
+                                   width=752, height=480, bf=47.9),
+        "kb8": KannalaBrandt8Camera(fx=190.978, fy=190.973, cx=254.932, cy=256.897, k0=0.00348,
+                                    k1=0.000715, k2=-0.00205, k3=0.000203, width=512, height=512)}
+LM_CASES = {"stereo_mono_huber": ("pinhole", True), "no_huber": ("pinhole", False),
+            "distorted": ("distorted", True), "kb8": ("kb8", True)}    # (camera, Huber)
 
 
 @pytest.fixture(scope="module")
@@ -385,3 +407,239 @@ def test_the_loop_closers_inertial_ba_on_the_card(cuda):
         assert np.abs(getattr(m, f)[live] - a).max() > 0, f
     assert float(out[2].cost) < 0.5 * float(vi_gba.global_inertial_ba.vi_cost(snapshot[0],
                                                                               cfg.geo_camera))
+
+
+# --- the LM iteration outside CG ----------------------------------------------
+
+def lm_problem(cam, K, M, D, seed, device, live=1.0):
+    """``synth_gba_problem``'s map with every pose turned by a small rotation,
+    1/σ² of eight pyramid levels, the second slot of every landmark mono,
+    pose 0 fixed, pose K // 2 invalid, every 9th landmark invalid and
+    landmark 5 thrown behind its cameras; ``live`` keeps that share of the
+    observed slots."""
+    prob, _, _ = synthetic.synth_gba_problem(K, M, D, cam, seed=seed, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    q = torch.cat([torch.ones(K, 1), 0.01 * torch.randn(K, 3, generator=g)], 1)
+    poses = prob.poses.clone()
+    poses[1:, :4] = (q / q.norm(dim=1, keepdim=True))[1:]
+    lms = prob.landmarks.clone()
+    lms[5, 2] -= 100.0
+    ur = prob.obs_ur.clone()
+    ur[:, 1] = -1.0
+    inv_s2 = 1.44 ** -torch.randint(0, 8, (M, D), generator=g).float()
+    mask = prob.obs_mask & (torch.rand(M, D, generator=g) < live)
+    prob = prob._replace(poses=poses, landmarks=lms, obs_ur=ur, obs_inv_sigma2=inv_s2,
+                         obs_mask=mask, pose_valid=torch.arange(K) != K // 2,
+                         lm_valid=torch.arange(M) % 9 != 4)
+    return type(prob)(*(t.to(device) for t in prob))
+
+
+def test_camera_params_name_the_model_and_its_terms():
+    for name, model in (("pinhole", gba_cuda.PINHOLE), ("distorted", gba_cuda.PINHOLE_DISTORTED),
+                        ("kb8", gba_cuda.KB8)):
+        cam = CAMS[name]
+        got, params = gba_cuda.camera_params(cam, global_ba.HUBER)
+        values = np.frombuffer(bytes(params), np.float32)
+        assert got == model and values.shape == (12,)
+        np.testing.assert_array_equal(values[:5], np.float32([cam.fx, cam.fy, cam.cx, cam.cy,
+                                                              cam.bf]))
+        terms = ((cam.k0, cam.k1, cam.k2, cam.k3, 0) if name == "kb8" else
+                 (cam.k1, cam.k2, cam.p1, cam.p2, cam.k3) if name == "distorted" else (0,) * 5)
+        np.testing.assert_array_equal(values[5:10], np.float32(terms))
+        np.testing.assert_array_equal(values[10:], np.float32([np.sqrt(7.815), np.sqrt(5.991)]))
+        _, params = gba_cuda.camera_params(cam, None)
+        np.testing.assert_array_equal(np.frombuffer(bytes(params), np.float32)[10:], 0)
+
+
+@pytest.mark.parametrize("case", LM_CASES)
+def test_lm_wrappers_on_the_cpu_give_the_solvers_former_bits(case):
+    cam_name, huber = LM_CASES[case]
+    cam = CAMS[cam_name]
+    prob = lm_problem(cam, 10, 300, 5, 7, "cpu")
+    K, (M, D) = prob.poses.shape[0], prob.obs_kf.shape
+    seg = global_ba.PoseSegments(prob.obs_kf, prob.obs_mask, K)
+    lm_free = prob.lm_valid[:, None]
+    before = dict(cuda_build.launch_counts)
+    lin = global_ba.linearize(prob, cam, seg, huber, lm_free)
+    # the solver's code before its kernels, op for op
+    r, Jp, Jl, w, chi2, active, cost = _linearize(prob, cam, huber, torch.ones_like(prob.obs_mask))
+    wr = w[..., None] * r
+    wJp = w[..., None, None] * Jp
+    want = dict(Jp=Jp, Jl=Jl, w=w, cost=cost, n_active=active.sum(),
+                g_p=seg.sum(torch.einsum("mdij,mdi->mdj", Jp, wr)),
+                Hpp_diag=seg.sum((wJp.transpose(-1, -2) @ Jp).reshape(M, D, 36)),
+                g_l=torch.einsum("mdij,mdi->mj", Jl, wr) * lm_free,
+                Hll_diag=torch.einsum("mdij,md,mdik->mjk", Jl, w, Jl))
+    for field, t in want.items():
+        assert torch.equal(getattr(lin, field), t), field
+    got = global_ba.lm_cost(prob, cam, huber)
+    assert torch.equal(got[0], cost) and torch.equal(got[1], active.sum())
+    *_, chi2_f, active_f, cost_f = _linearize(prob, cam, False, torch.ones_like(prob.obs_mask))
+    got = global_ba.lm_cost(prob, cam, False, per_slot=True)
+    for a, b in zip(got, (cost_f, active_f.sum(), chi2_f, active_f)):
+        assert torch.equal(a, b)
+    g = torch.Generator().manual_seed(8)
+    dp, dl = torch.randn(K, 6, generator=g) * 0.01, torch.randn(M, 3, generator=g) * 0.01
+    new_p, new_l = gba_cuda.apply_step(dp, prob.poses, dl, prob.landmarks)
+    assert torch.equal(new_p, lie.se3_normalize(lie.se3_mul(lie.se3_exp(dp), prob.poses)))
+    assert torch.equal(new_l, prob.landmarks + dl)
+    assert cuda_build.launch_counts == before
+    # the case holds what it names: live stereo and mono slots, masked slots,
+    # a slot behind its camera, the invalid landmarks' and pose's slots out
+    considered = prob.obs_mask & prob.lm_valid[:, None] & prob.pose_valid[prob.obs_kf]
+    live = w != 0
+    mono = prob.obs_ur < 0
+    assert (live & mono).any() and (live & ~mono).any() and (~prob.obs_mask).any()
+    assert (considered & ~active).any() and float(cost) >= 1e7
+    assert not live[~prob.lm_valid].any() and not live[prob.obs_kf == K // 2].any()
+    assert bool((w[live] < prob.obs_inv_sigma2[live]).any()) == huber
+
+
+# --- the LM iteration's kernels, on the card ----------------------------------
+
+LM_TOL = 1e-5       # of the largest value: float32 sums in other orders
+
+
+def _lm_case(case, device):
+    """(problem, camera, Huber) of a card test case: the CPU cases at
+    K 10, M 300, D 5, or the EuRoC cell's shapes (K 199, M 32,768, D 8,
+    ~72% of the slots live)."""
+    if case == "euroc_shape":
+        cam = PinholeCamera(fx=456.715, fy=456.715, cx=364.44, cy=256.95, width=752, height=480,
+                            bf=50.274)
+        return lm_problem(cam, 199, 32_768, 8, 19, device, live=0.8), cam, True
+    cam_name, huber = LM_CASES[case]
+    return lm_problem(CAMS[cam_name], 10, 300, 5, 7, device), CAMS[cam_name], huber
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(LM_CASES) + ["euroc_shape"])
+def test_lm_kernels_match_their_plain_versions(cuda, case):
+    """``linearize`` (``gba_linearize`` + ``gba_pose_blocks``), ``cost``
+    (``gba_linearize`` without Jacobians + ``gba_pose_blocks``' sum) and
+    ``apply_step`` against their plain
+    versions on the card: ``LM_TOL`` of the largest value, the active
+    count and the active mask exact, the landmarks' update bit for bit; the
+    accept test's cost the linearization's to the bit; two calls the same
+    bits; one launch of each kernel a call."""
+    prob, cam, huber = _lm_case(case, cuda)
+    K, (M, D) = prob.poses.shape[0], prob.obs_kf.shape
+    seg = global_ba.PoseSegments(prob.obs_kf, prob.obs_mask, K)
+    lm_free = prob.lm_valid[:, None]
+    counts = cuda_build.launch_counts
+    names = ("gba_linearize", "gba_pose_blocks", "gba_cost", "gba_apply_step")
+    before = {k: counts[k] for k in names}
+    got = global_ba.linearize(prob, cam, seg, huber, lm_free)
+    total, n_active = global_ba.lm_cost(prob, cam, huber)
+    torch.cuda.synchronize()
+    want = global_ba.linearize_plain(prob, cam, seg, huber, lm_free)
+    live = want.w != 0
+    if case == "euroc_shape":
+        share = float(live.float().mean())
+        assert 0.6 < share < 0.8, share
+    assert torch.equal(got.w != 0, live) and _rel(got.w, want.w) <= LM_TOL
+    # a slot of weight 0 holds zeros, so H·v's plain version reads finite values
+    assert not got.Jp[~live].any() and not got.Jl[~live].any()
+    for field in ("Jp", "Jl"):
+        a, b = getattr(got, field)[live], getattr(want, field)[live]
+        assert _rel(a, b) <= LM_TOL, (field, _rel(a, b))
+    for field in ("g_p", "Hpp_diag", "g_l", "Hll_diag", "cost"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.shape == b.shape and _rel(a, b) <= LM_TOL, (field, _rel(a, b))
+    assert got.n_active.dtype == torch.int64 and torch.equal(got.n_active, want.n_active)
+    assert not got.g_l[~lm_free[:, 0]].any()
+    assert torch.equal(total, got.cost) and torch.equal(n_active, got.n_active)
+    again = global_ba.linearize(prob, cam, seg, huber, lm_free)
+    for field in ("w", "g_p", "Hpp_diag", "g_l", "Hll_diag", "cost", "n_active"):
+        assert torch.equal(getattr(got, field), getattr(again, field)), field
+    assert torch.equal(got.Jp[live], again.Jp[live]) and torch.equal(got.Jl[live], again.Jl[live])
+    # the final pass: each slot's chi² and active mask
+    c, n, chi2, active = global_ba.lm_cost(prob, cam, False, per_slot=True)
+    c_w, n_w, chi2_w, active_w = global_ba.cost_plain(prob, cam, False, per_slot=True)
+    assert torch.equal(active, active_w) and torch.equal(n, n_w) and _rel(c, c_w) <= LM_TOL
+    assert _rel(chi2[active], chi2_w[active]) <= LM_TOL
+    g = torch.Generator().manual_seed(M)
+    dp = (torch.randn(K, 6, generator=g) * 0.01).to(cuda)
+    dp[0] = 0.0
+    dl = (torch.randn(M, 3, generator=g) * 0.01).to(cuda)
+    new_p, new_l = gba_cuda.apply_step(dp, prob.poses, dl, prob.landmarks)
+    want_p, want_l = gba_cuda.apply_step_plain(dp, prob.poses, dl, prob.landmarks)
+    assert _rel(new_p, want_p) <= LM_TOL and torch.equal(new_l, want_l)
+    assert torch.equal(new_p[0], prob.poses[0])            # a zero step keeps the pose
+    torch.cuda.synchronize()
+    assert {k: counts[k] - before[k] for k in names} == dict(
+        gba_linearize=2, gba_pose_blocks=2, gba_cost=2, gba_apply_step=1)
+
+
+def _span_kernels(prof, spans):
+    """{span: names of the kernels that start inside its device windows} of
+    a ``torch.profiler`` session, for the ``gba.*`` spans named."""
+    windows, kernels = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name()
+        if name in spans:
+            windows.append((name, e.start_ns(), e.end_ns()))
+        elif not name.startswith(("gba.", "Memcpy", "Memset")):
+            kernels.append((name, e.start_ns()))
+    found = {s: [] for s in spans}
+    for span, lo, hi in windows:
+        found[span] += [n for n, t in kernels if lo <= t <= hi]
+    return found
+
+
+@pytest.mark.gpu
+def test_visual_solve_on_the_card_goes_through_the_lm_kernels(cuda):
+    """A 4-iteration visual solve on the card: no wait for the device, one
+    launch of ``gba_linearize``, ``gba_pose_blocks`` and ``gba_apply_step``
+    an LM iteration and one ``gba_cost`` an iteration and once more in
+    ``gba.final``; the same bits twice; the accept test's cost pass on
+    ``gba_linearize_kernel`` and ``gba_pose_blocks_kernel``, and no cuBLAS
+    gemm or gemv inside its ``gba.linearize`` and ``gba.accept`` spans; the
+    CPU solve's cost within 1e-3."""
+    prob, cam, _ = _lm_case("euroc_shape", cuda)
+    prob = prob._replace(lm_valid=torch.ones_like(prob.lm_valid),
+                         landmarks=prob.landmarks.clone())
+    prob.landmarks[5, 2] += 100.0
+    K = prob.poses.shape[0]
+    seg = global_ba.PoseSegments(prob.obs_kf, prob.obs_mask, K)
+    its, cg = 4, 16
+
+    def run():
+        return global_ba.global_bundle_adjust(prob, cam, seg, iterations=its, cg_iters=cg)
+    global_ba.global_bundle_adjust(prob, cam, seg, iterations=1, cg_iters=2)
+    torch.cuda.synchronize()
+    counts = cuda_build.launch_counts
+    names = ("gba_linearize", "gba_pose_blocks", "gba_apply_step", "gba_cost")
+    before = {k: counts[k] for k in names}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert {k: counts[k] - before[k] for k in names} == dict(
+        gba_linearize=its, gba_pose_blocks=its, gba_apply_step=its, gba_cost=its + 1)
+    again = run()
+    for f in first._fields:
+        assert torch.equal(getattr(first, f), getattr(again, f)), f
+    assert float(first.cost) < 0.5 * float(global_ba.ba_cost(prob, cam))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    found = _span_kernels(prof, ("gba.linearize", "gba.accept"))
+    assert any("gba_linearize_kernel" in n for n in found["gba.linearize"]), found
+    for kernel in ("gba_linearize_kernel", "gba_pose_blocks_kernel"):
+        assert any(kernel in n for n in found["gba.accept"]), (kernel, found)
+    blas = [n for names_ in found.values() for n in names_ if "gemm" in n or "gemv" in n]
+    assert not blas, blas
+    p_c = type(prob)(*(t.cpu() for t in prob))
+    seg_c = global_ba.PoseSegments(p_c.obs_kf, p_c.obs_mask, K)
+    on_cpu = global_ba.global_bundle_adjust(p_c, cam, seg_c, iterations=its, cg_iters=cg)
+    np.testing.assert_allclose(float(first.cost), float(on_cpu.cost), rtol=1e-3)
