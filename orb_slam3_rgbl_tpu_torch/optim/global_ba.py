@@ -24,6 +24,14 @@ as ``gba_cuda``'s kernels, on the CPU as ``linearize_plain`` /
 ``cost_plain`` here. The damping, the block inverses and the accept
 decision stay PyTorch ops.
 
+The LM loop itself, ``lm_loop``, is the one both whole-map solves run:
+``global_bundle_adjust`` here on 6-wide poses, and
+``global_inertial_ba.global_inertial_bundle_adjust`` on 15-wide inertial
+states. It owns the schedule, the damping, the damped block-Jacobi set-up,
+the PCG steps, the accept test and the inlier class; each solve hands it
+its linearization (``normal_blocks`` builds the visual half of both), its
+H·v, its step and its cost.
+
 The sums of per-observation values onto their poses run once a CG step and
 once a linearization. ``obs_kf`` is fixed for the whole solve, so the
 observations are sorted by keyframe once (``PoseSegments``): each pose then
@@ -135,7 +143,7 @@ def pcg_steps(cg, H_apply_dot, precond, dot, cg_iters: int, span):
     """``cg_iters`` PCG steps from ``cg`` (``pcg_start``), one
     ``gba.cg_step`` span each; returns the iterate x. ``H_apply_dot(v)``:
     (H·v, v·H·v); ``precond``: the ``gba_cuda.BlockJacobi`` of the set-up.
-    The visual and the inertial solve both take their steps here."""
+    The step's vectors die with the call: only x outlives it."""
     x, rr, z, p, rz = cg
     for _ in range(cg_iters):
         with span("gba.cg_step"):
@@ -158,12 +166,10 @@ def lm_accept(cost, n_active, cost_new, n_active_new, lam):
     return accept, torch.where(accept, (lam * 0.4).clamp_min(1e-8), (lam * 5.0).clamp_max(1e4))
 
 
-def linearize_plain(problem, cam, segments, use_huber: bool, lm_free) -> gba_cuda.Linearization:
-    """``local_ba._linearize`` of every slot, then the gradient and the
-    block-Jacobi diagonal blocks from its Jacobians, the pose parts summed
-    by ``segments``."""
-    r, Jp, Jl, w, _, active, cost = _linearize(problem, cam, use_huber,
-                                               torch.ones_like(problem.obs_mask))
+def normal_blocks(r, Jp, Jl, w, cost, active, segments, lm_free) -> gba_cuda.Linearization:
+    """The gradient and the block-Jacobi diagonal blocks from the residuals
+    ``r`` (M, D, 3), Jacobians and weights of every slot, the pose parts
+    summed by ``segments``: the visual half of both whole-map solves."""
     M, D = w.shape
     wr = w[..., None] * r                                              # (M, D, 3)
     wJp = w[..., None, None] * Jp
@@ -173,6 +179,13 @@ def linearize_plain(problem, cam, segments, use_huber: bool, lm_free) -> gba_cud
                                   g_l=torch.einsum("mdij,mdi->mj", Jl, wr) * lm_free,
                                   Hll_diag=torch.einsum("mdij,md,mdik->mjk", Jl, w, Jl),
                                   cost=cost, n_active=active.sum())
+
+
+def linearize_plain(problem, cam, segments, use_huber: bool, lm_free) -> gba_cuda.Linearization:
+    """``local_ba._linearize`` of every slot, then ``normal_blocks``."""
+    r, Jp, Jl, w, _, active, cost = _linearize(problem, cam, use_huber,
+                                               torch.ones_like(problem.obs_mask))
+    return normal_blocks(r, Jp, Jl, w, cost, active, segments, lm_free)
 
 
 def cost_plain(problem, cam, use_huber: bool, per_slot: bool = False):
@@ -206,13 +219,82 @@ def ba_cost(problem: BAProblem, cam: PinholeCamera) -> torch.Tensor:
     return lm_cost(problem, cam, False)[0]
 
 
+def lm_loop(problem, unknowns, free, lm_free, width: int, linearize, step, cost, final,
+            iterations: int, cg_iters: int, huber_iters: int, span, all_reduce=None):
+    """The LM outer loop with PCG inner solves of both whole-map solves
+    (``global_bundle_adjust``: 6-wide poses; ``global_inertial_ba``: 15-wide
+    states): damping from 1e-3, Huber weights while the iteration is below
+    ``huber_iters``, the damped block-Jacobi preconditioner, ``cg_iters``
+    PCG steps, the accept test (``lm_accept``), then the final pass and each
+    observation's inlier class (active, χ² under the stereo / mono
+    threshold).
+
+    ``problem``: the solve's problem; its fields named in ``unknowns`` are
+    what a step moves, each selected by ``torch.where`` after the accept
+    test. ``free`` (K, 1) and ``lm_free`` (M, 1): the solved states and
+    landmarks; ``width``: the state's size. The solve supplies
+    ``linearize(problem, use_huber)`` → (cost, active count, (g_s, g_l) the
+    masked gradient halves, (H_s, H_l) the (K, width²) or (K, width, width)
+    and (M, 3, 3) diagonal blocks, ``hessian``), where ``hessian(lam_s,
+    lam_l)`` gives ``H_apply_dot(v_s, v_l)`` = (H·v, v·H·v) for the damping
+    vectors; ``step(problem, dx, dl)`` → the candidate; ``cost(problem,
+    use_huber)`` → (cost, active count); ``final(problem)`` → (plain cost,
+    χ² (M, D), active (M, D)). ``all_reduce``: adds the landmark half of
+    each CG dot product over the ranks. Returns (problem, obs_inlier,
+    cost)."""
+    dtype, dev = problem.landmarks.dtype, problem.landmarks.device
+    eye_s = torch.eye(width, dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+
+    def dot(a, b):
+        # the state half is replicated; the landmark half is this rank's
+        (lm_half,) = _summed(all_reduce, torch.sum(a[1] * b[1]))
+        return torch.sum(a[0] * b[0]) + lm_half
+
+    lam = torch.full((), 1e-3, dtype=dtype, device=dev)
+    floor_s, floor3 = 1e-7 * eye_s, 1e-7 * eye3
+    for it in range(iterations):
+        use_huber = it < huber_iters
+        with span("gba.linearize"):
+            # residuals, Jacobians, the gradient g = Jᵀ W r and the
+            # block-Jacobi preconditioner's diagonal blocks
+            cost_now, n_active, g, (H_s, H_l), hessian = linearize(problem, use_huber)
+
+        with span("gba.precond"):
+            # block-Jacobi preconditioner (damped diagonal blocks)
+            H_s = H_s.reshape(free.shape[0], width, width)
+            H_s_d = H_s + lam * _diag_part(H_s) + floor_s
+            H_l_d = H_l + lam * _diag_part(H_l) + floor3
+            Minv_s = torch.linalg.inv_ex(torch.where(free[..., None], H_s_d, eye_s))[0]
+            Minv_l = torch.linalg.inv_ex(torch.where(lm_free[..., None], H_l_d, eye3))[0]
+            lam_s = lam * torch.diagonal(H_s, dim1=-2, dim2=-1) + 1e-7    # (K, width)
+            lam_l = lam * torch.diagonal(H_l, dim1=-2, dim2=-1) + 1e-7    # (M, 3)
+            H_apply_dot = hessian(lam_s, lam_l)
+            # inv_ex returns column-major blocks; the kernel reads them row-major
+            precond = gba_cuda.BlockJacobi(Minv_s.contiguous(), Minv_l.contiguous(), free, lm_free)
+            cg = pcg_start(precond, g, dot)
+        dx, dl = pcg_steps(cg, H_apply_dot, precond, dot, cg_iters, span)
+
+        with span("gba.accept"):
+            new = step(problem, dx, dl)
+            cost_new, n_active_new = cost(new, use_huber)
+            accept, lam = lm_accept(cost_now, n_active, cost_new, n_active_new, lam)
+            problem = problem._replace(**{
+                f: torch.where(accept, getattr(new, f), getattr(problem, f)) for f in unknowns})
+
+    with span("gba.final"):
+        cost_now, chi2, active = final(problem)
+        th = torch.where(problem.obs_ur >= 0, CHI2_STEREO, CHI2_MONO)
+        return problem, active & (chi2 <= th), cost_now
+
+
 def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseSegments,
                          iterations: int = 8,
                          cg_iters: int = 24, huber_iters: int = 5,
                          all_reduce: Optional[Callable[[torch.Tensor], None]] = None) -> GBAResult:
     """LM outer loop with PCG inner solves over the full (pose, landmark)
-    state. Fixed/invalid poses and invalid landmarks are projected out of
-    the Krylov space by masking.
+    state (``lm_loop``). Fixed/invalid poses and invalid landmarks are
+    projected out of the Krylov space by masking.
 
     ``segments``: the ``PoseSegments`` of this problem's observation table
     (they serve every solve on that table; building them waits for the
@@ -222,74 +304,44 @@ def global_bundle_adjust(problem: BAProblem, cam: PinholeCamera, segments: PoseS
     result's cost is the sum over the ranks."""
     span = tracer(problem.poses.device)
     with span("gba.lm"):
-        return _solve(problem, cam, segments, iterations, cg_iters, huber_iters, all_reduce, span)
+        K = problem.poses.shape[0]
+        pose_free = ((~problem.pose_fixed) & problem.pose_valid)[:, None]      # (K, 1)
+        lm_free = problem.lm_valid[:, None]                                     # (M, 1)
 
-
-def _solve(problem, cam, segments, iterations, cg_iters, huber_iters, all_reduce, span):
-    K = problem.poses.shape[0]
-    dtype, dev = problem.poses.dtype, problem.poses.device
-
-    pose_free = ((~problem.pose_fixed) & problem.pose_valid)[:, None]      # (K, 1)
-    lm_free = problem.lm_valid[:, None]                                     # (M, 1)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-
-    def dot(a, b):
-        # the pose half is replicated; the landmark half is this rank's
-        (lm_half,) = _summed(all_reduce, torch.sum(a[1] * b[1]))
-        return torch.sum(a[0] * b[0]) + lm_half
-
-    poses, lms = problem.poses, problem.landmarks
-    lam = torch.full((), 1e-3, dtype=dtype, device=dev)
-    floor6, floor3 = 1e-7 * eye6, 1e-7 * eye3
-    for it in range(iterations):
-        with span("gba.linearize"):
-            P = problem._replace(poses=poses, landmarks=lms)
-            use_huber = it < huber_iters
-            # residuals, Jacobians, the gradient g = Jᵀ W r and the
-            # block-Jacobi preconditioner's diagonal blocks
+        def linearize_at(P, use_huber):
             lin = linearize(P, cam, segments, use_huber, lm_free)
             cost, n_active, g_p, Hpp_diag = _summed(all_reduce, lin.cost, lin.n_active, lin.g_p,
                                                     lin.Hpp_diag)
-            g_p = g_p.reshape(K, 6) * pose_free
-            g_l, Hll_diag = lin.g_l, lin.Hll_diag
 
-        with span("gba.precond"):
-            # block-Jacobi preconditioner (damped diagonal blocks)
-            Hpp_diag = Hpp_diag.reshape(K, 6, 6)
-            Hpp_d = Hpp_diag + lam * _diag_part(Hpp_diag) + floor6
-            Hll_d = Hll_diag + lam * _diag_part(Hll_diag) + floor3
-            Minv_p = torch.linalg.inv_ex(torch.where(pose_free[..., None], Hpp_d, eye6))[0]
-            Minv_l = torch.linalg.inv_ex(torch.where(lm_free[..., None], Hll_d, eye3))[0]
-            lam_p = lam * torch.diagonal(Hpp_diag, dim1=-2, dim2=-1) + 1e-7    # (K, 6)
-            lam_l = lam * torch.diagonal(Hll_diag, dim1=-2, dim2=-1) + 1e-7    # (M, 3)
-            hv = gba_cuda.HessianProduct(lin.Jp, lin.Jl, lin.w, P.obs_kf, segments, lam_l, lm_free)
-            # inv_ex returns column-major blocks; the kernel reads them row-major
-            precond = gba_cuda.BlockJacobi(Minv_p.contiguous(), Minv_l.contiguous(),
-                                           pose_free, lm_free)
+            def hessian(lam_p, lam_l):
+                # the tables from ``problem``: holding ``P`` would keep this
+                # iteration's poses and landmarks alive through the next
+                hv = gba_cuda.HessianProduct(lin.Jp, lin.Jl, lin.w, problem.obs_kf, segments,
+                                             lam_l, lm_free)
 
-            def H_apply_dot(v_p, v_l):
-                """(H·v, v·H·v); the landmark half of the dot travels with the
-                pose half of H·v."""
-                Hp, Hv_l, lm_half = hv(v_p, v_l)
-                Hp, lm_half = _summed(all_reduce, Hp, lm_half)
-                Hv_p = (Hp.reshape(K, 6) + lam_p * v_p) * pose_free
-                return (Hv_p, Hv_l), torch.sum(v_p * Hv_p) + lm_half
+                def H_apply_dot(v_p, v_l):
+                    """(H·v, v·H·v); the landmark half of the dot travels with
+                    the pose half of H·v."""
+                    Hp, Hv_l, lm_half = hv(v_p, v_l)
+                    Hp, lm_half = _summed(all_reduce, Hp, lm_half)
+                    Hv_p = (Hp.reshape(K, 6) + lam_p * v_p) * pose_free
+                    return (Hv_p, Hv_l), torch.sum(v_p * Hv_p) + lm_half
+                return H_apply_dot
 
-            cg = pcg_start(precond, (g_p, g_l), dot)
-        dp, dl = pcg_steps(cg, H_apply_dot, precond, dot, cg_iters, span)
+            g = (g_p.reshape(K, 6) * pose_free, lin.g_l)
+            return cost, n_active, g, (Hpp_diag, lin.Hll_diag), hessian
 
-        with span("gba.accept"):
-            new_poses, new_lms = gba_cuda.apply_step(dp, poses, dl, lms)
-            P2 = problem._replace(poses=new_poses, landmarks=new_lms)
-            cost_new, n_active2 = _summed(all_reduce, *lm_cost(P2, cam, use_huber))
-            accept, lam = lm_accept(cost, n_active, cost_new, n_active2, lam)
-            poses = torch.where(accept, new_poses, poses)
-            lms = torch.where(accept, new_lms, lms)
+        def step(P, dp, dl):
+            poses, lms = gba_cuda.apply_step(dp, P.poses, dl, P.landmarks)
+            return P._replace(poses=poses, landmarks=lms)
 
-    with span("gba.final"):
-        P = problem._replace(poses=poses, landmarks=lms)
-        cost, _, chi2, active = lm_cost(P, cam, False, per_slot=True)
-        (cost,) = _summed(all_reduce, cost)
-        th = torch.where(problem.obs_ur >= 0, CHI2_STEREO, CHI2_MONO)
-        return GBAResult(poses=poses, landmarks=lms, obs_inlier=active & (chi2 <= th), cost=cost)
+        def final(P):
+            cost, _, chi2, active = lm_cost(P, cam, False, per_slot=True)
+            (cost,) = _summed(all_reduce, cost)
+            return cost, chi2, active
+
+        P, inlier, cost = lm_loop(
+            problem, ("poses", "landmarks"), pose_free, lm_free, 6, linearize_at, step,
+            lambda P, use_huber: _summed(all_reduce, *lm_cost(P, cam, use_huber)), final,
+            iterations, cg_iters, huber_iters, span, all_reduce)
+        return GBAResult(poses=P.poses, landmarks=P.landmarks, obs_inlier=inlier, cost=cost)

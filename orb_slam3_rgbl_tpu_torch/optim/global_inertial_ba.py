@@ -26,20 +26,22 @@ built once, so two solves of one problem give the same bits; nothing in the
 solve waits for the device.
 
 The residuals are ``inertial_ba``'s: the visual ones through
-``_visual_linearize`` (T_cw = T_cb · Twb⁻¹), the pairs' nine preintegration
-and six bias-walk residuals with their Jacobians from
-``_inertial_linearize`` (forward-mode autodiff), weighted by
-``_pair_weights``. The LM loop is ``global_ba``'s, its PCG set-up, steps and
-accept test the same functions (``pcg_start``, ``pcg_steps``,
-``lm_accept``): damping from 1e-3, × 0.4 on an accepted step (≥ 1e-8), × 5
-on a rejected one (≤ 1e4); a step is kept where the total cost is lower,
-finite, and keeps half the active observations; Huber weights while the
-iteration is below ``huber_iters``.
+``_visual_linearize`` (T_cw = T_cb · Twb⁻¹), their gradient and blocks
+through ``global_ba.normal_blocks``, the pairs' nine preintegration and six
+bias-walk residuals with their Jacobians from ``_inertial_linearize``
+(forward-mode autodiff), weighted by ``_pair_weights``. The LM loop is
+``global_ba.lm_loop``, the visual solve's: damping from 1e-3, × 0.4 on an
+accepted step (≥ 1e-8), × 5 on a rejected one (≤ 1e4); a step is kept where
+the total cost is lower, finite, and keeps half the active observations;
+Huber weights while the iteration is below ``huber_iters``. This module
+supplies the linearization, H·v, step and cost of the 15-wide states.
 
 Under ``torch.profiler`` the spans are ``global_ba``'s (``gba.segments``,
 ``gba.lm`` ⊃ ``gba.linearize``, ``gba.precond``, ``gba.cg_step``,
 ``gba.accept``; ``gba.final``), with ``gba.imu_linearize`` inside
-``gba.linearize`` around the pairs' residuals and Jacobians.
+``gba.linearize`` around the pairs' residuals and Jacobians; the 15×15
+state and 3×3 landmark blocks are summed in ``gba.linearize``, as the
+visual solve's are.
 """
 
 from __future__ import annotations
@@ -51,13 +53,14 @@ import torch.nn.functional as F
 
 from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam3_rgbl_tpu_torch.ops import gba_cuda
-from orb_slam3_rgbl_tpu_torch.optim.global_ba import PoseSegments, lm_accept, pcg_start, pcg_steps
+from orb_slam3_rgbl_tpu_torch.optim.global_ba import PoseSegments, lm_loop, normal_blocks
 from orb_slam3_rgbl_tpu_torch.optim.inertial_ba import (S, VIBAProblem, VIBAResult,
                                                         _apply_state_delta, _inertial_cost,
                                                         _inertial_linearize, _visual_linearize)
-from orb_slam3_rgbl_tpu_torch.optim.local_ba import _diag_part
-from orb_slam3_rgbl_tpu_torch.optim.pose_opt import CHI2_MONO, CHI2_STEREO
 from orb_slam3_rgbl_tpu_torch.utils.profiling import tracer
+
+
+UNKNOWNS = ("Twb", "vel", "bg", "ba", "landmarks")   # the fields a step moves
 
 
 def pair_segments(pair_i: torch.Tensor, pair_j: torch.Tensor, n_states: int) -> PoseSegments:
@@ -86,8 +89,14 @@ def make_segments(problem: VIBAProblem) -> VISegments:
 def vi_cost(problem: VIBAProblem, cam: PinholeCamera) -> torch.Tensor:
     """The plain (no Huber) visual and inertial cost of a problem as it
     stands: what ``VIBAResult.cost`` reports after a solve."""
-    return (_visual_linearize(problem, cam, False, torch.ones_like(problem.obs_mask))[-1]
-            + _inertial_cost(problem))
+    return _cost(problem, cam, False, torch.ones_like(problem.obs_mask))[0]
+
+
+def _cost(P: VIBAProblem, cam, use_huber: bool, all_obs):
+    """(visual and inertial cost, χ² (M, D), active (M, D)) of ``P``;
+    ``all_obs`` an (M, D) mask of ones."""
+    *_, chi2, active, cost_v = _visual_linearize(P, cam, use_huber, all_obs)
+    return cost_v + _inertial_cost(P), chi2, active
 
 
 def _per_side(J_in: torch.Tensor) -> torch.Tensor:
@@ -107,83 +116,53 @@ def global_inertial_bundle_adjust(problem: VIBAProblem, cam: PinholeCamera,
     stereo / mono threshold) and the plain cost of the result."""
     span = tracer(problem.Twb.device)
     with span("gba.lm"):
-        return _solve(problem, cam, segments, iterations, cg_iters, huber_iters, span)
+        K = problem.Twb.shape[0]
+        all_obs = torch.ones_like(problem.obs_mask)
+        state_free = ((~problem.state_fixed) & problem.state_valid)[:, None]   # (K, 1)
+        lm_free = problem.lm_valid[:, None]                                     # (M, 1)
+        obs_seg, pair_seg = segments
 
-
-def _solve(problem, cam, segments, iterations, cg_iters, huber_iters, span):
-    K = problem.Twb.shape[0]
-    M, D = problem.obs_kf.shape
-    dtype, dev = problem.Twb.dtype, problem.Twb.device
-    all_obs = torch.ones_like(problem.obs_mask)
-    state_free = ((~problem.state_fixed) & problem.state_valid)[:, None]       # (K, 1)
-    lm_free = problem.lm_valid[:, None]                                         # (M, 1)
-    eye15 = torch.eye(S, dtype=dtype, device=dev)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    obs_seg, pair_seg = segments
-
-    def dot(a, b):
-        return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
-
-    P = problem
-    lam = torch.full((), 1e-3, dtype=dtype, device=dev)
-    for it in range(iterations):
-        with span("gba.linearize"):
-            use_huber = it < huber_iters
-            r, Jp, Jl, w, chi2, active, cost_v = _visual_linearize(P, cam, use_huber, all_obs)
+        def linearize(P, use_huber):
+            r, Jp, Jl, w, _, active, cost_v = _visual_linearize(P, cam, use_huber, all_obs)
             with span("gba.imu_linearize"):
                 r_in, J_in, w_in, cost_i = _inertial_linearize(P)
-            cost, n_active = cost_v + cost_i, active.sum()
-            wr = w[..., None] * r                                               # (M, D, 3)
-            wJp = w[..., None, None] * Jp
-            g_p = obs_seg.sum(torch.einsum("mdij,mdi->mdj", Jp, wr))            # (K, 6)
-            Hpp = obs_seg.sum((wJp.transpose(-1, -2) @ Jp).reshape(M, D, 36))
+            vis = normal_blocks(r, Jp, Jl, w, cost_v + cost_i, active, obs_seg, lm_free)
             # the pairs' gradient and diagonal blocks, entry by entry
             Js = _per_side(J_in)                                                # (2P, 15, 15)
             ws = w_in.repeat_interleave(2, dim=0)                               # (2P, 15)
             wr_in = (w_in * r_in).repeat_interleave(2, dim=0)
             g_pair = pair_seg.sum(torch.einsum("eij,ei->ej", Js, wr_in))
             H_pair = pair_seg.sum(torch.einsum("eij,ei,eik->ejk", Js, ws, Js).reshape(-1, S * S))
-            g_s = (F.pad(g_p, (0, S - 6)) + g_pair) * state_free
-            g_l = torch.einsum("mdij,mdi->mj", Jl, wr) * lm_free
+            g_s = (F.pad(vis.g_p, (0, S - 6)) + g_pair) * state_free
+            H_s = (F.pad(vis.Hpp_diag.reshape(K, 6, 6), (0, S - 6, 0, S - 6))
+                   + H_pair.reshape(K, S, S))
 
-        with span("gba.precond"):
-            Hss = F.pad(Hpp.reshape(K, 6, 6), (0, S - 6, 0, S - 6)) + H_pair.reshape(K, S, S)
-            Hll = torch.einsum("mdij,md,mdik->mjk", Jl, w, Jl)
-            Hss_d = Hss + lam * _diag_part(Hss) + 1e-7 * eye15
-            Hll_d = Hll + lam * _diag_part(Hll) + 1e-7 * eye3
-            Minv_s = torch.linalg.inv_ex(torch.where(state_free[..., None], Hss_d, eye15))[0]
-            Minv_l = torch.linalg.inv_ex(torch.where(lm_free[..., None], Hll_d, eye3))[0]
-            lam_s = lam * torch.diagonal(Hss, dim1=-2, dim2=-1) + 1e-7                # (K, 15)
-            lam_l = lam * torch.diagonal(Hll, dim1=-2, dim2=-1) + 1e-7                # (M, 3)
-            hv = gba_cuda.HessianProduct(Jp.contiguous(), Jl.contiguous(), w.contiguous(),
-                                         P.obs_kf, obs_seg, lam_l, lm_free)
-            pair_hv = gba_cuda.PairProduct(J_in.contiguous(), w_in.contiguous(), P.pair_i,
-                                           P.pair_j, pair_seg.table, lam_s.contiguous(),
-                                           state_free)
-            # inv_ex returns column-major blocks; the kernel reads them row-major
-            precond = gba_cuda.BlockJacobi(Minv_s.contiguous(), Minv_l.contiguous(),
-                                           state_free, lm_free)
+            def hessian(lam_s, lam_l):
+                # the tables from ``problem``, not ``P`` (global_bundle_adjust's note)
+                hv = gba_cuda.HessianProduct(Jp.contiguous(), Jl.contiguous(), w.contiguous(),
+                                             problem.obs_kf, obs_seg, lam_l, lm_free)
+                pair_hv = gba_cuda.PairProduct(J_in.contiguous(), w_in.contiguous(),
+                                               problem.pair_i, problem.pair_j, pair_seg.table,
+                                               lam_s.contiguous(), state_free)
 
-            def H_apply_dot(v_s, v_l):
-                """(H·v, v·H·v): the visual pose sums and landmark half, then
-                the pairs' half, the damping and the dot in one launch."""
-                Hp, Hv_l, lm_half = hv(v_s, v_l)
-                Hv_s, pAp = pair_hv(Hp, v_s, lm_half)
-                return (Hv_s, Hv_l), pAp
+                def H_apply_dot(v_s, v_l):
+                    """(H·v, v·H·v): the visual pose sums and landmark half,
+                    then the pairs' half, the damping and the dot in one
+                    launch."""
+                    Hp, Hv_l, lm_half = hv(v_s, v_l)
+                    Hv_s, pAp = pair_hv(Hp, v_s, lm_half)
+                    return (Hv_s, Hv_l), pAp
+                return H_apply_dot
 
-            cg = pcg_start(precond, (g_s, g_l), dot)
-        dx, dl = pcg_steps(cg, H_apply_dot, precond, dot, cg_iters, span)
+            return vis.cost, vis.n_active, (g_s, vis.g_l), (H_s, vis.Hll_diag), hessian
 
-        with span("gba.accept"):
-            P_new = _apply_state_delta(P, dx)._replace(landmarks=P.landmarks + dl)
-            *_, active2, cost_v2 = _visual_linearize(P_new, cam, use_huber, all_obs)
-            cost_new = cost_v2 + _inertial_cost(P_new)
-            accept, lam = lm_accept(cost, n_active, cost_new, active2.sum(), lam)
-            P = P._replace(**{f: torch.where(accept, getattr(P_new, f), getattr(P, f))
-                              for f in ("Twb", "vel", "bg", "ba", "landmarks")})
+        def accept_cost(P, use_huber):
+            cost, _, active = _cost(P, cam, use_huber, all_obs)
+            return cost, active.sum()
 
-    with span("gba.final"):
-        _, _, _, _, chi2, active, cost_v = _visual_linearize(P, cam, False, all_obs)
-        th = torch.where(problem.obs_ur >= 0, CHI2_STEREO, CHI2_MONO)
-        return VIBAResult(Twb=P.Twb, vel=P.vel, bg=P.bg, ba=P.ba, landmarks=P.landmarks,
-                          obs_inlier=active & (chi2 <= th), cost=cost_v + _inertial_cost(P))
+        P, inlier, cost = lm_loop(
+            problem, UNKNOWNS, state_free, lm_free, S, linearize,
+            lambda P, dx, dl: _apply_state_delta(P, dx)._replace(landmarks=P.landmarks + dl),
+            accept_cost, lambda P: _cost(P, cam, False, all_obs), iterations, cg_iters,
+            huber_iters, span)
+        return VIBAResult(*(getattr(P, f) for f in UNKNOWNS), obs_inlier=inlier, cost=cost)

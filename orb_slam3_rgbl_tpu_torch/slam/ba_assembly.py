@@ -38,6 +38,26 @@ def _tier(n: int, lo: int) -> int:
     return t
 
 
+def _gather(m: MapState, inv_sigma2: np.ndarray, max_obs: int, span):
+    """What both whole-map builders start from: the valid keyframes
+    (``window``), the valid landmarks, their observation table (obs_kf,
+    obs_feat, obs_mask, obs_uv, obs_ur) and each observation's octave weight,
+    gathered inside ``gba.gather``, and the gauge over the window: the
+    origin keyframe fixed, else the oldest."""
+    window = m.valid_kf_ids()
+    lm_ids = np.nonzero(m.lm_valid)[0]
+    with span("gba.gather"):
+        obs = m.gather_observations(window, lm_ids, max_obs)
+        kf_global = window[np.clip(obs[0], 0, max(len(window) - 1, 0))]
+        octv = m.kf_octave[kf_global, obs[1]].astype(np.int32)
+        inv_s2 = inv_sigma2[np.clip(octv, 0, len(inv_sigma2) - 1)].astype(np.float32)
+    fixed = np.zeros(len(window), bool)
+    fixed[np.nonzero(window == 0)[0]] = True
+    if len(window) and not fixed.any():
+        fixed[int(np.argmin(m.kf_frame_id[window]))] = True
+    return window, lm_ids, obs, inv_s2, fixed
+
+
 def build_full_problem(
     m: MapState,
     inv_sigma2: np.ndarray,
@@ -55,17 +75,10 @@ def build_full_problem(
     dev = resolve(device)
     span = tracer(dev)
     with span("gba.build"):
-        window = m.valid_kf_ids()
-        lm_ids = np.nonzero(m.lm_valid)[0]
+        window, lm_ids, obs, inv_s2, fixed = _gather(m, inv_sigma2, max_obs, span)
+        obs_kf, obs_feat, obs_mask, obs_uv, obs_ur = obs
         Kp = _tier(len(window), min_pose_tier)
         Mp = _tier(max(len(lm_ids), 1), min_lm_tier)
-
-        with span("gba.gather"):
-            obs_kf, obs_feat, obs_mask, obs_uv, obs_ur = m.gather_observations(
-                window, lm_ids, max_obs)
-            kf_global = window[np.clip(obs_kf, 0, len(window) - 1)]
-            octv = m.kf_octave[kf_global, obs_feat].astype(np.int32)
-            inv_s2 = inv_sigma2[np.clip(octv, 0, len(inv_sigma2) - 1)].astype(np.float32)
 
         def pad(a, n, fill=0):
             out = np.full((n,) + a.shape[1:], fill, a.dtype)
@@ -74,10 +87,7 @@ def build_full_problem(
 
         poses = pad(m.kf_pose[window], Kp)
         poses[len(window):, 0] = 1.0  # identity quaternions for padding
-        pose_fixed = np.zeros(Kp, bool)
-        pose_fixed[np.nonzero(window == 0)[0]] = True
-        if not pose_fixed[: len(window)].any():
-            pose_fixed[int(np.argmin(m.kf_frame_id[window]))] = True
+        pose_fixed = pad(fixed, Kp, False)
         pose_valid = pad(np.ones(len(window), bool), Kp, False)
 
         def up(a, dtype):
@@ -116,22 +126,11 @@ def build_full_vi_problem(m: MapState, inv_sigma2: np.ndarray, imu_cfg, max_obs:
     dev = resolve(device)
     span = tracer(dev)
     with span("gba.build"):
-        window = m.valid_kf_ids()
-        lm_ids = np.nonzero(m.lm_valid)[0]
+        window, lm_ids, obs, inv_s2, fixed = _gather(m, inv_sigma2, max_obs, span)
+        obs_kf, obs_feat, obs_mask, obs_uv, obs_ur = obs
         K = len(window)
-        with span("gba.gather"):
-            obs_kf, obs_feat, obs_mask, obs_uv, obs_ur = m.gather_observations(
-                window, lm_ids, max_obs)
-            kf_global = window[np.clip(obs_kf, 0, max(K - 1, 0))]
-            octv = m.kf_octave[kf_global, obs_feat].astype(np.int32)
-            inv_s2 = inv_sigma2[np.clip(octv, 0, len(inv_sigma2) - 1)].astype(np.float32)
-
         T_bc, T_cb = imu_frontend.extrinsics(imu_cfg)
         Twb = lie.np_se3_inv(lie.np_se3_mul(np.tile(T_bc, (K, 1)), m.kf_pose[window]))
-        fixed = np.zeros(K, bool)
-        fixed[np.nonzero(window == 0)[0]] = True
-        if K and not fixed.any():
-            fixed[int(np.argmin(m.kf_frame_id[window]))] = True
 
         # the temporal chain's links inside the window, in keyframe order
         slot = np.full(m.capacity_kf, -1, np.int64)

@@ -49,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -60,7 +60,8 @@ from orb_slam3_rgbl_tpu_torch.device import resolve
 from orb_slam3_rgbl_tpu_torch.geometry import lie
 from orb_slam3_rgbl_tpu_torch.ops import matching
 from orb_slam3_rgbl_tpu_torch.optim import global_ba, global_inertial_ba, pose_graph
-from orb_slam3_rgbl_tpu_torch.optim.inertial_ba import VIBAProblem, VIBAResult
+from orb_slam3_rgbl_tpu_torch.optim.inertial_ba import VIBAProblem
+from orb_slam3_rgbl_tpu_torch.optim.local_ba import BAProblem
 from orb_slam3_rgbl_tpu_torch.optim import sim3 as sim3_opt
 from orb_slam3_rgbl_tpu_torch.retrieval.keyframe_db import KeyFrameDatabase
 from orb_slam3_rgbl_tpu_torch.retrieval.tree_vocab import TreeVocabulary
@@ -76,6 +77,24 @@ RANSAC_HYPOTHESES = 512
 GBA_CG_ITERS = 64
 GBA_CHUNK = 2   # LM iterations per solver call; damping and the Huber phase restart with each
 GBA_VI_ITERATIONS = 7   # LM iterations of the inertial global BA, one call, Huber on each
+
+
+class GBASnapshot(NamedTuple):
+    """The global BA's snapshot (``LoopCloser._gba_assemble``): the
+    whole-map problem, its keyframe ids and landmark ids, the poses and the
+    landmarks' generations as they stood, the problem's sum tables, and
+    the route picked for it: the camera, the solve
+    (``solve(snapshot, iterations, abort_event)`` → result, None once
+    aborted) and the plain cost (``cost(problem, cam)``)."""
+    problem: Union[BAProblem, VIBAProblem]
+    window: np.ndarray
+    lm_ids: np.ndarray
+    pose_before: np.ndarray
+    lm_gen_before: np.ndarray
+    segments: object
+    cam: object
+    solve: Callable
+    cost: Callable
 
 
 @dataclasses.dataclass
@@ -653,68 +672,90 @@ class LoopCloser:
         t0 = time.perf_counter()
         with record_function("loop.gba"):
             snapshot = self._gba_assemble()
-            if isinstance(snapshot[0], VIBAProblem):
-                cost_before = global_inertial_ba.vi_cost(snapshot[0], self.cfg.geo_camera)
-            else:
-                cost_before = global_ba.ba_cost(snapshot[0], self.cam)
+            cost_before = snapshot.cost(snapshot.problem, snapshot.cam)
             self._apply_gba(self._gba_iterate(snapshot, iterations))
         if self.stats["events"]:
             self.stats["events"][-1].update(gba_cost_before=float(cost_before),
                                             gba_ms=(time.perf_counter() - t0) * 1e3)
 
-    def _gba_assemble(self):
+    def _gba_assemble(self) -> GBASnapshot:
         """Snapshot half of the global BA: the whole-map problem from the
         live arrays, with the per-pose observation table the solver sums
         through, the poses as they stand and the landmarks' generations.
         On an inertial map whose IMU is initialized the problem is the
         whole-map inertial one (``ba_assembly.build_full_vi_problem``) with
-        its observation and pair tables."""
+        its observation and pair tables. The one place that picks the
+        visual or the inertial route: the snapshot carries its camera,
+        solve and cost."""
         m = self.map
         inv_s2 = inv_scale_sigma2(self.cfg.orb.n_levels, self.cfg.orb.scale_factor,
                                   device="cpu").numpy()
-        if self.cfg.inertial and m.imu_initialized:
+        inertial = self.cfg.inertial and m.imu_initialized
+        if inertial:
             problem, window, lm_ids, _, _ = ba_assembly.build_full_vi_problem(
                 m, inv_s2, self.cfg.imu, device=self.device)
-            return (problem, window, lm_ids, m.kf_pose.copy(), m.lm_gen[lm_ids].copy(),
-                    global_inertial_ba.make_segments(problem))
-        # the real numbers of poses and landmarks: no padding tiers
-        problem, window, lm_ids, _, _ = ba_assembly.build_full_problem(
-            m, inv_s2, min_pose_tier=1, min_lm_tier=1, device=self.device)
-        # built (and sized, which waits for the device once) here, so that
-        # nothing in the solve does
-        segments = global_ba.PoseSegments(problem.obs_kf, problem.obs_mask,
-                                          problem.poses.shape[0])
-        return (problem, window, lm_ids, m.kf_pose.copy(), m.lm_gen[lm_ids].copy(), segments)
+            segments = global_inertial_ba.make_segments(problem)
+            solve, cost = self._solve_inertial, global_inertial_ba.vi_cost
+        else:
+            # the real numbers of poses and landmarks: no padding tiers
+            problem, window, lm_ids, _, _ = ba_assembly.build_full_problem(
+                m, inv_s2, min_pose_tier=1, min_lm_tier=1, device=self.device)
+            # built (and sized, which waits for the device once) here, so
+            # that nothing in the solve does
+            segments = global_ba.PoseSegments(problem.obs_kf, problem.obs_mask,
+                                              problem.poses.shape[0])
+            solve, cost = self._solve_visual, global_ba.ba_cost
+        cam = self.cfg.geo_camera if inertial else self.cam
+        return GBASnapshot(problem, window, lm_ids, m.kf_pose.copy(), m.lm_gen[lm_ids].copy(),
+                           segments, cam, solve, cost)
 
-    def _gba_iterate(self, snapshot, iterations: int = 6, abort_event=None):
-        """Solve half: LM iterations on the frozen snapshot, ``GBA_CHUNK`` at a
-        time (the chunks keep the solver's damping and Huber schedule as the
-        JAX package runs it). Touches no live map state. Before each chunk
-        it polls ``abort_event`` (the reference's ``mbStopGBA``) and returns
-        None once it is set. An inertial snapshot is solved in one call of
-        ``GBA_VI_ITERATIONS`` (``iterations`` is the visual solve's)."""
-        problem, window, lm_ids, pose_before, lm_gen_before, segments = snapshot
-        if isinstance(problem, VIBAProblem):
+    def _gba_iterate(self, snapshot: GBASnapshot, iterations: int = 6, abort_event=None):
+        """Solve half: the snapshot's solve on the frozen snapshot. Touches
+        no live map state; returns None once ``abort_event`` (the
+        reference's ``mbStopGBA``) is seen set."""
+        res = snapshot.solve(snapshot, iterations, abort_event)
+        return None if res is None else (snapshot.window, snapshot.lm_ids, res,
+                                         snapshot.pose_before, snapshot.lm_gen_before)
+
+    def _solve_visual(self, s: GBASnapshot, iterations: int, abort_event):
+        """``iterations`` LM iterations, ``GBA_CHUNK`` a call (the chunks keep
+        the solver's damping and Huber schedule as the JAX package runs
+        them), ``abort_event`` polled before each chunk."""
+        problem, res = s.problem, None
+        for it in range(0, iterations, GBA_CHUNK):
             if abort_event is not None and abort_event.is_set():
                 return None
-            res = global_inertial_ba.global_inertial_bundle_adjust(
-                problem, self.cfg.geo_camera, segments, iterations=GBA_VI_ITERATIONS,
-                cg_iters=GBA_CG_ITERS, huber_iters=GBA_VI_ITERATIONS)
-            self.counts["inertial_gba_runs"] += 1
-            return (window, lm_ids, res, pose_before, lm_gen_before)
-        poses, lms = problem.poses, problem.landmarks
-        res = None
-        it = 0
-        while it < iterations:
-            if abort_event is not None and abort_event.is_set():
-                return None
-            n = min(GBA_CHUNK, iterations - it)
-            res = global_ba.global_bundle_adjust(
-                problem._replace(poses=poses, landmarks=lms), self.cam, segments,
-                iterations=n, cg_iters=GBA_CG_ITERS)
-            poses, lms = res.poses, res.landmarks
-            it += n
-        return (window, lm_ids, res, pose_before, lm_gen_before)
+            res = global_ba.global_bundle_adjust(problem, s.cam, s.segments,
+                                                 iterations=min(GBA_CHUNK, iterations - it),
+                                                 cg_iters=GBA_CG_ITERS)
+            problem = problem._replace(poses=res.poses, landmarks=res.landmarks)
+        return res
+
+    def _solve_inertial(self, s: GBASnapshot, iterations: int, abort_event):
+        """One call of ``GBA_VI_ITERATIONS`` LM iterations, Huber on each
+        (``iterations`` is the visual solve's), ``abort_event`` polled
+        before it."""
+        if abort_event is not None and abort_event.is_set():
+            return None
+        res = global_inertial_ba.global_inertial_bundle_adjust(
+            s.problem, s.cam, s.segments, iterations=GBA_VI_ITERATIONS,
+            cg_iters=GBA_CG_ITERS, huber_iters=GBA_VI_ITERATIONS)
+        self.counts["inertial_gba_runs"] += 1
+        return res
+
+    def _gba_on_map(self, res, K: int):
+        """A solve's keyframe states as the map holds them: (K, 7) camera
+        poses, and the velocities and gyro and accel biases ((K, 3) each)
+        of a result that carries body states, its poses turned through
+        T_cb; None in their place after the visual solve."""
+        if not hasattr(res, "Twb"):
+            return res.poses.cpu().numpy().astype(np.float32)[:K], None
+        down = torch.cat([res.Twb.reshape(-1), res.vel.reshape(-1), res.bg.reshape(-1),
+                          res.ba.reshape(-1)]).cpu().numpy()
+        Twb, *states = np.split(down, np.cumsum([7 * K, 3 * K, 3 * K]))
+        T_cb = imu_frontend.extrinsics(self.cfg.imu)[1]
+        poses = lie.np_se3_mul(np.tile(T_cb, (K, 1)), lie.np_se3_inv(Twb.reshape(K, 7)))
+        return poses.astype(np.float32), [a.reshape(K, 3) for a in states]
 
     def _apply_gba(self, out) -> bool:
         """Staged GBA writeback + correction propagation (reference
@@ -725,18 +766,7 @@ class LoopCloser:
         window, lm_ids, res, pose_before, lm_gen_before = out
         m = self.map
         rec = self.stats["events"][-1] if self.stats["events"] else {}
-        inertial = isinstance(res, VIBAResult)
-        if inertial:
-            # the body states through T_cb, velocities and biases beside them
-            K = len(window)
-            down = torch.cat([res.Twb.reshape(-1), res.vel.reshape(-1), res.bg.reshape(-1),
-                              res.ba.reshape(-1)]).cpu().numpy()
-            Twb, vel, bg, ba = np.split(down, np.cumsum([7 * K, 3 * K, 3 * K]))
-            T_cb = imu_frontend.extrinsics(self.cfg.imu)[1]
-            new_poses = lie.np_se3_mul(np.tile(T_cb, (K, 1)),
-                                       lie.np_se3_inv(Twb.reshape(K, 7))).astype(np.float32)
-        else:
-            new_poses = res.poses.cpu().numpy().astype(np.float32)[: len(window)]
+        new_poses, states = self._gba_on_map(res, len(window))
         new_lms = res.landmarks.cpu().numpy().astype(np.float32)[: len(lm_ids)]
         rec.update(gba_poses=len(window), gba_landmarks=len(lm_ids),
                    gba_cost_after=float(res.cost))
@@ -757,10 +787,8 @@ class LoopCloser:
         before_all = m.kf_pose.copy()
         fresh_kfs = [int(k) for k in m.valid_kf_ids() if not in_window[k]]
         m.kf_pose[window] = new_poses
-        if inertial:
-            m.kf_vel[window] = vel.reshape(K, 3)
-            m.kf_bg[window] = bg.reshape(K, 3)
-            m.kf_ba[window] = ba.reshape(K, 3)
+        if states is not None:
+            m.kf_vel[window], m.kf_bg[window], m.kf_ba[window] = states
         ok = still & m.lm_valid[lm_ids]
         m.lm_pos[lm_ids[ok]] = new_lms[ok]
 
@@ -774,7 +802,7 @@ class LoopCloser:
                 anchor = int(window[-1])
             T_rel = lie.np_se3_mul(before_all[k], lie.np_se3_inv(before_all[anchor]))
             m.kf_pose[k] = lie.np_se3_mul(T_rel, m.kf_pose[anchor])
-            if inertial:
+            if states is not None:
                 # its velocity turns with its world rotation's correction,
                 # R_wc' · R_cw (the reference's Rcor); its biases stay
                 q_new = m.kf_pose[k, :4] * np.float32([1, -1, -1, -1])

@@ -2,7 +2,9 @@
 
 Under ``torch.profiler`` a solve of 2 LM iterations × 3 CG steps logs one
 ``gba.lm`` root holding, in order, ``gba.linearize``, ``gba.precond``, three
-``gba.cg_step`` and ``gba.accept`` per iteration, then ``gba.final``;
+``gba.cg_step`` and ``gba.accept`` per iteration, then ``gba.final``; the
+inertial solve, the same loop, also logs ``gba.imu_linearize`` inside each
+``gba.linearize``;
 ``build_full_problem`` logs ``gba.build`` around ``gba.gather`` and
 ``PoseSegments`` logs ``gba.segments``. The profiler's own events carry the
 same names. Traced or not, the solve gives the same bits. Without a profiler
@@ -18,7 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from orb_slam3_rgbl_tpu_torch import synthetic
 from orb_slam3_rgbl_tpu_torch.geometry.camera import PinholeCamera
-from orb_slam3_rgbl_tpu_torch.optim import global_ba
+from orb_slam3_rgbl_tpu_torch.optim import global_ba, global_inertial_ba
 from orb_slam3_rgbl_tpu_torch.slam import ba_assembly
 from orb_slam3_rgbl_tpu_torch.slam.map_state import MapState
 from orb_slam3_rgbl_tpu_torch.utils import profiling
@@ -27,6 +29,8 @@ CAM = PinholeCamera(fx=718.856, fy=718.856, cx=607.19, cy=185.22, width=1241, he
                     bf=386.14)
 LM_STAGES = (["gba.linearize", "gba.precond"] + ["gba.cg_step"] * 3 + ["gba.accept"]) * 2 \
     + ["gba.final"]
+VI_STAGES = (["gba.linearize", "gba.imu_linearize", "gba.precond"] + ["gba.cg_step"] * 3
+             + ["gba.accept"]) * 2 + ["gba.final"]
 
 
 @pytest.fixture(scope="module")
@@ -35,10 +39,38 @@ def problem():
     return prob, global_ba.PoseSegments(prob.obs_kf, prob.obs_mask, prob.poses.shape[0])
 
 
+@pytest.fixture(scope="module")
+def vi_problem():
+    """A small stereo-inertial map's whole-map problem, built as
+    ``test_torch_global_inertial_ba`` builds it: (problem, segments, camera)."""
+    import test_torch_global_inertial_ba as t
+    from slambench.problems import vi_gba
+    cell, config = t.small()
+    solver = vi_gba.Solver(config, cell, vi_gba.make_map(config, cell, t.SEED),
+                           torch.device("cpu"))
+    return (*solver._assemble(), solver.cam)
+
+
 def _solve(problem):
     prob, seg = problem
     return global_ba.global_bundle_adjust(prob, CAM, seg, iterations=2, cg_iters=3,
                                           huber_iters=1)
+
+
+def _solve_vi(vi_problem):
+    prob, seg, cam = vi_problem
+    return global_inertial_ba.global_inertial_bundle_adjust(prob, cam, seg, iterations=2,
+                                                            cg_iters=3, huber_iters=1)
+
+
+@pytest.fixture(params=["visual", "inertial"])
+def solve(request):
+    """(a solve of 2 LM iterations × 3 CG steps, the stages it logs in order)."""
+    if request.param == "visual":
+        problem = request.getfixturevalue("problem")
+        return (lambda: _solve(problem)), LM_STAGES
+    vi = request.getfixturevalue("vi_problem")
+    return (lambda: _solve_vi(vi)), VI_STAGES
 
 
 def _small_map(seed: int = 0) -> MapState:
@@ -67,14 +99,23 @@ def _profiled(fn):
     return out, profiling.span_log()[before:], prof
 
 
-def test_solve_logs_its_stages_in_order(problem):
-    _, spans, _ = _profiled(lambda: _solve(problem))
+def test_solve_logs_its_stages_in_order(solve):
+    run, expected = solve
+    _, spans, _ = _profiled(run)
     roots = [s for s in spans if s.name == "gba.lm"]
     assert len(roots) == 1 and roots[0].parent is None
     root = roots[0].root
-    stages = sorted((s for s in spans if s.name != "gba.lm"), key=lambda s: s.start)
-    assert [s.name for s in stages] == LM_STAGES
+    # by start; on a tie an enclosing stage before what it encloses
+    logged = sorted((s for s in spans if s.name != "gba.lm"),
+                    key=lambda s: (s.start, s.parent != "gba.lm"))
+    assert [s.name for s in logged] == expected
+    inner = [s for s in logged if s.name == "gba.imu_linearize"]
+    stages = [s for s in logged if s.name != "gba.imu_linearize"]
     assert all(s.parent == "gba.lm" and s.root == root for s in stages)
+    # the pairs' linearization inside each linearization
+    lins = [s for s in stages if s.name == "gba.linearize"]
+    assert all(i.parent == "gba.linearize" and i.root == root and l.start <= i.start
+               and i.end <= l.end for i, l in zip(inner, lins))
     # the stages follow one another inside the root's window
     assert roots[0].start <= stages[0].start and stages[-1].end <= roots[0].end
     assert all(a.end <= b.start for a, b in zip(stages, stages[1:]))
@@ -105,9 +146,11 @@ def test_profiler_events_carry_the_same_names(problem):
     assert sorted(names) == sorted(s.name for s in spans)
 
 
-def test_traced_solve_gives_the_same_bits(problem):
-    plain = _solve(problem)
-    traced, _, _ = _profiled(lambda: _solve(problem))
+def test_traced_solve_gives_the_same_bits(solve):
+    run, _ = solve
+    plain = run()
+    traced, _, _ = _profiled(run)
+    assert len(plain) == len(traced)
     for a, b in zip(plain, traced):
         assert torch.equal(a, b)
 
